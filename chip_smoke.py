@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. build the CUDA kernels from `src/repro_torch/kernels/csrc/`;
+  2. hold every kernel against its plain PyTorch version on the card, at
+     the main path's shapes, with exact equality, and time both;
+  3. memory mode: a 64 MiB float32 tensor in a `ProtectedMemoryArray` on
+     wl1024_r08 (writeback policy): write, inject uniform flips, read back
+     exactly, inject again, scrub, re-scrub clean;
+  4. PIM mode at the full width of the `paper-pim-2b` configuration
+     (wl320_r08, n_iters 4, damping 0.3, row parallelism 64): the
+     mlp_down (8192 -> 2048) and attn_o (2048 -> 2048) projections over 256
+     token rows must come out of `protected_pim_matmul` with a lower
+     integer error rate than the unprotected MAC;
+  5. the decoder and the protected matmul on the card against their plain
+     CPU run on a small input, exactly;
+  6. one more corrected read of the memory-mode array under
+     torch.profiler (device time by kernel, device idle share), and the
+     scan over the whole store against its plain version, exactly.
+
+Kernel launch counts are reset just before phase 3 and read just after
+phase 4: every kernel must have run on the main path. Each entry-point
+call of phases 3-4 (write, read, scrub, prepare_weights, each
+protected_pim_matmul) also reports the launches it made itself. The last lines are
+the card's name and power limit, one JSON object with each kernel's
+launches, error against its plain version and times, and
+{"ok": true, "device": {...}}. Without a CUDA device, or outside the
+repository, it prints no result and exits non-zero.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+MEMORY_MIB = 64          # size of the memory-mode tensor
+TOKEN_ROWS = 256         # activation rows of the PIM-mode projections
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound_ms denominators
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12
+
+REPLACES = {
+    "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
+    "scan_syndromes": "src/repro/kernels/gf_matmul.py:98",
+    "fbp_cn": "src/repro/kernels/fbp.py:89",
+    "pim_mac": "src/repro/kernels/pim_mac.py:43",
+}
+SOURCES = {
+    "gf_matmul": "src/repro_torch/kernels/csrc/gf_matmul.cu",
+    "scan_syndromes": "src/repro_torch/kernels/csrc/gf_matmul.cu",
+    "fbp_cn": "src/repro_torch/kernels/csrc/fbp.cu",
+    "pim_mac": "src/repro_torch/kernels/csrc/pim_mac.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device time of one call of `fn`, from CUDA events around
+    each of `reps` calls after a warm-up call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def launches_of(fn, per_call: dict, name: str):
+    """Run `fn` and record, under `name`, the kernel launches it made:
+    the change of every launch count across the call."""
+    from repro_torch.kernels import build
+    before = dict(build.LAUNCHES)
+    out = fn()
+    per_call[name] = {k: v - before.get(k, 0)
+                      for k, v in build.LAUNCHES.items()
+                      if v - before.get(k, 0)}
+    return out
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fbp_inputs(code, words: int, gen, device):
+    """Contribution-space CN messages of `words` codewords of `code`:
+    normalized random LLVs, with the max-plus identity in padded slots."""
+    import torch
+    from repro_torch.kernels.fbp import identity_msg
+    c, dc, p = code.c, code.dc_max, code.p
+    m = torch.randn((words, c, dc, p), generator=gen, device=device) * 4
+    m = m - m.amax(dim=-1, keepdim=True)
+    mask = code.tensor("cn_mask", device)[None, :, :, None]
+    m = torch.where(mask, m, identity_msg((c, dc), p, device=device))
+    return m.reshape(words * c, dc, p).contiguous()
+
+
+def phase_kernels(device) -> dict:
+    """Each kernel against its plain version at the main path's shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import get_code, np_encode_words
+    from repro_torch.kernels import fbp, gf_matmul, pim_mac
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    rows = {}
+
+    def record(name, out, ref, kernel, plain, library, nbytes, ops, peak):
+        err = (out.to(torch.float64) - ref.to(torch.float64)).abs().max()
+        err = float(err) if out.numel() else 0.0
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name}: kernel differs from its plain "
+                                 f"version (max abs err {err})")
+        b_ms, b_by = bound(nbytes, ops, peak)
+        row = {"name": name, "max_abs_err": err,
+               "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": cuda_ms(library, 20) if library else None}
+        rows.setdefault(name, []).append(row)
+        log(f"  {name} {list(out.shape)}: exact, {json.dumps(row)}")
+
+    code = get_code("wl1024_r08")
+    # scan: a page of 4096 stored words, about 10% of them corrupted
+    u = rng.integers(0, code.p, (4096, code.k))
+    words = np_encode_words(u, code)
+    bad = rng.random(4096) < 0.1
+    cols = rng.integers(0, code.n, 4096)
+    words[bad, cols[bad]] = (words[bad, cols[bad]] + 1) % code.p
+    y = torch.as_tensor(words, dtype=torch.int8, device=device)
+    ht = code.tensor("H.T", device, torch.int8)
+    flags = gf_matmul.scan_syndromes(y, ht, code.p)
+    if not torch.equal(flags.cpu(), torch.as_tensor(bad)):
+        raise AssertionError("scan_syndromes: flags differ from the "
+                             "corrupted rows")
+    M, K = y.shape
+    C = ht.shape[1]
+    record("scan_syndromes", flags,
+           gf_matmul.scan_syndromes_plain(y, ht, code.p),
+           lambda: gf_matmul.scan_syndromes(y, ht, code.p),
+           lambda: gf_matmul.scan_syndromes_plain(y, ht, code.p), None,
+           M * K + K * C + M, 2 * M * K * C, INT8_OPS_PER_S)
+
+    # encode: (4096, 819) x (819, 205)
+    a = torch.as_tensor(u, dtype=torch.int8, device=device)
+    P = code.tensor("P", device, torch.int8)
+    af, Pf = a.float(), P.float()
+    M, K = a.shape
+    N = P.shape[1]
+    record("gf_matmul", gf_matmul.gf_matmul(a, P, code.p),
+           gf_matmul.gf_matmul_plain(a, P, code.p),
+           lambda: gf_matmul.gf_matmul(a, P, code.p),
+           lambda: gf_matmul.gf_matmul_plain(a, P, code.p),
+           lambda: af @ Pf, M * K + K * N + 4 * M * N, 2 * M * K * N,
+           INT8_OPS_PER_S)
+
+    # FBP: one 256-word chunk of wl1024_r08 (p=3), and of wl160_r08_gf5
+    for name in ("wl1024_r08", "wl160_r08_gf5"):
+        c = get_code(name)
+        m = fbp_inputs(c, 256, gen, device)
+        N, dc, p = m.shape
+        ops = N * (3 * dc - 4) * 2 * p * p
+        record("fbp_cn", fbp.fbp_cn(m, p), fbp.fbp_cn_plain(m, p),
+               lambda m=m, p=p: fbp.fbp_cn(m, p),
+               lambda m=m, p=p: fbp.fbp_cn_plain(m, p), None,
+               2 * m.numel() * 4, ops, FP32_OPS_PER_S)
+
+    # PIM MAC: (256, 8192) x (8192, 2560), R=64, ideal and 6-level ADC
+    x = torch.randint(-7, 8, (256, 8192), generator=gen, device=device,
+                      dtype=torch.int8)
+    w = torch.randint(-1, 2, (8192, 2560), generator=gen, device=device,
+                      dtype=torch.int8)
+    xf, wf = x.float(), w.float()
+    B, K = x.shape
+    N = w.shape[1]
+    for adc in (0, 6):
+        kw = dict(row_parallelism=64, adc_levels=adc)
+        record("pim_mac", pim_mac.pim_mac(x, w, **kw),
+               pim_mac.pim_mac_plain(x, w, **kw),
+               lambda kw=kw: pim_mac.pim_mac(x, w, **kw),
+               lambda kw=kw: pim_mac.pim_mac_plain(x, w, **kw),
+               lambda: xf @ wf, B * K + K * N + 4 * B * N, 2 * B * K * N,
+               INT8_OPS_PER_S)
+    return rows
+
+
+def phase_memory(device, per_call: dict) -> dict:
+    """A MEMORY_MIB float32 tensor through a wl1024_r08 writeback array;
+    each entry-point call's kernel launches go into `per_call`."""
+    import numpy as np
+    import torch
+    from repro_torch.memory import ProtectedMemoryArray, uniform_flip
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t = torch.randn(MEMORY_MIB * 2 ** 18, generator=gen, device=device)
+    expect = t.cpu().numpy()
+    mem = ProtectedMemoryArray("wl1024_r08", controller="writeback",
+                               device=device, key=SEED)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = launches_of(fn, per_call, name.removesuffix("_s"))
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    st = timed("write_s", lambda: mem.write("t", t))
+    cells = st.enc.numel()
+    changed = timed("inject_s", lambda: mem.inject(uniform_flip(3, 1e-4)))
+    out = timed("read_s", lambda: mem.read("t"))
+    if not np.array_equal(out.view(np.uint8), expect.view(np.uint8)):
+        raise AssertionError("memory read-back differs from the written "
+                             "bytes")
+    s = mem.stats
+    if s.detected <= 0 or s.uncorrectable != 0:
+        raise AssertionError(f"read stats {s.correction_counts()}")
+    changed2 = mem.inject(uniform_flip(3, 1e-4))
+    rep = timed("scrub_s", lambda: mem.scrub())
+    clean = timed("rescrub_s", lambda: mem.scrub())
+    if rep["uncorrectable"] or clean["flagged"]:
+        raise AssertionError(f"scrub left errors: {rep['uncorrectable']} "
+                             f"uncorrectable, re-scan flagged "
+                             f"{clean['flagged']}")
+    res = {"words": st.enc.shape[0], "cells": cells,
+           "cells_changed": changed, "read_flagged": s.detected,
+           "read_corrected": s.corrected, "cells_changed_2": changed2,
+           "scrub_flagged": rep["flagged"],
+           "scrub_corrected": rep["corrected"],
+           "rescrub_flagged": clean["flagged"], **times}
+    log(f"  memory: {json.dumps(res)}")
+    return res, mem
+
+
+def phase_profile(mem) -> dict:
+    """Where a corrected read of the memory-mode array spends its time:
+    a fresh injection, then one read under torch.profiler (device time by
+    kernel, and the share of the read's wall time the device was busy),
+    and the scan kernel against its plain version over the whole store.
+
+    Busy time is the union of the intervals of the device's own events
+    (kernels, copies, sets): the profiler also charges each kernel's time
+    to the host op that launched it, so the host ops are left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import gf_matmul
+    from repro_torch.memory import uniform_flip
+    mem.inject(uniform_flip(3, 1e-4))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mem.read("t")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel: dict[str, float] = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (end - start)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    if not spans:
+        raise AssertionError("the profiler recorded no device events")
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    enc = mem.stored("t").enc
+    code = mem.code
+    ht = code.tensor("H.T", enc.device, torch.int8)
+    if not torch.equal(gf_matmul.scan_syndromes(enc, ht, code.p),
+                       gf_matmul.scan_syndromes_plain(enc, ht, code.p)):
+        raise AssertionError("scan_syndromes over the whole store differs "
+                             "from its plain version")
+    res = {"read_wall_ms_profiled": wall_us / 1e3,
+           "device_events": len(spans),
+           "device_event_sum_ms": sum(by_kernel.values()) / 1e3,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us,
+           "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top},
+           "full_scan_words": enc.shape[0],
+           "full_scan_ms": cuda_ms(
+               lambda: gf_matmul.scan_syndromes(enc, ht, code.p), 5),
+           "full_scan_plain_ms": cuda_ms(
+               lambda: gf_matmul.scan_syndromes_plain(enc, ht, code.p), 3)}
+    log(f"  profile: {json.dumps(res)}")
+    return res
+
+
+def phase_pim(device, per_call: dict) -> dict:
+    """paper-pim-2b's protected projections at full width; each
+    entry-point call's kernel launches go into `per_call`."""
+    import torch
+    from repro_torch.core import (PIMConfig, ProtectionConfig, get_code,
+                                  prepare_weights, protected_pim_matmul,
+                                  strip_padding)
+    code = get_code("wl320_r08")
+    cfg = PIMConfig(row_parallelism=64, adc_levels=0,
+                    output_error_rate=1e-3, p=code.p)
+    on = ProtectionConfig(code_name="wl320_r08", mode="correct", n_iters=4,
+                          damping=0.3)
+    off = ProtectionConfig(code_name="wl320_r08", mode="off")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    res = {}
+    for name, n_in, n_out in (("mlp_down", 8192, 2048),
+                              ("attn_o", 2048, 2048)):
+        W = torch.randint(-1, 2, (n_in, n_out), generator=gen, device=device,
+                          dtype=torch.int8)
+        x = torch.randint(-7, 8, (TOKEN_ROWS, n_in), generator=gen,
+                          device=device, dtype=torch.int8)
+        exact = (x.float() @ W.float()).to(torch.int32)   # exact: < 2^24
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W_enc = launches_of(lambda: prepare_weights(W, code), per_call,
+                            f"{name}.prepare_weights")
+        noise_seed = SEED + n_in
+        raw = launches_of(lambda: protected_pim_matmul(
+            x, W_enc, code, off, cfg, generator=torch.Generator(
+                device=device).manual_seed(noise_seed)),
+            per_call, f"{name}.matmul_off")
+        cor = launches_of(lambda: protected_pim_matmul(
+            x, W_enc, code, on, cfg, generator=torch.Generator(
+                device=device).manual_seed(noise_seed)),
+            per_call, f"{name}.matmul_correct")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        raw_err = float((strip_padding(raw.y, n_out) != exact).float().mean())
+        cor_err = float((strip_padding(cor.y, n_out) != exact).float().mean())
+        if not cor_err < raw_err:
+            raise AssertionError(f"{name}: error rate {cor_err} after "
+                                 f"correction, {raw_err} before")
+        res[name] = {"W_enc": list(W_enc.shape), "raw_error_rate": raw_err,
+                     "corrected_error_rate": cor_err,
+                     "detected_words": int(cor.detected.sum()),
+                     "uncorrected_words": int(cor.uncorrected.sum()),
+                     "seconds": dt}
+        log(f"  pim {name}: {json.dumps(res[name])}")
+    return res
+
+
+def phase_small_reference(device) -> None:
+    """The card's decoder and protected matmul against the plain CPU run
+    of the same functions on a small input: exactly equal."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (PIMConfig, ProtectionConfig,
+                                  decode_integers, get_code, np_encode_words,
+                                  prepare_weights, protected_pim_matmul)
+    rng = np.random.default_rng(SEED)
+    code = get_code("wl160_r08")
+    y = np_encode_words(rng.integers(0, code.p, (64, code.k)), code)
+    hit = rng.random(y.shape) < 0.02
+    y[hit] += rng.choice([-1, 1], hit.sum())
+    kw = dict(n_iters=8, damping=0.3, early_exit=True)
+    yc, rc = decode_integers(code, y, device="cpu", **kw)
+    yg, rg = decode_integers(code, y, device=device, **kw)
+    for a, b in zip((yc, *rc), (yg, *rg), strict=True):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError("decode on the card differs from the CPU")
+    W = rng.integers(-1, 2, (512, 256))
+    x = rng.integers(-7, 8, (16, 512))
+    noise = (rng.random((16, 320)) < 0.01) * rng.choice([-1, 1], (16, 320))
+    cfg = PIMConfig(row_parallelism=64, adc_levels=6)
+    prot = ProtectionConfig(code_name="wl320_r08", n_iters=4, damping=0.3)
+    code = get_code("wl320_r08")
+    outs = []
+    for dev in ("cpu", device):
+        W_enc = prepare_weights(torch.as_tensor(W, dtype=torch.int8,
+                                                device=dev), code)
+        r = protected_pim_matmul(
+            torch.as_tensor(x, dtype=torch.int8, device=dev), W_enc, code,
+            prot, cfg, out_noise=torch.as_tensor(noise, device=dev))
+        outs.append([t.cpu() for t in r])
+    if not all(torch.equal(a, b) for a, b in zip(*outs, strict=True)):
+        raise AssertionError("protected matmul on the card differs from "
+                             "the CPU")
+    log("  small inputs: card == CPU plain run (decode, protected matmul)")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import KERNELS, build
+
+    device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    log("phase 1: build")
+    build.library(verbose=True)
+    log(f"  built in {build.build_seconds:.2f} s")
+
+    log("phase 2: kernels against their plain versions")
+    rows = phase_kernels(device)
+
+    log("phase 3-4: main path (memory mode, PIM mode)")
+    build.reset_launches()
+    per_call: dict[str, dict] = {}
+    memory, mem = phase_memory(device, per_call)
+    pim = phase_pim(device, per_call)
+    launches = dict(build.LAUNCHES)
+    log(f"  launches on the main path: {launches}")
+    log(f"  launches per entry-point call: {json.dumps(per_call)}")
+    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+
+    log("phase 5: small inputs against the CPU")
+    phase_small_reference(device)
+
+    log("phase 6: where a read's time goes")
+    profile = phase_profile(mem)
+    del mem
+
+    # one row per kernel, at the shape its first check used (the main
+    # path's: p=3 for FBP, the ideal ADC for the MAC); the other checked
+    # shapes are in the phase 2 log lines above
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                **{k: rows[name][0][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}} for name in KERNELS]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
+                    "launches_per_call": per_call,
+                    "seconds": time.perf_counter() - t0}))
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Carry data across from the JAX package as plain numpy arrays.
+
+In this system data takes the place of weights: a code's Tanner graph and
+a tensor's stored cells. `code_from_arrays` rebuilds an `LDPCCode` from the
+fields of the JAX package's `LDPCCode` (any mapping of numpy arrays and
+ints, e.g. `{f: getattr(code, f) for f in CODE_FIELDS}`), and
+`stored_from_arrays` wraps persisted cell levels as a `StoredTensor` on a
+device, so both packages can run on the identical graph and cells.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.construction import LDPCCode
+from .device import resolve_device
+from .memory.array import StoredTensor
+
+CODE_FIELDS = ("p", "n", "k", "H", "G", "P", "cn_vns", "cn_coefs", "cn_mask",
+               "perm_to_contrib", "perm_to_sym", "dv", "dc_max")
+_INTS = ("p", "n", "k", "dv", "dc_max")
+_DTYPES = {"H": np.int64, "G": np.int64, "P": np.int64, "cn_vns": np.int32,
+           "cn_coefs": np.int32, "cn_mask": bool, "perm_to_contrib": np.int32,
+           "perm_to_sym": np.int32}
+
+
+def code_from_arrays(d) -> LDPCCode:
+    """A mapping with the `LDPCCode` fields -> the port's `LDPCCode`."""
+    missing = [f for f in CODE_FIELDS if f not in d]
+    if missing:
+        raise KeyError(f"code arrays lack {missing}")
+    kw = {f: int(d[f]) for f in _INTS}
+    kw.update({f: np.array(d[f], dtype=dt) for f, dt in _DTYPES.items()})
+    c = kw["n"] - kw["k"]
+    if kw["H"].shape != (c, kw["n"]) or kw["P"].shape != (kw["k"], c):
+        raise ValueError(f"H {kw['H'].shape} / P {kw['P'].shape} do not fit "
+                         f"n={kw['n']}, k={kw['k']}")
+    return LDPCCode(**kw)
+
+
+def stored_from_arrays(enc, dtype, shape, nbytes: int,
+                       device=None) -> StoredTensor:
+    """(n_words, n) cell levels (numpy) and the tensor's dtype, shape and
+    byte count -> a `StoredTensor` with int8 cells on `device` (the card by
+    default)."""
+    cells = torch.as_tensor(np.asarray(enc).astype(np.int8),
+                            device=resolve_device(device))
+    return StoredTensor(cells.contiguous(), np.dtype(dtype).name,
+                        tuple(shape), int(nbytes))

@@ -1,0 +1,187 @@
+"""Protected PIM matmul — the paper's technique as one PyTorch op.
+
+Pipeline (paper Fig. 2(a), §3):
+  1. weight columns are partitioned into codeword blocks; check columns are
+     generated over GF(p) and stored alongside (encode_weight_matrix),
+  2. the PIM MAC computes over data+check columns in one pass (Eq. 4) —
+     the dataflow is never interrupted,
+  3. syndrome check on the integer MAC output (Eq. 5) detects errors,
+  4. the NB-LDPC decoder corrects the residues and the corrected integers are
+     re-interpreted (nearest representative, §3.2.3),
+  5. check columns are dropped.
+
+On the card steps 2-4 run the port's CUDA kernels: the MAC (pim_mac), the
+fused syndrome scan and, inside the decoder, FBP and the scan again. The
+signed MAC outputs are reduced mod p with a floored `torch.remainder`
+before the scan, so the scan sees levels in [0, p).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..device import as_tensor
+from ..kernels.gf_matmul import scan_syndromes
+from .construction import LDPCCode
+from .decode import DecodeResult, decode_integers
+from .encode import encode_weight_matrix
+from .pim import PIMConfig, pim_mac
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtectionConfig:
+    code_name: str = "wl320_r08"
+    mode: str = "correct"            # "off" | "detect" | "correct"
+    n_iters: int = 8
+    llv_scale: float = 4.0
+    llv_mode: str = "manhattan"
+    early_exit: bool = False         # stop once every codeword converged
+    damping: float = 0.3             # message damping (beyond-paper stabilizer)
+
+
+class ProtectedResult(NamedTuple):
+    y: torch.Tensor                  # (B, n_out) corrected integer MAC results
+    detected: torch.Tensor           # (B, n_blocks) any-error-detected flags
+    uncorrected: torch.Tensor        # (B, n_blocks) decoder gave up (detect_fail)
+
+
+def _flag_words(yb: torch.Tensor, code: LDPCCode) -> torch.Tensor:
+    """(W, n) integer MAC words -> (W,) nonzero-syndrome flags."""
+    levels = torch.remainder(yb, code.p).to(torch.int8)
+    return scan_syndromes(levels, code.tensor("H.T", yb.device, torch.int8),
+                          code.p)
+
+
+def _mac_words(x, W_enc, code, pim_cfg, generator, out_noise, device):
+    x = as_tensor(x, device)
+    W_enc = as_tensor(W_enc, device if device is not None else x.device)
+    if W_enc.shape[1] % code.n:
+        raise ValueError(f"W_enc width {W_enc.shape[1]} is not a multiple "
+                         f"of n={code.n}")
+    nb = W_enc.shape[1] // code.n
+    y = pim_mac(x, W_enc, pim_cfg, generator=generator, out_noise=out_noise)
+    return y.reshape(x.shape[0] * nb, code.n), x.shape[0], nb
+
+
+def protected_pim_matmul(x, W_enc, code: LDPCCode, prot: ProtectionConfig,
+                         pim_cfg: PIMConfig,
+                         generator: torch.Generator | None = None,
+                         out_noise: torch.Tensor | None = None, *,
+                         device=None) -> ProtectedResult:
+    """x: (B, n_in) ints; W_enc: (n_in, nb * code.n) encoded weights.
+    Tensors stay on their device; arrays go to `device` (the card by
+    default)."""
+    yb, B, nb = _mac_words(x, W_enc, code, pim_cfg, generator, out_noise,
+                           device)
+    if prot.mode == "off":
+        z = torch.zeros((B, nb), dtype=torch.bool, device=yb.device)
+        return ProtectedResult(yb[:, :code.k].reshape(B, nb * code.k), z, z)
+
+    detected = _flag_words(yb, code).reshape(B, nb)
+    if prot.mode == "detect":
+        return ProtectedResult(yb[:, :code.k].reshape(B, nb * code.k),
+                               detected, detected)
+
+    y_corr, res = decode_integers(
+        code, yb, n_iters=prot.n_iters, llv_scale=prot.llv_scale,
+        llv_mode=prot.llv_mode, early_exit=prot.early_exit,
+        damping=prot.damping)
+    data = y_corr[:, :code.k].reshape(B, nb * code.k)
+    return ProtectedResult(data, detected, res.detect_fail.reshape(B, nb))
+
+
+def prepare_weights(W_int, code: LDPCCode, *, device=None) -> torch.Tensor:
+    """Pad the output dim to a codeword multiple and encode. Returns W_enc;
+    callers must remember original width to strip padding after the matmul."""
+    W_int = as_tensor(W_int, device)
+    pad = (-W_int.shape[1]) % code.k
+    if pad:
+        W_int = F.pad(W_int, (0, pad))
+    return encode_weight_matrix(W_int, code)
+
+
+def strip_padding(y: torch.Tensor, n_out: int) -> torch.Tensor:
+    return y[..., :n_out]
+
+
+def protected_pim_matmul_budgeted(x, W_enc, code: LDPCCode,
+                                  prot: ProtectionConfig, pim_cfg: PIMConfig,
+                                  generator: torch.Generator | None = None,
+                                  budget: int = 16,
+                                  out_noise: torch.Tensor | None = None, *,
+                                  device=None) -> ProtectedResult:
+    """Detect-then-correct with a fixed decode budget (serving fast path).
+
+    The syndrome check rides along for free (the paper's no-interruption
+    property); the iterative FBP decoder — the expensive part — runs only on
+    up to `budget` flagged words per call, gathered into a dense mini-batch
+    and scattered back. Overflow beyond the budget is reported in
+    `uncorrected`. The selection is a stable descending sort of the 0/1
+    flags, so among flagged words the lower index goes first, as in the
+    reference's `top_k`.
+    """
+    yb, B, nb = _mac_words(x, W_enc, code, pim_cfg, generator, out_noise,
+                           device)
+    flagged = _flag_words(yb, code)                        # (B*nb,)
+    detected = flagged.reshape(B, nb)
+
+    k = min(budget, B * nb)
+    order = torch.sort(flagged.to(torch.float32), descending=True,
+                       stable=True).indices
+    idx = order[:k]
+    sel = yb[idx]
+    sel_corr, res = decode_integers(
+        code, sel, n_iters=prot.n_iters, llv_scale=prot.llv_scale,
+        llv_mode=prot.llv_mode, damping=prot.damping)
+    # only write back genuinely-flagged rows (the selection pads with
+    # unflagged ones)
+    take = flagged[idx]
+    yb = yb.clone()
+    yb[idx] = torch.where(take[:, None], sel_corr, sel)
+
+    # a word stays uncorrected when the decoder gave up on it or when the
+    # budget never reached it; corrected words are not blamed for an
+    # overflow elsewhere in the batch
+    word_fail = torch.zeros_like(flagged)
+    word_fail[idx] = res.detect_fail & take
+    selected = torch.zeros_like(flagged)
+    selected[idx] = take
+    uncorrected = (word_fail | (flagged & ~selected)).reshape(B, nb)
+    data = yb.reshape(B, nb, code.n)[..., :code.k].reshape(B, nb * code.k)
+    return ProtectedResult(data, detected, uncorrected)
+
+
+def decode_stream(code: LDPCCode, stream, *, chunk_size: int = 256,
+                  n_iters: int = 8, llv_scale: float = 4.0,
+                  llv_mode: str = "manhattan", early_exit: bool = True,
+                  damping: float = 0.0, device=None):
+    """Streaming chunked decode for workloads larger than one batch.
+
+    `stream` is either a single (B, n) integer tensor or array — chunked
+    internally into `chunk_size`-word slices — or any iterable of (b_i, n)
+    chunks. Yields one `(y_corrected, DecodeResult)` pair per chunk, in
+    order. Rows decode independently, so a chunk needs no padding.
+    """
+    if hasattr(stream, "shape"):
+        arr = stream
+        stream = (arr[i:i + chunk_size]
+                  for i in range(0, arr.shape[0], chunk_size))
+
+    def gen():
+        for y in stream:
+            if y.shape[0] > chunk_size:
+                raise ValueError(f"chunk of {y.shape[0]} words exceeds "
+                                 f"chunk_size={chunk_size}")
+            yield decode_integers(code, y, n_iters=n_iters,
+                                  llv_scale=llv_scale, llv_mode=llv_mode,
+                                  early_exit=early_exit, damping=damping,
+                                  device=device)
+    return gen()
+
+
+__all__ = ["ProtectionConfig", "ProtectedResult", "protected_pim_matmul",
+           "protected_pim_matmul_budgeted", "prepare_weights",
+           "strip_padding", "decode_stream", "DecodeResult"]

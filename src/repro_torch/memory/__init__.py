@@ -1,0 +1,30 @@
+"""Protected-memory subsystem: the paper's *memory mode* in PyTorch.
+
+- `channel`    — composable MLC memristor channel models driven by
+                 explicit `torch.Generator`s;
+- `array`      — `ProtectedMemoryArray`: tensors packed into GF(p)
+                 codewords on write, held as int8 cells on the device,
+                 decoded on read;
+- `controller` — controller policies (basic / writeback / scrub) with
+                 per-policy stats;
+- `repair`     — `RepairQueue`: cross-page flagged-row batching;
+- `packing`    — the byte <-> GF(p) symbolization.
+"""
+from .array import ProtectedMemoryArray, StoredTensor
+from .channel import (Channel, Compose, LevelTransition, ReadDisturb,
+                      RetentionDrift, StuckAt, asymmetric_adjacent,
+                      uniform_flip, validate_transition)
+from .controller import (ControllerStats, MemoryController, ScrubController,
+                         WritebackController, make_controller)
+from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
+from .repair import RepairQueue
+
+__all__ = [
+    "ProtectedMemoryArray", "StoredTensor",
+    "Channel", "Compose", "LevelTransition", "ReadDisturb", "RetentionDrift",
+    "StuckAt", "asymmetric_adjacent", "uniform_flip", "validate_transition",
+    "ControllerStats", "MemoryController", "ScrubController",
+    "WritebackController", "make_controller",
+    "desymbolize_u8", "digits_per_byte", "symbolize_u8",
+    "RepairQueue",
+]

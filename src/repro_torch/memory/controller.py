@@ -1,0 +1,330 @@
+"""Memory-controller policies for NB-LDPC-protected storage.
+
+Modeled on the classic ECC-memory-controller taxonomy (basic / write-back /
+refresh):
+
+- **basic** — correct read responses, never touch the stored words; latent
+  errors accumulate in storage until they exceed the code's strength.
+- **writeback** — additionally rewrite every corrected word back into
+  storage on read, so each read also repairs (read-triggered refresh).
+- **scrub** — writeback plus a periodic background sweep over the whole
+  array: every stored word is scanned, flagged words are batch-decoded and
+  repaired in place. `interval` counts read/write operations between
+  automatic sweeps; `scrub()` can also be called explicitly.
+
+All policies share the same read path: the fused syndrome scan
+(`repro_torch.kernels.scan_syndromes`, the CUDA kernel on the card) over
+the stored int8 words, then the decoder runs ONLY on flagged words,
+through the controller's `RepairQueue`. Sweeps use the coalesced repair
+pipeline: pages are scanned a window ahead, flagged rows from many pages
+are queued and decoded together. Per-policy counters (detected / corrected
+/ uncorrectable / writebacks / scrub bandwidth) live in `ControllerStats`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections.abc import Iterable, Iterator
+
+import torch
+
+from ..core.construction import LDPCCode
+from ..device import resolve_device
+from ..kernels.gf_matmul import scan_syndromes
+from .repair import RepairQueue
+
+__all__ = ["ControllerStats", "MemoryController", "WritebackController",
+           "ScrubController", "make_controller"]
+
+# per-page entries kept in a sweep report; totals keep accumulating past
+# this, so a million-page sweep does not hold millions of stat dicts
+MAX_PAGE_STATS = 1024
+
+
+@dataclasses.dataclass
+class ControllerStats:
+    reads: int = 0
+    writes: int = 0
+    words_read: int = 0
+    words_written: int = 0
+    detected: int = 0              # words with nonzero syndrome seen on read
+    corrected: int = 0             # flagged words the decoder fixed
+    uncorrectable: int = 0         # flagged words with residual syndrome
+    writebacks: int = 0            # corrected words rewritten into storage
+    scrub_rounds: int = 0
+    scrub_words: int = 0           # words syndrome-scanned by scrubbing
+    scrub_cells: int = 0           # cells scanned (words * n)
+    scrub_corrected: int = 0
+    scrub_uncorrectable: int = 0
+    scrub_seconds: float = 0.0
+
+    CORRECTION_KEYS = ("detected", "corrected", "uncorrectable")
+
+    @property
+    def scrub_bandwidth_cells_per_s(self) -> float:
+        return self.scrub_cells / self.scrub_seconds if self.scrub_seconds \
+            else 0.0
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["scrub_bandwidth_cells_per_s"] = self.scrub_bandwidth_cells_per_s
+        return d
+
+    def correction_counts(self) -> dict[str, int]:
+        """The read-path correction triple."""
+        return {k: getattr(self, k) for k in self.CORRECTION_KEYS}
+
+
+class MemoryController:
+    """`basic` policy: correct-on-read, storage untouched."""
+
+    policy = "basic"
+
+    def __init__(self, *, n_iters: int = 10, damping: float = 0.3,
+                 llv_scale: float = 4.0, llv_mode: str = "manhattan",
+                 chunk_size: int = 256, page_words: int | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.n_iters = n_iters
+        self.damping = damping
+        self.llv_scale = llv_scale
+        self.llv_mode = llv_mode
+        self.chunk_size = chunk_size
+        self.page_words = page_words          # default paging for sweeps
+        self.stats = ControllerStats()
+
+    # -- scan and decode ----------------------------------------------------
+
+    def _repair_queue(self, code: LDPCCode) -> RepairQueue:
+        """A coalescing repair queue for `code` with this controller's
+        decoder settings."""
+        return RepairQueue(code, chunk_size=self.chunk_size,
+                           n_iters=self.n_iters, damping=self.damping,
+                           llv_scale=self.llv_scale, llv_mode=self.llv_mode,
+                           device=self.device)
+
+    @staticmethod
+    def _scan(code: LDPCCode, enc: torch.Tensor) -> torch.Tensor:
+        """(B, n) stored words -> (B,) flags, on the words' device."""
+        return scan_syndromes(enc, code.tensor("H.T", enc.device, torch.int8),
+                              code.p)
+
+    def _correct(self, code: LDPCCode, enc: torch.Tensor):
+        """-> (corrected levels (B, n) int8, flagged, fail) without stats."""
+        flagged = self._scan(code, enc)
+        out = torch.remainder(enc, code.p)
+        fail = torch.zeros_like(flagged)
+        rows = torch.nonzero(flagged)[:, 0]
+        if rows.numel():
+            syms, f, _iters = self._repair_queue(code).decode_batch(
+                enc[rows])
+            out[rows] = syms.to(out.device, out.dtype)
+            fail[rows] = f.to(fail.device)
+        return out, flagged, fail
+
+    # -- policy surface -----------------------------------------------------
+
+    def read(self, code: LDPCCode, store: dict, name: str) -> torch.Tensor:
+        st = store[name]
+        out, flagged, fail = self._correct(code, st.enc)
+        n_flagged = int(flagged.sum())
+        n_fail = int(fail.sum())
+        self.stats.reads += 1
+        self.stats.words_read += st.enc.shape[0]
+        self.stats.detected += n_flagged
+        self.stats.corrected += n_flagged - n_fail
+        self.stats.uncorrectable += n_fail
+        self._writeback(st, out, flagged, fail)
+        return out
+
+    def _writeback(self, st, corrected: torch.Tensor, flagged: torch.Tensor,
+                   fail: torch.Tensor) -> None:
+        pass                        # basic: never touch storage
+
+    def note_write(self, n_words: int) -> None:
+        self.stats.writes += 1
+        self.stats.words_written += n_words
+
+    def tick(self, code: LDPCCode, store: dict) -> None:
+        pass                        # only the scrub policy acts on ticks
+
+    @staticmethod
+    def iter_pages(store: dict,
+                   page_words: int | None = None) -> Iterator[torch.Tensor]:
+        """Yield writable (b, n) row views over the stored words —
+        `page_words` rows per page (ragged tails allowed), or one page per
+        tensor when None. Repairs written into a page land in storage."""
+        if page_words is not None and page_words <= 0:
+            raise ValueError(f"page_words must be positive, got {page_words}")
+
+        def gen():
+            for st in store.values():
+                enc = st.enc
+                if page_words is None:
+                    yield enc
+                else:
+                    for lo in range(0, enc.shape[0], page_words):
+                        yield enc[lo:lo + page_words]
+        return gen()
+
+    def scrub(self, code: LDPCCode, store: dict, *,
+              page_words: int | None = None, **kw) -> dict:
+        """Full-array sweep: scan every stored word, repair flagged words in
+        place. `page_words` (default: the controller's `page_words`) streams
+        the sweep in fixed-size pages. Returns the sweep's report."""
+        if page_words is None:
+            page_words = self.page_words
+        return self.scrub_pages(code, self.iter_pages(store, page_words),
+                                page_words=page_words, **kw)
+
+    def scrub_pages(self, code: LDPCCode, pages: Iterable[torch.Tensor], *,
+                    page_words: int | None = None, scan_ahead: int = 4,
+                    drain_words: int | None = None) -> dict:
+        """Coalesced sweep over any iterator of writable (b, n) level-word
+        pages: pages are scanned `scan_ahead` ahead of the one whose flags
+        are being read (one host read per window of pages), flagged rows
+        wait on the `RepairQueue`, which drains once `drain_words` rows
+        have accumulated, and repairs are written back through the page
+        views."""
+        t0 = time.perf_counter()
+        scan_ahead = max(1, scan_ahead)
+        if drain_words is None:
+            drain_words = 4 * self.chunk_size
+        queue = self._repair_queue(code)
+        totals = {"words": 0, "flagged": 0, "corrected": 0,
+                  "uncorrectable": 0, "pages": 0}
+        page_stats: list[dict] = []
+        drain_stats: list[dict] = []
+        backend = None
+
+        def flush():
+            rep = queue.drain()
+            if rep["words"]:
+                totals["corrected"] += rep["repaired"]
+                totals["uncorrectable"] += rep["failed"]
+                drain_stats.append({k: rep[k] for k in (
+                    "entries", "words", "repaired", "failed", "seconds")})
+
+        def consume(window):
+            """Read one window's flags with one nonzero over all its pages,
+            then enqueue each page's flagged rows."""
+            if not window:
+                return
+            sizes = [page.shape[0] for page, _mask in window]
+            nz = torch.nonzero(torch.cat([m for _p, m in window]))[:, 0]
+            starts = [0]
+            for size in sizes:
+                starts.append(starts[-1] + size)
+            cuts = torch.searchsorted(
+                nz, nz.new_tensor(starts)).tolist()
+            for i, (page, _mask) in enumerate(window):
+                rows = nz[cuts[i]:cuts[i + 1]] - starts[i]
+                pg_flagged = cuts[i + 1] - cuts[i]
+                totals["pages"] += 1
+                totals["words"] += page.shape[0]
+                totals["flagged"] += pg_flagged
+                slot = None
+                if totals["pages"] <= MAX_PAGE_STATS:
+                    slot = {"words": int(page.shape[0]),
+                            "flagged": pg_flagged, "corrected": 0,
+                            "uncorrectable": 0}
+                    page_stats.append(slot)
+                if not pg_flagged:
+                    continue
+
+                def writeback(syms, ok, page=page, rows=rows, slot=slot):
+                    good = rows[ok.to(rows.device)]
+                    page[good] = syms[ok].to(page.dtype).to(page.device)
+                    if slot is not None:
+                        n_ok = int(ok.sum())
+                        slot["corrected"] = n_ok
+                        slot["uncorrectable"] = int(ok.numel()) - n_ok
+
+                queue.enqueue(page[rows], writeback,
+                              provenance=("page", totals["pages"] - 1, rows))
+
+        prev: list = []
+        cur: list = []
+        for page in pages:
+            backend = page.device.type
+            cur.append((page, self._scan(code, page)))
+            if len(cur) >= scan_ahead:
+                consume(prev)
+                prev, cur = cur, []
+                if queue.pending_words >= drain_words:
+                    flush()
+        consume(prev)
+        consume(cur)
+        flush()
+        dt = time.perf_counter() - t0
+        words, corrected_n, fail_n = (totals["words"], totals["corrected"],
+                                      totals["uncorrectable"])
+        self._note_scrub_totals(code, words, corrected_n, fail_n, dt)
+        return {"policy": self.policy, "backend": backend,
+                "words_scanned": words,
+                "cells_scanned": words * code.n,
+                "flagged": totals["flagged"],
+                "corrected": corrected_n, "uncorrectable": fail_n,
+                "pages": totals["pages"], "page_words": page_words,
+                "page_stats": page_stats,
+                "page_stats_truncated": totals["pages"] > MAX_PAGE_STATS,
+                "coalesced": True, "scan_ahead": scan_ahead,
+                "drains": len(drain_stats), "drain_stats": drain_stats,
+                "seconds": dt,
+                "bandwidth_cells_per_s": words * code.n / dt if dt else 0.0}
+
+    def _note_scrub_totals(self, code: LDPCCode, words: int, corrected_n: int,
+                           fail_n: int, dt: float) -> None:
+        self.stats.scrub_rounds += 1
+        self.stats.scrub_words += words
+        self.stats.scrub_cells += words * code.n
+        self.stats.scrub_corrected += corrected_n
+        self.stats.scrub_uncorrectable += fail_n
+        self.stats.scrub_seconds += dt
+
+
+class WritebackController(MemoryController):
+    """`writeback` policy: reads repair storage as a side effect."""
+
+    policy = "writeback"
+
+    def _writeback(self, st, corrected, flagged, fail):
+        ok = flagged & ~fail
+        n_ok = int(ok.sum())
+        if n_ok:
+            st.enc[ok] = corrected[ok].to(st.enc.dtype)
+            self.stats.writebacks += n_ok
+
+
+class ScrubController(WritebackController):
+    """`scrub` policy: writeback + a background sweep every `interval`
+    read/write operations."""
+
+    policy = "scrub"
+
+    def __init__(self, *, interval: int = 16, **kw):
+        super().__init__(**kw)
+        self.interval = interval
+        self._ops = 0
+
+    def tick(self, code: LDPCCode, store: dict) -> None:
+        self._ops += 1
+        if self._ops % self.interval == 0:
+            self.scrub(code, store)
+
+
+_POLICIES = {"basic": MemoryController, "writeback": WritebackController,
+             "scrub": ScrubController}
+
+
+def make_controller(spec, **kw) -> MemoryController:
+    """spec: a policy name ("basic" | "writeback" | "scrub"), a controller
+    instance (passed through), or None (basic)."""
+    if isinstance(spec, MemoryController):
+        return spec
+    if spec is None:
+        spec = "basic"
+    if spec not in _POLICIES:
+        raise KeyError(f"unknown controller policy {spec!r}; "
+                       f"available: {sorted(_POLICIES)}")
+    return _POLICIES[spec](**kw)
