@@ -6,7 +6,12 @@
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from `src/repro_torch/kernels/csrc/`;
   2. hold every kernel against its plain PyTorch version on the card, at
-     the main path's shapes, with exact equality, and time both;
+     the main path's shapes, and time both: the integer kernels and FBP
+     with exact equality, `attend_protected` to a few bf16 ulps (rtol
+     2^-7, atol 2^-10) at the serving shape (paper-pim-2b heads, wl160_r08
+     pages, NP 32, hot page), hot-only (NP 0), with softcaps of 50 and of
+     2 (one that bites on logits of about N(0, 1)), and with per-slot
+     sub-pages (S = B);
   3. memory mode: a 64 MiB float32 tensor in a `ProtectedMemoryArray` on
      wl1024_r08 (writeback policy): write, inject uniform flips, read back
      exactly, inject again, scrub, re-scrub clean;
@@ -19,20 +24,35 @@ Phases (any failure exits non-zero):
      CPU run on a small input, exactly;
   6. one more corrected read of the memory-mode array under
      torch.profiler (device time by kernel, device idle share), and the
-     scan over the whole store against its plain version, exactly.
+     scan over the whole store against its plain version, exactly;
+  7. a small protected-KV decode (reduced paper-pim-2b) on the card
+     against the same model's plain CPU run, to a few bf16 ulps;
+  8. protected KV-cache serving of `paper-pim-2b` at full width and full
+     depth (24 layers, 1.56 B parameters from a seeded generator): 4
+     requests of 512 prompt tokens through `prefill(...,
+     protected_kv=ProtectedKVConfig("wl160_r08", page_tokens=16))`, then
+     32 greedy `decode_step`s, run three times: clean; with
+     `uniform_flip(3, 2e-5)` injected into every store right after
+     prefill; and injected with `corrected=False`. The injected run must
+     correct every flagged word and reproduce the clean run's tokens and
+     logits exactly, and `attend_protected` must run once per layer per
+     decode step in every run (the uncorrected run hands it the raw
+     cells). Then one clean decode step under torch.profiler.
 
-Kernel launch counts are reset just before phase 3 and read just after
-phase 4: every kernel must have run on the main path. Each entry-point
-call of phases 3-4 (write, read, scrub, prepare_weights, each
-protected_pim_matmul) also reports the launches it made itself. The last lines are
-the card's name and power limit, one JSON object with each kernel's
-launches, error against its plain version and times, and
-{"ok": true, "device": {...}}. Without a CUDA device, or outside the
-repository, it prints no result and exits non-zero.
+Kernel launch counts are reset just before each main path, memory and
+PIM mode (phases 3-4) and serving (phase 8), and read just after it:
+every kernel must have run on its path. Each entry-point call of phases
+3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
+reports the launches it made itself, and phase 8 the launches of each
+decode step. The last lines are the card's name and power limit, one JSON
+object with each kernel's launches, error against its plain version and
+times, and {"ok": true, "device": {...}}. Without a CUDA device, or
+outside the repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -43,6 +63,15 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 MEMORY_MIB = 64          # size of the memory-mode tensor
 TOKEN_ROWS = 256         # activation rows of the PIM-mode projections
+SERVE_ARCH = "paper_pim"           # the serving phase's model (full size)
+SERVE_BATCH = 4                    # requests served together
+SERVE_PROMPT = 512                 # prompt tokens per request
+SERVE_STEPS = 32                   # greedy decode steps
+SERVE_FLIP = 2e-5                  # uniform_flip rate injected after prefill
+# attend_protected vs its plain version, and the card's small decode vs
+# the CPU's: a few bf16 ulps (both round K/V and the logits to bf16 at the
+# same places and sum in fp32 in their own orders)
+ULP_RTOL, ULP_ATOL = 2 ** -7, 2 ** -10
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound_ms denominators
 HBM_BYTES_PER_S = 3.35e12
@@ -54,12 +83,14 @@ REPLACES = {
     "scan_syndromes": "src/repro/kernels/gf_matmul.py:98",
     "fbp_cn": "src/repro/kernels/fbp.py:89",
     "pim_mac": "src/repro/kernels/pim_mac.py:43",
+    "attend_protected": "src/repro/kernels/paged_attention.py:122",
 }
 SOURCES = {
     "gf_matmul": "src/repro_torch/kernels/csrc/gf_matmul.cu",
     "scan_syndromes": "src/repro_torch/kernels/csrc/gf_matmul.cu",
     "fbp_cn": "src/repro_torch/kernels/csrc/fbp.cu",
     "pim_mac": "src/repro_torch/kernels/csrc/pim_mac.cu",
+    "attend_protected": "src/repro_torch/kernels/csrc/paged_attention.cu",
 }
 
 
@@ -200,6 +231,108 @@ def phase_kernels(device) -> dict:
                lambda kw=kw: pim_mac.pim_mac_plain(x, w, **kw),
                lambda: xf @ wf, B * K + K * N + 4 * B * N, 2 * B * K * N,
                INT8_OPS_PER_S)
+    return rows
+
+
+def attend_operands(device, gen, *, B, Sq, Hq, Hkv, D, T, NP, S, code,
+                    ragged=False):
+    """attend_protected operands: NP page steps of S sub-pages each,
+    quantized and encoded from random bf16 K/V on the card, full pages
+    (or ragged valid counts with empty rows), a half-full hot page (or a
+    ragged one) and a random query."""
+    import torch
+    from repro_torch.core import encode_words
+    from repro_torch.memory import quantize_tensor, words_for_tensor
+    page_shape = (B // S, T, Hkv, D)
+    W = words_for_tensor(page_shape, code.p, code.k)
+    pages = torch.zeros((2, NP, S, W, code.n), dtype=torch.int8,
+                        device=device)
+    scales = torch.zeros((2, NP, S), device=device)
+    for c in range(2):
+        for j in range(NP):
+            for s in range(S):
+                x = torch.randn(page_shape, generator=gen, device=device)
+                words, meta = quantize_tensor(x.to(torch.bfloat16), code.p,
+                                              code.k)
+                pages[c, j, s] = encode_words(words, code)
+                scales[c, j, s] = meta.scale
+    kw = dict(generator=gen, device=device, dtype=torch.int32)
+    if ragged:
+        valid = torch.randint(0, T + 1, (NP, B), **kw)
+        hot_valid = torch.randint(1, T + 1, (B,), **kw)
+    else:
+        valid = torch.full((NP, B), T, dtype=torch.int32, device=device)
+        hot_valid = torch.full((B,), T // 2, dtype=torch.int32,
+                               device=device)
+    rnd = dict(generator=gen, device=device)
+    q = torch.randn((B, Sq, Hq, D), **rnd).to(torch.bfloat16)
+    hot_k = torch.randn((B, T, Hkv, D), **rnd).to(torch.bfloat16)
+    hot_v = torch.randn((B, T, Hkv, D), **rnd).to(torch.bfloat16)
+    args = (q, pages[0].contiguous(), pages[1].contiguous(),
+            scales[0].contiguous(), scales[1].contiguous(), valid, hot_k,
+            hot_v, hot_valid)
+    return args, dict(p=code.p, k_info=code.k, page_shape=page_shape)
+
+
+def attend_cost(args, kw) -> tuple[float, float]:
+    """(bytes, flops) the fused read needs: each input read once (of the
+    pages only the info digits that hold K/V), the output written once;
+    QKᵀ and P·V at 2 flops per multiply-add."""
+    from repro_torch.memory import digits_per_byte
+    q, kp, _vp, ks, _vs, valid, hot_k, _hv, hot_valid = args
+    B, Sq, Hq, D = q.shape
+    NP = kp.shape[0]
+    T = hot_k.shape[1]
+    elems = hot_k.numel()                       # one page step's K (or V)
+    steps = NP + (1 if kw["with_hot"] else 0)
+    nbytes = (2 * NP * elems * digits_per_byte(kw["p"])
+              + 2 * (ks.numel() * 4) + valid.numel() * 4
+              + 2 * q.numel() * 2 + hot_valid.numel() * 4
+              + (2 * 2 * elems if kw["with_hot"] else 0))
+    flops = 4.0 * B * Sq * Hq * D * T * steps
+    return nbytes, flops
+
+
+def phase_attend(device) -> list:
+    """attend_protected against its plain version at the serving shape,
+    hot-only, with a softcap, and with per-slot sub-pages."""
+    import torch
+    from repro_torch.core import get_code
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    code = get_code("wl160_r08")
+    serving = dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, NP=32, S=1)
+    cases = [("serving", serving, 0.0),
+             ("hot_only", {**serving, "NP": 0}, 0.0),
+             ("softcap50", serving, 50.0),
+             ("softcap2", serving, 2.0),
+             ("per_slot", {**serving, "S": 4, "ragged": True}, 0.0)]
+    rows = []
+    for label, shape, softcap in cases:
+        args, kw = attend_operands(device, gen, code=code, **shape)
+        kw.update(softcap=softcap, with_hot=True)
+        got = pa.attend_protected(*args, **kw)
+        torch.cuda.synchronize()
+        want = pa.attend_protected_plain(*args, **kw)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        if not torch.isfinite(got.float()).all() or bool(
+                (diff > ULP_ATOL + ULP_RTOL * want.float().abs()).any()):
+            raise AssertionError(f"attend_protected {label}: differs from "
+                                 f"its plain version (max abs err {err})")
+        nbytes, flops = attend_cost(args, kw)
+        b_ms, b_by = bound(nbytes, flops, FP32_OPS_PER_S)
+        row = {"name": "attend_protected", "case": label,
+               "shape": {k: v for k, v in shape.items() if k != "ragged"},
+               "softcap": softcap, "max_abs_err": err,
+               "ms": cuda_ms(lambda: pa.attend_protected(*args, **kw), 20),
+               "plain_ms": cuda_ms(
+                   lambda: pa.attend_protected_plain(*args, **kw), 5),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "library_ms": None}
+        rows.append(row)
+        log(f"  attend_protected {label}: within rtol {ULP_RTOL}, atol "
+            f"{ULP_ATOL}, {json.dumps(row)}")
     return rows
 
 
@@ -401,7 +534,234 @@ def phase_small_reference(device) -> None:
     log("  small inputs: card == CPU plain run (decode, protected matmul)")
 
 
+def phase_small_serving(device) -> None:
+    """A small protected-KV prefill and decode (reduced paper-pim-2b) on
+    the card, through the kernels, against the same weights' plain CPU
+    run, teacher-forced on the same tokens: logits (of magnitude 0.1 to
+    1) within a few bf16 ulps, rtol 2^-7 and atol 2^-10 (each device
+    rounds its bf16 matmuls in its own order; the kernel rounds K/V and
+    the logits to bf16 where the plain version does)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ProtectedKVConfig, decode_step,
+                                    init_params, prefill)
+    cfg = get_config(SERVE_ARCH).reduced(n_groups=2, d_model=64, n_heads=4,
+                                         n_kv_heads=2, d_ff=128)
+    pkv = ProtectedKVConfig(code_name="wl160_r08", page_tokens=4)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (5, 2, 1)))
+    outs = []
+    for dev in ("cpu", device):
+        params = init_params(cfg, SEED, device="cpu").to(dev)
+        _, caches = prefill(params, cfg, prompt.to(dev), protected_kv=pkv)
+        steps = []
+        for i in range(toks.shape[0]):
+            lg, caches = decode_step(params, cfg, caches, toks[i].to(dev),
+                                     prompt.shape[1] + i)
+            steps.append(lg.cpu())
+        outs.append(torch.cat(steps, dim=1))
+    diff = (outs[0] - outs[1]).abs()
+    err = float(diff.max())
+    if bool((diff > ULP_ATOL + ULP_RTOL * outs[0].abs()).any()):
+        raise AssertionError(f"small protected decode: card differs from "
+                             f"the CPU by {err}")
+    log(f"  small protected decode: card == CPU plain run within rtol "
+        f"{ULP_RTOL}, atol {ULP_ATOL} (max abs err {err})")
+
+
+def _layer_corrections(caches) -> dict:
+    out = {"detected": 0, "corrected": 0, "uncorrectable": 0}
+    for layer in caches.layers.values():
+        st = layer.stats()
+        for k in out:
+            out[k] += st[k]
+    return out
+
+
+def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
+    """prefill, optionally inject, then SERVE_STEPS greedy decode steps.
+    Returns tokens, every step's logits, times and per-step launches."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.memory import uniform_flip
+    from repro_torch.models import decode_step, prefill
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, prompts, protected_kv=pkv,
+                             max_seq=S + SERVE_STEPS)
+    tok = logits[:, -1:].argmax(dim=-1)
+    tok.cpu()                                  # the first token is out
+    ttft = time.perf_counter() - t0
+    changed = 0
+    if inject:
+        changed = caches.inject(uniform_flip(3, SERVE_FLIP), key=SEED)
+    torch.cuda.synchronize()
+    toks, step_logits, per_step = [tok], [], []
+    t1 = time.perf_counter()
+    for i in range(SERVE_STEPS):
+        before = dict(build.LAUNCHES)
+        lg, caches = decode_step(params, cfg, caches, tok, S + i)
+        per_step.append({k: v - before.get(k, 0)
+                         for k, v in build.LAUNCHES.items()
+                         if v - before.get(k, 0)})
+        tok = lg[:, -1:].argmax(dim=-1)
+        step_logits.append(lg)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    logits_all = torch.cat(step_logits, dim=1)          # (B, steps, V)
+    if logits_all.shape != (B, SERVE_STEPS, cfg.vocab_size) or not bool(
+            torch.isfinite(logits_all).all()):
+        raise AssertionError(f"serving logits: shape "
+                             f"{tuple(logits_all.shape)} or not finite")
+    return {"caches": caches, "tokens": torch.cat(toks, dim=1).cpu(),
+            "logits": logits_all, "ttft_s": ttft, "decode_s": decode_s,
+            "cells_changed": changed, "per_step": per_step,
+            "prefill_tokens_per_s": B * S / ttft,
+            "decode_tokens_per_s": B * SERVE_STEPS / decode_s,
+            "ms_per_decode_step": decode_s / SERVE_STEPS * 1e3}
+
+
+def phase_serving(device) -> tuple[dict, dict]:
+    """Protected KV-cache serving of paper-pim-2b at full width and depth.
+    Returns (report, the kernel launches of its runs)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import ProtectedKVConfig, init_params
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pkv = ProtectedKVConfig(code_name="wl160_r08", page_tokens=16)
+    n_layers = cfg.n_groups * len(cfg.group_spec)
+
+    build.reset_launches()
+    runs = {"clean": serve_once(params, cfg, prompts, pkv, inject=False),
+            "injected": serve_once(params, cfg, prompts, pkv, inject=True),
+            "uncorrected": serve_once(
+                params, cfg, prompts,
+                dataclasses.replace(pkv, corrected=False), inject=True)}
+    launches = dict(build.LAUNCHES)
+
+    clean, inj, raw = runs["clean"], runs["injected"], runs["uncorrected"]
+    fixes = _layer_corrections(inj["caches"])
+    stats = inj["caches"].stats()
+    report = {"arch": cfg.name, "parameters": n_params,
+              "layers": n_layers, "batch": SERVE_BATCH,
+              "prompt_tokens": SERVE_PROMPT, "decode_steps": SERVE_STEPS,
+              "code": pkv.code_name, "page_tokens": pkv.page_tokens,
+              "init_s": init_s, "stored_pages_after_prefill":
+                  2 * n_layers * (SERVE_PROMPT // pkv.page_tokens),
+              "stored_cells": stats["stored_cells"],
+              "injected_cells": inj["cells_changed"],
+              "run2_corrections": fixes,
+              "run2_flagged_after_serving": stats["flagged_words"]}
+    for name, r in runs.items():
+        steps = r["per_step"]
+        report[name] = {
+            k: r[k] for k in ("ttft_s", "decode_s", "prefill_tokens_per_s",
+                              "decode_tokens_per_s", "ms_per_decode_step")}
+        report[name]["launches_first_step"] = steps[0]
+        report[name]["launches_per_step_mean"] = {
+            k: sum(st.get(k, 0) for st in steps) / len(steps)
+            for k in sorted({k for st in steps for k in st})}
+    report["uncorrected_logit_drift"] = {
+        "max_abs": float((raw["logits"] - clean["logits"]).abs().max()),
+        "tokens_equal_share": float(
+            (raw["tokens"] == clean["tokens"]).float().mean())}
+    log(f"  serving: {json.dumps(report)}")
+
+    if fixes["corrected"] <= 0 or fixes["uncorrectable"] != 0:
+        raise AssertionError(f"injected run: corrections {fixes}")
+    if not torch.equal(inj["tokens"], clean["tokens"]):
+        raise AssertionError("injected run: tokens differ from the clean "
+                             "run's")
+    if not torch.equal(inj["logits"], clean["logits"]):
+        err = float((inj["logits"] - clean["logits"]).abs().max())
+        raise AssertionError(f"injected run: logits differ from the clean "
+                             f"run's (max abs {err})")
+    for name in ("clean", "injected", "uncorrected"):
+        counts = [st.get("attend_protected", 0) for st in runs[name]["per_step"]]
+        if counts != [n_layers] * SERVE_STEPS:
+            raise AssertionError(f"{name} run: attend_protected launches per "
+                                 f"decode step {counts}, expected "
+                                 f"{n_layers} each")
+    for name in ("clean", "injected", "uncorrected"):
+        del runs[name]["caches"]
+    report["profile_step"] = profile_decode_step(params, cfg, prompts, pkv)
+    return report, launches
+
+
+def profile_decode_step(params, cfg, prompts, pkv) -> dict:
+    """One clean decode step (after a prefill and one warm step) under
+    torch.profiler: wall time, device busy time (the union of the device
+    events' intervals), the top device kernels, and the host ops with the
+    most self time (with their call counts)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step, prefill
+    S = prompts.shape[1]
+    logits, caches = prefill(params, cfg, prompts, protected_kv=pkv)
+    tok = logits[:, -1:].argmax(dim=-1)
+    lg, caches = decode_step(params, cfg, caches, tok, S)
+    tok = lg[:, -1:].argmax(dim=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode_step(params, cfg, caches, tok, S + 1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel: dict[str, float] = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    if not spans:
+        raise AssertionError("the profiler recorded no device events")
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()), key=lambda r: -r[1])[:10]
+    return {"step_wall_ms_profiled": wall_us / 1e3,
+            "device_events": len(spans),
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top},
+            "top_host_ops_self_ms_calls": {
+                k[:60]: [us / 1e3, n] for k, us, n in host}}
+
+
+def check_path(name: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {name} path: "
+                             f"{missing}")
+
+
 def main() -> int:
+    # cuBLAS's documented setting for run-to-run reproducible results,
+    # set before the first matmul: phase 8 compares two serving runs bit
+    # for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -423,19 +783,18 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     rows = phase_kernels(device)
+    rows["attend_protected"] = phase_attend(device)
 
     log("phase 3-4: main path (memory mode, PIM mode)")
     build.reset_launches()
     per_call: dict[str, dict] = {}
     memory, mem = phase_memory(device, per_call)
     pim = phase_pim(device, per_call)
-    launches = dict(build.LAUNCHES)
-    log(f"  launches on the main path: {launches}")
+    codec_launches = dict(build.LAUNCHES)
+    log(f"  launches on the main path: {codec_launches}")
     log(f"  launches per entry-point call: {json.dumps(per_call)}")
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    check_path("memory/PIM", codec_launches,
+               ("gf_matmul", "scan_syndromes", "fbp_cn", "pim_mac"))
 
     log("phase 5: small inputs against the CPU")
     phase_small_reference(device)
@@ -444,9 +803,21 @@ def main() -> int:
     profile = phase_profile(mem)
     del mem
 
+    log("phase 7: small protected decode against the CPU")
+    phase_small_serving(device)
+
+    log("phase 8: protected KV-cache serving, paper-pim-2b")
+    serving, serve_launches = phase_serving(device)
+    log(f"  launches on the serving path: {serve_launches}")
+    check_path("serving", serve_launches,
+               ("attend_protected", "gf_matmul", "scan_syndromes", "fbp_cn"))
+    launches = {k: codec_launches.get(k, 0) + serve_launches.get(k, 0)
+                for k in KERNELS}
+
     # one row per kernel, at the shape its first check used (the main
-    # path's: p=3 for FBP, the ideal ADC for the MAC); the other checked
-    # shapes are in the phase 2 log lines above
+    # path's: p=3 for FBP, the ideal ADC for the MAC, the serving shape
+    # for attend_protected); the other checked shapes are in the phase 2
+    # log lines above
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 **{k: rows[name][0][k] for k in (
@@ -457,7 +828,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
-                    "launches_per_call": per_call,
+                    "serving": serving, "launches_per_call": per_call,
+                    "launches_codec": codec_launches,
+                    "launches_serving": serve_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

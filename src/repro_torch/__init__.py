@@ -9,8 +9,11 @@ built from `kernels/csrc/` at their first launch.
 
 Memory mode:  `repro_torch.memory.ProtectedMemoryArray`
 PIM mode:     `repro_torch.core.protected_pim_matmul`
+Protected KV-cache serving: `repro_torch.models.prefill(...,
+              protected_kv=ProtectedKVConfig(...))`, then `decode_step`
 """
-from . import convert, core, kernels, memory
+from . import configs, convert, core, kernels, memory, models, nn
 from .device import resolve_device
 
-__all__ = ["convert", "core", "kernels", "memory", "resolve_device"]
+__all__ = ["configs", "convert", "core", "kernels", "memory", "models", "nn",
+           "resolve_device"]

@@ -6,15 +6,20 @@ fields of the JAX package's `LDPCCode` (any mapping of numpy arrays and
 ints, e.g. `{f: getattr(code, f) for f in CODE_FIELDS}`), and
 `stored_from_arrays` wraps persisted cell levels as a `StoredTensor` on a
 device, so both packages can run on the identical graph and cells.
+`params_from_arrays` loads a model's weights from the JAX package's
+`init_params` pytree (as numpy arrays, stacked over groups), so both
+packages can run the same model.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .core.construction import LDPCCode
 from .device import resolve_device
 from .memory.array import StoredTensor
+from .models.lm import LM
 
 CODE_FIELDS = ("p", "n", "k", "H", "G", "P", "cn_vns", "cn_coefs", "cn_mask",
                "perm_to_contrib", "perm_to_sym", "dv", "dc_max")
@@ -47,3 +52,29 @@ def stored_from_arrays(enc, dtype, shape, nbytes: int,
                             device=resolve_device(device))
     return StoredTensor(cells.contiguous(), np.dtype(dtype).name,
                         tuple(shape), int(nbytes))
+
+
+def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
+    """The JAX package's parameter pytree as numpy arrays
+    (`jax.tree.map(np.asarray, params)`: "embed", "final_norm",
+    "lm_head" unless tied, and "groups"/"pos{i}" subtrees whose leaves are
+    stacked over `n_groups`) -> the port's `LM` on `device` (the card by
+    default). Every parameter must be present with the model's shape."""
+    model = LM(cfg, device=resolve_device(device))
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            path = name.split(".")
+            if path[0] == "blocks":
+                g, i = divmod(int(path[1]), len(cfg.group_spec))
+                node = tree["groups"][f"pos{i}"]
+                path = path[2:]
+            else:
+                node, g = tree, None
+            for key in path:
+                node = node[key]
+            arr = np.asarray(node if g is None else node[g])
+            if arr.shape != tuple(param.shape):
+                raise ValueError(f"{name}: array of shape {arr.shape}, "
+                                 f"parameter {tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return model

@@ -8,4 +8,5 @@ from .llv import init_llv, reinterpret, circular_distance
 from .pim import PIMConfig, pim_mac
 from .protected import (ProtectionConfig, ProtectedResult,
                         protected_pim_matmul, protected_pim_matmul_budgeted,
-                        prepare_weights, strip_padding, decode_stream)
+                        prepare_weights, strip_padding, decode_stream,
+                        decode_pipelined)

@@ -17,6 +17,7 @@ before the scan, so the scan sees levels in [0, p).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
@@ -182,6 +183,33 @@ def decode_stream(code: LDPCCode, stream, *, chunk_size: int = 256,
     return gen()
 
 
+def decode_pipelined(code: LDPCCode, pages, *, depth: int = 1, **kw):
+    """Double-buffered paged decode, the corrected-read pipeline behind
+    `memory.paged.PagedProtectedStore.decode_stream`.
+
+    `decode_stream` (same arguments and results: one `(y_corrected,
+    DecodeResult)` per page, in order), but page i+1's decode is dispatched
+    before page i's result is yielded, with `depth` pages ahead. On the
+    card this reorders the work and does not overlap it: the decoder's
+    early-exit check reads one byte back from the card per iteration, so
+    page i+1's decode has finished on the host's side before page i is
+    yielded. Overlap needs an asynchronous exit check (ROADMAP Queue 3).
+    """
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    stream = decode_stream(code, pages, **kw)
+
+    def gen():
+        inflight = collections.deque()
+        for res in stream:
+            inflight.append(res)
+            if len(inflight) > depth:
+                yield inflight.popleft()
+        yield from inflight
+    return gen()
+
+
 __all__ = ["ProtectionConfig", "ProtectedResult", "protected_pim_matmul",
            "protected_pim_matmul_budgeted", "prepare_weights",
-           "strip_padding", "decode_stream", "DecodeResult"]
+           "strip_padding", "decode_stream", "decode_pipelined",
+           "DecodeResult"]

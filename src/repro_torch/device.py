@@ -29,3 +29,14 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
             x = x.to(torch.device(device))
         return x if dtype is None else x.to(dtype)
     return torch.as_tensor(x, dtype=dtype, device=resolve_device(device))
+
+
+def generator(key, fallback: torch.Generator, device) -> torch.Generator:
+    """A fault-injection `key` as a generator: None draws on `fallback`
+    (so repeated injections differ), a generator is used as it is, an int
+    seeds a new one on `device`."""
+    if key is None:
+        return fallback
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(int(key))

@@ -39,6 +39,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argtypes (pointers and the stream as c_void_p, so ctypes
 # never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
@@ -46,6 +47,7 @@ SIGNATURES = {
     "rt_scan_syndromes": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rt_pim_mac": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_fbp_cn": [_P, _P, _I, _I, _I, _P],
+    "rt_attend_protected": [_P] * 10 + [_I] * 14 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -8,6 +8,9 @@
 - `controller` — controller policies (basic / writeback / scrub) with
                  per-policy stats;
 - `repair`     — `RepairQueue`: cross-page flagged-row batching;
+- `paged`      — `PagedProtectedStore`: fixed-shape pages on the device
+                 with scan-gated corrected reads (the protected KV cache's
+                 store), and the float <-> GF quantization bridge;
 - `packing`    — the byte <-> GF(p) symbolization.
 """
 from .array import ProtectedMemoryArray, StoredTensor
@@ -17,6 +20,8 @@ from .channel import (Channel, Compose, LevelTransition, ReadDisturb,
 from .controller import (ControllerStats, MemoryController, ScrubController,
                          WritebackController, make_controller)
 from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
+from .paged import (PagedProtectedStore, QuantizedTensor, dequantize_tensor,
+                    quantize_tensor, words_for_tensor)
 from .repair import RepairQueue
 
 __all__ = [
@@ -26,5 +31,7 @@ __all__ = [
     "ControllerStats", "MemoryController", "ScrubController",
     "WritebackController", "make_controller",
     "desymbolize_u8", "digits_per_byte", "symbolize_u8",
+    "PagedProtectedStore", "QuantizedTensor", "dequantize_tensor",
+    "quantize_tensor", "words_for_tensor",
     "RepairQueue",
 ]

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from ..core.codes import get_code
 from ..core.construction import LDPCCode
 from ..core.encode import encode_words
-from ..device import resolve_device
+from ..device import generator, resolve_device
 from .channel import Channel
 from .controller import MemoryController, make_controller
 from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
@@ -146,12 +146,7 @@ class ProtectedMemoryArray:
                              "with channel=...")
         if ch.p != self.code.p:
             raise ValueError(f"channel alphabet {ch.p} != GF({self.code.p})")
-        if key is None:
-            gen = self._gen
-        elif isinstance(key, torch.Generator):
-            gen = key
-        else:
-            gen = torch.Generator(device=self.device).manual_seed(int(key))
+        gen = generator(key, self._gen, self.device)
         changed = torch.zeros((), dtype=torch.int64, device=self.device)
         for name in self.names:
             st = self._store[name]

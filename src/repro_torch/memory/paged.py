@@ -1,0 +1,448 @@
+"""`PagedProtectedStore`: the device-resident protected store.
+
+Where `ProtectedMemoryArray` holds whole tensors for checkpoint-style
+reads, this store keeps fixed-shape (page_words, n) pages of GF(p) cells
+(int8) on the device, so protection can sit under a live workload:
+
+- **encode on the device** — appended info words go through
+  `core.encode_words` (the `gf_matmul` CUDA kernel on the card); pages
+  never round-trip through the host;
+- **scan on the device** — per-page syndrome flags from the fused
+  `scan_syndromes` kernel;
+- **corrected reads** — `read_page_corrected` scans a page and decodes it
+  only when a word flags (clean pages skip the decoder), with the
+  correction accounting on the store's `ControllerStats`;
+  `iter_corrected` streams every page that way, page i+1 dispatched
+  before page i is yielded; `decode_stream` is the raw
+  `core.decode_pipelined` over the pages. On the card this lookahead
+  reorders the work but does not overlap it: the scan gate reads each
+  page's flag count back to the host, and the decoder reads one byte back
+  per early-exit iteration, so page i+1 is decoded before page i is
+  yielded;
+- **scrub** — scan, repair flagged words, write back: coalesced through
+  the store's `RepairQueue` (one decode for the sweep), or page by page.
+
+`quantize_tensor` / `dequantize_tensor` are the float <-> GF bridge of the
+protected KV cache (`models/kv.py`): absmax int8 quantization, then base-p
+symbolization (`memory/packing.py`), exactly as the JAX package's
+`repro.memory.paged` does, so pages written by either decode in the other.
+
+Pages are replaced, never written in place, so a tensor handed out by
+`page(i)` keeps its contents when the store changes (as with the JAX
+package's immutable arrays). The JAX store's `mesh` sharding and kernel
+`policy` have no counterpart: the port runs on one card and its wrappers
+pick kernel or plain version by the tensors' device. The four storage
+primitives (`page`, `_set_page`, `_append_page`, `_iter_pages`) are what a
+pool-backed store overrides.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections.abc import Iterator
+
+import torch
+import torch.nn.functional as F
+
+from ..core.codes import get_code
+from ..core.construction import LDPCCode
+from ..core.decode import decode_integers
+from ..core.encode import encode_words
+from ..core.protected import decode_pipelined
+from ..device import as_tensor, generator, resolve_device
+from ..kernels.gf_matmul import scan_syndromes
+from .channel import Channel
+from .controller import ControllerStats
+from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
+from .repair import RepairQueue
+
+__all__ = ["PagedProtectedStore", "QuantizedTensor", "quantize_tensor",
+           "dequantize_tensor", "words_for_tensor"]
+
+
+# ---------------------------------------------------------------------------
+# float tensor <-> info words (the KV-cache quantization bridge)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedTensor:
+    """What is needed to reassemble a tensor from its info words."""
+
+    shape: tuple
+    dtype: torch.dtype
+    scale: torch.Tensor         # () float32 absmax scale, on the device
+    n_words: int                # info words the tensor occupies
+
+
+def words_for_tensor(shape, p: int, k: int) -> int:
+    """Info words an int8-quantized tensor of `shape` packs into."""
+    numel = math.prod(shape) if shape else 1
+    return math.ceil(numel * digits_per_byte(p) / k) if numel else 0
+
+
+def quantize_tensor(x: torch.Tensor, p: int, k: int
+                    ) -> tuple[torch.Tensor, QuantizedTensor]:
+    """absmax-int8 quantize, symbolize and pack: float tensor -> ((m, k)
+    int8 info words in [0, p), QuantizedTensor). Padding digits are zero
+    (they decode to bytes that are sliced off)."""
+    shape, dtype = tuple(x.shape), x.dtype
+    xf = x.to(torch.float32).reshape(-1)
+    absmax = (xf.abs().max() if xf.numel()
+              else torch.zeros((), dtype=torch.float32, device=x.device))
+    scale = torch.clamp_min(absmax, 1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int32)
+    digits = symbolize_u8(q + 128, p).reshape(-1)      # bytes in [1, 255]
+    m = words_for_tensor(shape, p, k)
+    digits = F.pad(digits, (0, m * k - digits.numel()))
+    return digits.reshape(m, k), QuantizedTensor(shape, dtype, scale, m)
+
+
+def dequantize_tensor(words: torch.Tensor, meta: QuantizedTensor,
+                      p: int) -> torch.Tensor:
+    """(m, k) decoded info words -> the tensor of `meta.shape`. Symbols
+    left uncorrected degrade to wrong values, never to a crash (digits are
+    clipped into the field)."""
+    numel = math.prod(meta.shape) if meta.shape else 1
+    D = digits_per_byte(p)
+    digits = words.reshape(-1)[:numel * D].reshape(numel, D)
+    q = desymbolize_u8(digits, p).to(torch.float32) - 128.0
+    return (q * meta.scale).to(meta.dtype).reshape(meta.shape)
+
+
+# ---------------------------------------------------------------------------
+# the device-resident paged store
+# ---------------------------------------------------------------------------
+
+
+class PagedProtectedStore:
+    """Fixed-shape (page_words, n) int8 GF-level pages on one device, with
+    device encode, per-page syndrome flags and corrected reads."""
+
+    def __init__(self, code: str | LDPCCode = "wl1024_r08", *,
+                 page_words: int = 256, n_iters: int = 10,
+                 damping: float = 0.3, llv_scale: float = 4.0,
+                 llv_mode: str = "manhattan", key: int = 0, device=None):
+        self.code = get_code(code) if isinstance(code, str) else code
+        # the scan and encode kernels accumulate int32 products of symbols
+        # in [0, p): the per-word sum n*(p-1)^2 must stay below 2^31
+        if self.code.n * (self.code.p - 1) ** 2 >= 2 ** 31:
+            raise ValueError(
+                f"code n={self.code.n} p={self.code.p} exceeds the int32 "
+                "kernel accumulator bound n*(p-1)^2 < 2^31")
+        if page_words <= 0:
+            raise ValueError(f"page_words must be positive, got {page_words}")
+        self.device = resolve_device(device)
+        self.page_words = page_words
+        self.n_iters = n_iters
+        self.damping = damping
+        self.llv_scale = llv_scale
+        self.llv_mode = llv_mode
+        self._pages: list[torch.Tensor] = []    # (page_words, n) int8
+        self._n_words = 0                       # valid words across pages
+        self._gen = torch.Generator(device=self.device).manual_seed(key)
+        self._repair_q: RepairQueue | None = None
+        # read/scrub correction accounting, per store
+        self.stats = ControllerStats()
+
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def n_words(self) -> int:
+        return self._n_words
+
+    @property
+    def n_pages(self) -> int:
+        return len(self._pages)
+
+    @property
+    def n_cells(self) -> int:
+        return self._n_words * self.code.n
+
+    # -- storage primitives (a pool-backed store overrides these four) -------
+
+    def page(self, i: int) -> torch.Tensor:
+        return self._pages[i]
+
+    def _set_page(self, i: int, page: torch.Tensor) -> None:
+        self._pages[i] = page
+
+    def _append_page(self) -> None:
+        """Grow storage by one zeroed page."""
+        self._pages.append(torch.zeros((self.page_words, self.code.n),
+                                       dtype=torch.int8, device=self.device))
+
+    def _iter_pages(self) -> Iterator[torch.Tensor]:
+        for i in range(self.n_pages):
+            yield self.page(i)
+
+    def free(self) -> None:
+        """Release all storage."""
+        self._pages.clear()
+        self._n_words = 0
+
+    # -- the kernels' calls ---------------------------------------------------
+
+    def _scan(self, page: torch.Tensor) -> torch.Tensor:
+        """(page_words,) bool nonzero-syndrome flags of one page."""
+        return scan_syndromes(page, self.code.tensor("H.T", page.device,
+                                                     torch.int8), self.code.p)
+
+    def _decode(self, page: torch.Tensor):
+        """(y_corrected, DecodeResult) of a whole page, early exit on."""
+        return decode_integers(
+            self.code, page, n_iters=self.n_iters, damping=self.damping,
+            llv_scale=self.llv_scale, llv_mode=self.llv_mode,
+            early_exit=True)
+
+    def _repair_queue(self) -> RepairQueue:
+        """The queue this store's coalesced scrubs drain through."""
+        if self._repair_q is None:
+            self._repair_q = RepairQueue(
+                self.code, chunk_size=self.page_words, n_iters=self.n_iters,
+                damping=self.damping, llv_scale=self.llv_scale,
+                llv_mode=self.llv_mode, device=self.device)
+        return self._repair_q
+
+    # -- write path ---------------------------------------------------------
+
+    def _put_rows(self, enc: torch.Tensor) -> tuple[int, int]:
+        """Pack (m, n) int8 codewords into pages after the valid words. A
+        partly filled trailing page is padded with all-zero words (valid
+        codewords, scan-neutral) and topped up by the next append."""
+        m = enc.shape[0]
+        start = self._n_words
+        pw = self.page_words
+        done = 0
+        while done < m:
+            slot = self._n_words % pw
+            if slot == 0:
+                self._append_page()
+            take = min(m - done, pw - slot)
+            last = self.n_pages - 1
+            page = self.page(last).clone()
+            page[slot:slot + take] = enc[done:done + take]
+            self._set_page(last, page)
+            done += take
+            self._n_words += take
+        self.stats.writes += 1
+        self.stats.words_written += m
+        return start, start + m
+
+    def append_words(self, u) -> tuple[int, int]:
+        """Append (m, k) info words (field symbols in [0, p)): encode on the
+        device and pack into pages. Returns the occupied word range
+        [start, start + m)."""
+        u = as_tensor(u, self.device)
+        if u.dim() != 2 or u.shape[1] != self.code.k:
+            raise ValueError(f"expected (m, {self.code.k}) info words, got "
+                             f"{tuple(u.shape)}")
+        enc = encode_words(u.to(torch.int8), self.code)
+        return self._put_rows(enc)
+
+    def append_encoded(self, enc) -> tuple[int, int]:
+        """Adopt already-encoded (m, n) codewords (e.g. cells exported by
+        another store) without re-encoding."""
+        enc = as_tensor(enc, self.device)
+        if enc.dim() != 2 or enc.shape[1] != self.code.n:
+            raise ValueError(f"expected (m, {self.code.n}) codewords, got "
+                             f"{tuple(enc.shape)}")
+        return self._put_rows(enc.to(torch.int8))
+
+    def export_words(self) -> torch.Tensor:
+        """All valid stored codewords as one (n_words, n) int8 tensor."""
+        if not self.n_pages:
+            return torch.zeros((0, self.code.n), dtype=torch.int8,
+                               device=self.device)
+        return torch.cat(list(self._iter_pages()))[:self._n_words]
+
+    # -- fault injection ----------------------------------------------------
+
+    def inject(self, channel: Channel,
+               key: int | torch.Generator | None = None, *, t: float = 0.0,
+               n_reads: int = 0) -> int:
+        """Corrupt the stored pages through a level-domain channel model.
+        `key` is a seed or a generator on the store's device; without one
+        the store's own generator is drawn on, so repeated injections
+        differ. Returns the number of cells changed. Pad rows of the
+        trailing page are storage like any other and are corrupted too."""
+        if channel.p != self.code.p:
+            raise ValueError(f"channel alphabet {channel.p} != "
+                             f"GF({self.code.p})")
+        gen = generator(key, self._gen, self.device)
+        changed = torch.zeros((), dtype=torch.int64, device=self.device)
+        for i in range(self.n_pages):
+            page = self.page(i)
+            new = channel.apply(gen, page, t=t, n_reads=n_reads).to(
+                torch.int8)
+            changed += (new != page).sum()
+            self._set_page(i, new)
+        return int(changed)
+
+    # -- read path ----------------------------------------------------------
+
+    def scan_flags(self) -> torch.Tensor:
+        """(n_words,) bool per-word nonzero-syndrome flags."""
+        if not self.n_pages:
+            return torch.zeros(0, dtype=torch.bool, device=self.device)
+        flags = torch.cat([self._scan(pg) for pg in self._iter_pages()])
+        return flags[:self._n_words]
+
+    def iter_corrected(self, *, scan_first: bool = True,
+                       depth: int = 1) -> Iterator[torch.Tensor]:
+        """Yield (page_words, n) corrected symbol pages in storage order,
+        `depth` pages dispatched ahead of the one yielded (the JAX store's
+        contract). On the card that reorders and does not overlap: the
+        scan gate and the decoder's early exit each read a count back to
+        the host, so page i+1's decode has finished before page i reaches
+        its consumer. With `scan_first`, clean pages skip the decoder
+        (only flagged pages pay for FBP)."""
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+
+        def dispatch(page):
+            if scan_first:
+                nf = int(self._scan(page).sum())
+                if not nf:
+                    return page                  # clean: levels ARE symbols
+                self.stats.detected += nf
+            return self._decode(page)[1].symbols
+
+        pending = []
+        for page in self._iter_pages():
+            self.stats.reads += 1
+            self.stats.words_read += self.page_words
+            pending.append(dispatch(page))
+            if len(pending) > depth:
+                yield pending.pop(0)
+        yield from pending
+
+    def read_page_corrected(self, i: int) -> torch.Tensor:
+        """Scan-gated corrected read of page `i`, with the correction
+        accounting (detected / corrected / uncorrectable) on `stats`."""
+        page = self.page(i)
+        self.stats.reads += 1
+        self.stats.words_read += self.page_words
+        flags = self._scan(page)
+        nf = int(flags.sum())
+        if not nf:
+            return page
+        self.stats.detected += nf
+        _y, res = self._decode(page)
+        bad = int((flags & res.detect_fail).sum())
+        self.stats.uncorrectable += bad
+        self.stats.corrected += nf - bad
+        return res.symbols
+
+    def read_corrected(self) -> torch.Tensor:
+        """Whole-store corrected read: every page decoded, stacked to
+        (n_words, n) symbols (the baseline of the pipelined read)."""
+        if not self.n_pages:
+            return torch.zeros((0, self.code.n), dtype=torch.int8,
+                               device=self.device)
+        outs = [self._decode(pg)[1].symbols for pg in self._iter_pages()]
+        return torch.cat(outs)[:self._n_words]
+
+    def read_words(self, start: int, stop: int, *,
+                   corrected: bool = True) -> torch.Tensor:
+        """Stored words [start, stop) across pages, corrected through the
+        per-page scan and decode, or raw levels."""
+        if not 0 <= start <= stop <= self._n_words:
+            raise ValueError(f"word range [{start}, {stop}) outside "
+                             f"[0, {self._n_words})")
+        if start == stop:
+            return torch.zeros((0, self.code.n), dtype=torch.int8,
+                               device=self.device)
+        pw = self.page_words
+        out = []
+        for pi in range(start // pw, (stop - 1) // pw + 1):
+            page = (self.read_page_corrected(pi) if corrected
+                    else self.page(pi))
+            out.append(page[max(start - pi * pw, 0):min(stop - pi * pw, pw)])
+        return torch.cat(out)
+
+    def read_info(self, start: int, stop: int, *,
+                  corrected: bool = True) -> torch.Tensor:
+        """`read_words` sliced to the (m, k) info symbols, the shape
+        `dequantize_tensor` takes."""
+        return self.read_words(start, stop,
+                               corrected=corrected)[:, :self.code.k]
+
+    def decode_stream(self, **kw) -> Iterator:
+        """`core.decode_pipelined` over the stored pages: one
+        `(y_corrected, DecodeResult)` per page, for callers that need the
+        decode's metadata."""
+        kw.setdefault("chunk_size", self.page_words)
+        kw.setdefault("n_iters", self.n_iters)
+        kw.setdefault("damping", self.damping)
+        kw.setdefault("llv_scale", self.llv_scale)
+        kw.setdefault("llv_mode", self.llv_mode)
+        return decode_pipelined(self.code, self._iter_pages(), **kw)
+
+    # -- scrub --------------------------------------------------------------
+
+    def scrub(self, pages=None, *, coalesce: bool = True) -> dict:
+        """Sweep the pages (all, or the indices in `pages`): scan, repair
+        flagged words, write back. Returns {pages, flagged_words,
+        repaired_words, coalesced}.
+
+        `coalesce=True` scans every page first (one host read of all the
+        masks), queues the flagged rows of every page on the store's
+        `RepairQueue` and decodes them in one drain. `coalesce=False` is
+        the per-page baseline: each flagged page is decoded whole. Both
+        repair the same words (decoding is row-independent)."""
+        idxs = list(range(self.n_pages) if pages is None else pages)
+        report = (self._scrub_coalesced(idxs) if coalesce
+                  else self._scrub_baseline(idxs))
+        self.stats.scrub_rounds += 1
+        self.stats.scrub_words += report["pages"] * self.page_words
+        self.stats.scrub_corrected += report["repaired_words"]
+        self.stats.scrub_uncorrectable += (report["flagged_words"]
+                                           - report["repaired_words"])
+        return report
+
+    def _scrub_baseline(self, idxs: list[int]) -> dict:
+        flagged_words = repaired = 0
+        for i in idxs:
+            page = self.page(i)
+            flags = self._scan(page)
+            nf = int(flags.sum())
+            if not nf:
+                continue
+            flagged_words += nf
+            _y, res = self._decode(page)
+            good = flags & ~res.detect_fail
+            self._set_page(i, torch.where(good[:, None], res.symbols, page))
+            repaired += int(good.sum())
+        return {"pages": len(idxs), "flagged_words": flagged_words,
+                "repaired_words": repaired, "coalesced": False}
+
+    def _scrub_coalesced(self, idxs: list[int]) -> dict:
+        if not idxs:
+            return {"pages": 0, "flagged_words": 0, "repaired_words": 0,
+                    "coalesced": True}
+        masks = torch.stack([self._scan(self.page(i)) for i in idxs]).cpu()
+        queue = self._repair_queue()
+        flagged_words = 0
+        for i, mask in zip(idxs, masks, strict=True):
+            rows = torch.nonzero(mask).flatten().to(self.device)
+            if not rows.numel():
+                continue
+            flagged_words += int(rows.numel())
+            page = self.page(i)
+
+            def writeback(syms, ok, i=i, rows=rows, page=page):
+                good = rows[ok]
+                if good.numel():
+                    new = page.clone()
+                    new[good] = syms[ok].to(torch.int8)
+                    self._set_page(i, new)
+
+            queue.enqueue(page[rows], writeback,
+                          owner=getattr(self, "owner", None),
+                          provenance=("store", i, rows))
+        rep = queue.drain()
+        return {"pages": len(idxs), "flagged_words": flagged_words,
+                "repaired_words": rep["repaired"], "coalesced": True,
+                "drain": {k: rep[k] for k in (
+                    "entries", "words", "repaired", "failed", "seconds")}}

@@ -1,0 +1,8 @@
+"""The dense language model and its protected KV-cache serving path."""
+from .kv import (ProtectedKVCaches, ProtectedKVConfig, ProtectedKVLayer,
+                 protected_overhead)
+from .lm import LM, decode_step, init_caches, init_params, prefill
+
+__all__ = ["ProtectedKVCaches", "ProtectedKVConfig", "ProtectedKVLayer",
+           "protected_overhead", "LM", "decode_step", "init_caches",
+           "init_params", "prefill"]

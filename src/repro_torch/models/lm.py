@@ -1,0 +1,220 @@
+"""Config-driven dense transformer: parameters, prefill and decode.
+
+The stack is `n_groups` repetitions of `cfg.group_spec`, as in the JAX
+package's `repro.models.lm`; here it is a `ModuleList` of `Block`s run in
+a Python loop (block `g * len(group_spec) + i` is group g, position i).
+This slice ports the dense attention-only subset: global and
+sliding-window self-attention with a gated MLP. MoE, mamba,
+encoder-decoder and cross blocks raise `NotImplementedError`
+(ROADMAP Queue 1 item 9).
+
+Entry points: `init_params` / `init_caches` / `prefill` / `decode_step`.
+`prefill(..., protected_kv=ProtectedKVConfig(...))` returns a
+`ProtectedKVCaches` manager whose global-attention K/V live in NB-LDPC
+protected paged stores; `decode_step` serves through it (or through the
+dense caches of `init_caches`, which it updates in place). Both run on the
+parameters' device; `init_params` puts them on the card unless asked for
+the CPU.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig, LayerSpec
+from ..device import resolve_device
+from ..nn.layers import CDT, Block, RMSNorm, _param, no_pim
+
+__all__ = ["LM", "init_params", "init_caches", "prefill", "decode_step"]
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.encoder_groups or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder and MoE stacks are not ported yet: "
+            "ROADMAP Queue 1 item 9")
+
+
+class LM(nn.Module):
+    """The model's parameters: `embed` (V, d), `final_norm`, `lm_head`
+    (d, V) unless the embeddings are tied, and one `Block` per layer."""
+
+    def __init__(self, cfg: ArchConfig, *, generator=None, device=None):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.embed = _param((cfg.vocab_size, cfg.d_model), generator, device)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab_size), generator,
+                                  device)
+        self.blocks = nn.ModuleList(
+            Block(spec, cfg, generator=generator, device=device)
+            for _ in range(cfg.n_groups) for spec in cfg.group_spec)
+
+    def block(self, g: int, i: int) -> Block:
+        return self.blocks[g * len(self.cfg.group_spec) + i]
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, *,
+                device=None) -> LM:
+    """A model with N(0, 0.02²) float32 weights and unit norm scales, the
+    JAX package's distributions (not its bits). `generator` is a
+    `torch.Generator` (the model goes on its device unless `device` says
+    otherwise) or a seed for one on `device` (the card by default)."""
+    if isinstance(generator, torch.Generator):
+        device = torch.device(device) if device is not None \
+            else generator.device
+    else:
+        device = resolve_device(device)
+        generator = torch.Generator(device=device).manual_seed(int(generator))
+    return LM(cfg, generator=generator, device=device)
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _embed(params: LM, cfg: ArchConfig, tokens) -> torch.Tensor:
+    tokens = torch.as_tensor(tokens, device=params.device)
+    x = params.embed[tokens].to(CDT)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=CDT)
+    return x
+
+
+def _head_logits(params: LM, cfg: ArchConfig, x) -> torch.Tensor:
+    x = params.final_norm(x)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = (x @ head.to(CDT)).to(torch.float32)
+    if cfg.softcap_final:
+        logits = cfg.softcap_final * torch.tanh(logits / cfg.softcap_final)
+    return logits
+
+
+def _block_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
+                 device) -> dict:
+    """One layer's dense decode cache: K and V (batch, seq, Hkv, D) bf16,
+    seq = the window for sliding layers (a ring), else `max_seq`."""
+    seq = min(max_seq, spec.local_window) if spec.local_window else max_seq
+    shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=CDT, device=device),
+            "v": torch.zeros(shape, dtype=CDT, device=device)}
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
+                protected_kv=None, device=None):
+    """Dense decode caches, stacked over `n_groups`:
+    {"pos{i}": {"k", "v": (n_groups, batch, seq, Hkv, D)}}. With
+    `protected_kv` (a `models.kv.ProtectedKVConfig`), a `ProtectedKVCaches`
+    manager instead."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    if protected_kv is not None:
+        from .kv import ProtectedKVCaches
+        return ProtectedKVCaches(cfg, protected_kv, batch, max_seq,
+                                 device=device)
+    return {f"pos{i}": {name: torch.stack([buf] * cfg.n_groups)
+                        for name, buf in _block_cache(spec, cfg, batch,
+                                                      max_seq,
+                                                      device).items()}
+            for i, spec in enumerate(cfg.group_spec)}
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
+            protected_kv=None, max_seq: int | None = None):
+    """Run the full prompt (B, S) and build decode caches. Returns (logits
+    (B, S, V) float32, caches): the prompt's RoPE'd K/V stacked over groups
+    ({"pos{i}": {"k", "v": (n_groups, B, S', Hkv, D)}}, S' = the window
+    for sliding layers, ring-aligned), or with `protected_kv` a
+    `ProtectedKVCaches` manager that has ingested them (`max_seq` sizes
+    its dense entries; the prompt length by default)."""
+    no_pim(pim_ctx)
+    if aux is not None:
+        raise NotImplementedError("auxiliary (cross-attention) inputs are "
+                                  "not ported yet: ROADMAP Queue 1 item 9")
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, device=params.device)
+    entries = {f"pos{i}": {"k": [], "v": []}
+               for i in range(len(cfg.group_spec))}
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(cfg.group_spec):
+            blk = params.block(g, i)
+            # capture K/V by recomputing the projections (cheap next to
+            # the attention itself)
+            k, v = blk.attn.project_kv(blk.norm1(x), cfg, positions)
+            if spec.local_window and spec.local_window < S:
+                # ring alignment: the token at position q sits at q % W
+                Wd = spec.local_window
+                k = torch.roll(k[:, -Wd:], S % Wd, dims=1)
+                v = torch.roll(v[:, -Wd:], S % Wd, dims=1)
+            entries[f"pos{i}"]["k"].append(k)
+            entries[f"pos{i}"]["v"].append(v)
+            x, _ = blk(x, spec, cfg, positions=positions)
+    caches = {pos: {name: torch.stack(bufs) for name, bufs in e.items()}
+              for pos, e in entries.items()}
+    logits = _head_logits(params, cfg, x)
+    if protected_kv is not None:
+        from .kv import ProtectedKVCaches
+        pkv_caches = ProtectedKVCaches(cfg, protected_kv, B, max_seq or S,
+                                       device=params.device)
+        pkv_caches.ingest_prefill(caches, S)
+        return logits, pkv_caches
+    return logits, caches
+
+
+def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos):
+    """One-token decode against `ProtectedKVCaches`: each protected layer
+    appends the token's K/V and reads through its `attend`; dense entries
+    update in the manager. `pos` is a scalar or a (B,) vector."""
+    B = token.shape[0]
+    x = _embed(params, cfg, token)
+    positions = torch.as_tensor(pos, dtype=torch.int32,
+                                device=params.device).reshape(-1, 1)
+    positions = positions.expand(B, 1)
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(cfg.group_spec):
+            x, nc = params.block(g, i)(x, spec, cfg, positions=positions,
+                                       cache=caches.view(g, i),
+                                       cache_pos=pos)
+            caches.update(g, i, nc)
+    return _head_logits(params, cfg, x), caches
+
+
+@torch.no_grad()
+def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
+                aux=None, pim_ctx=None):
+    """One-token decode. token: (B, 1) ints; pos: the position (an int).
+    `caches` is the stacked dense caches of `init_caches`, written in
+    place, or the `ProtectedKVCaches` manager of `prefill(...,
+    protected_kv=...)`. Returns (logits (B, 1, V) float32, caches)."""
+    no_pim(pim_ctx)
+    if aux is not None:
+        raise NotImplementedError("auxiliary (cross-attention) inputs are "
+                                  "not ported yet: ROADMAP Queue 1 item 9")
+    from .kv import ProtectedKVCaches
+    if isinstance(caches, ProtectedKVCaches):
+        return _decode_step_protected(params, cfg, caches, token, pos)
+    B = token.shape[0]
+    x = _embed(params, cfg, token)
+    positions = torch.full((B, 1), int(pos), dtype=torch.int32,
+                           device=params.device)
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(cfg.group_spec):
+            gc = caches[f"pos{i}"]
+            x, _ = params.block(g, i)(
+                x, spec, cfg, positions=positions,
+                cache={"k": gc["k"][g], "v": gc["v"][g]}, cache_pos=pos)
+    return _head_logits(params, cfg, x), caches

@@ -1,0 +1,229 @@
+"""Layers of a dense attention-only model: RMS norm, rotary embeddings, the
+gated MLP, GQA attention (global or sliding-window) over a dense decode
+cache or a `KVSource`, and the streaming paged attention.
+
+The modules hold float32 parameters in the JAX package's layout (a
+projection is `x @ w`, w of shape (in, out)) and compute in bf16 (`CDT`),
+casting each weight at use and keeping the softmax and norm sums in fp32,
+as `repro.nn.layers` does.
+
+Not in this slice (they raise `NotImplementedError`): cross-attention,
+`attn_impl="flash"` (the `flash_fwd` kernel, ROADMAP Queue 1 item A), and
+PIM-protected projections (`pim_ctx`, ROADMAP Queue 1 item 1).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import ArchConfig, LayerSpec
+from ..kernels.paged_attention import (NEG_INF, paged_softmax_finalize,
+                                       paged_softmax_init,
+                                       paged_softmax_update)
+from .kv_source import KVSource
+
+CDT = torch.bfloat16      # compute dtype
+ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu}
+
+
+def no_pim(pim_ctx) -> None:
+    if pim_ctx is not None:
+        raise NotImplementedError(
+            "PIM-protected projections (pim_ctx) are not ported yet: "
+            "ROADMAP Queue 1 item 1 (core/context.py)")
+
+
+def _param(shape, generator, device) -> nn.Parameter:
+    """N(0, 0.02²) float32 weights from `generator`, or uninitialised ones
+    (to be loaded, e.g. by `convert.params_from_arrays`) without it."""
+    if generator is None:
+        return nn.Parameter(torch.empty(shape, device=device))
+    return nn.Parameter(0.02 * torch.randn(shape, generator=generator,
+                                           device=device))
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, device=device))
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps) * self.scale).to(CDT)
+
+
+def rope(x, positions, theta):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    half = x.shape[-1] // 2
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.to(torch.float32)[..., None] * freqs      # (..., S, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """The gated (SwiGLU family) MLP: act(x·W_gate) ⊙ (x·W_up) · W_down."""
+
+    def __init__(self, d_model: int, d_ff: int, act: str = "silu", *,
+                 generator=None, device=None):
+        super().__init__()
+        self.act = ACTS[act]
+        self.w_gate = _param((d_model, d_ff), generator, device)
+        self.w_up = _param((d_model, d_ff), generator, device)
+        self.w_down = _param((d_ff, d_model), generator, device)
+
+    def forward(self, x):
+        h = self.act(x @ self.w_gate.to(CDT)) * (x @ self.w_up.to(CDT))
+        return h @ self.w_down.to(CDT)
+
+
+def _softcap(logits, cap):
+    if cap and cap > 0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _attend(q, k, v, mask, softcap):
+    """Naive GQA attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D), mask:
+    broadcastable to (B,1,Sq,Skv) or None."""
+    B, Sq, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    qg = q.reshape(B, Sq, k.shape[2], G, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
+    logits = _softcap(logits / torch.tensor(float(D)).sqrt(), softcap)
+    if mask is not None:
+        logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(CDT)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    return out.reshape(B, Sq, Hq, D)
+
+
+def attend_paged(q, pages, softcap):
+    """Streaming attention over an iterator of decoded KV pages, each
+    (k_page (B,T,Hkv,D), v_page, valid_tokens): one online-softmax update
+    per page (`kernels.paged_attention.paged_softmax_update`), equal to
+    `_attend` over the concatenated pages. The protected layer's
+    reference read path: the plain version of `attend_protected`, so it
+    takes CPU tensors only (on the card the kernel reads the pages)."""
+    if q.is_cuda:
+        raise ValueError("attend_paged is the plain streaming read of CPU "
+                         "tensors; on the card paged K/V is read through "
+                         "the attend_protected kernel (fused=True)")
+    B, Sq, Hq, D = q.shape
+    m = l = acc = None
+    for kpg, vpg, valid in pages:
+        if m is None:
+            Hkv = kpg.shape[2]
+            m, l, acc = paged_softmax_init(B, Hkv, Hq // Hkv, Sq, D,
+                                           q.device)
+        m, l, acc = paged_softmax_update(q, kpg, vpg, valid, m, l, acc,
+                                         softcap=float(softcap or 0.0))
+    if m is None:
+        raise ValueError("paged attention needs at least one KV page")
+    return paged_softmax_finalize(q, m, l, acc)
+
+
+class Attention(nn.Module):
+    """GQA self-attention: wq (d, Hq·D), wk/wv (d, Hkv·D), wo (Hq·D, d)."""
+
+    def __init__(self, cfg: ArchConfig, *, generator=None, device=None):
+        super().__init__()
+        d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+            cfg.head_dim
+        self.wq = _param((d, hq * dh), generator, device)
+        self.wk = _param((d, hkv * dh), generator, device)
+        self.wv = _param((d, hkv * dh), generator, device)
+        self.wo = _param((hq * dh, d), generator, device)
+
+    def project_kv(self, x, cfg: ArchConfig, positions):
+        """(B, S, d) -> RoPE'd K and V, each (B, S, Hkv, D) in bf16."""
+        B, S, _ = x.shape
+        shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+        k = (x @ self.wk.to(CDT)).reshape(shape)
+        v = (x @ self.wv.to(CDT)).reshape(shape)
+        return rope(k, positions, cfg.rope_theta), v
+
+    def forward(self, x, spec: LayerSpec, cfg: ArchConfig, *, positions,
+                kv_cache=None, cache_pos=None, pim_ctx=None):
+        """Prefill (kv_cache None): causal full pass, returns (y, None).
+        Decode: a dense {"k", "v"} (B, Smax, Hkv, D) cache is written at
+        `cache_pos` in place (a ring of size `local_window` for sliding
+        layers) and returned; a `KVSource` appends the token's K/V and
+        serves the read through its `attend`."""
+        no_pim(pim_ctx)
+        if spec.cross:
+            raise NotImplementedError(
+                "cross-attention is not ported yet: ROADMAP Queue 1 item 9")
+        B, S, _ = x.shape
+        hq, dh = cfg.n_heads, cfg.head_dim
+        q = (x @ self.wq.to(CDT)).reshape(B, S, hq, dh)
+        q = rope(q, positions, cfg.rope_theta)
+        k, v = self.project_kv(x, cfg, positions)
+        if isinstance(kv_cache, KVSource):
+            kv_cache.append(k, v)
+            out = kv_cache.attend(q, cfg.softcap_attn)
+            return out.reshape(B, S, hq * dh) @ self.wo.to(CDT), None
+
+        new_cache = None
+        if kv_cache is not None:
+            W = kv_cache["k"].shape[1]
+            slot = int(cache_pos) % W
+            kv_cache["k"][:, slot:slot + S] = k
+            kv_cache["v"][:, slot:slot + S] = v
+            new_cache = kv_cache
+            k, v = kv_cache["k"], kv_cache["v"]
+            kv_pos = torch.arange(W, device=x.device)
+            ok = kv_pos <= cache_pos                   # ring full: all True
+            if spec.local_window and spec.local_window < W:
+                ok &= kv_pos > cache_pos - spec.local_window
+            mask = ok[None, None, None, :]             # (1, 1, 1, W)
+        else:
+            if cfg.attn_impl != "naive":
+                raise NotImplementedError(
+                    f"attn_impl={cfg.attn_impl!r}: the flash kernels are "
+                    "the next slice of the port (ROADMAP Queue 1 item A)")
+            pos = torch.arange(S, device=x.device)
+            ok = pos[None, :] <= pos[:, None]
+            if spec.local_window:
+                ok &= pos[None, :] > pos[:, None] - spec.local_window
+            mask = ok[None, None]
+        out = _attend(q, k, v, mask, cfg.softcap_attn)
+        return out.reshape(B, S, hq * dh) @ self.wo.to(CDT), new_cache
+
+
+class Block(nn.Module):
+    """One pre-norm block of a dense model: x + attn(norm1(x)), then
+    x + mlp(norm2(x)) where the config has an FFN."""
+
+    def __init__(self, spec: LayerSpec, cfg: ArchConfig, *, generator=None,
+                 device=None):
+        super().__init__()
+        if spec.kind != "attn" or spec.moe or spec.cross:
+            raise NotImplementedError(
+                f"{spec} blocks (MoE, mamba, encoder-decoder, cross) are "
+                "not ported yet: ROADMAP Queue 1 item 9")
+        self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.attn = Attention(cfg, generator=generator, device=device)
+        if cfg.d_ff > 0:
+            self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act,
+                           generator=generator, device=device)
+
+    def forward(self, x, spec: LayerSpec, cfg: ArchConfig, *, positions,
+                cache=None, cache_pos=None, pim_ctx=None):
+        """Returns (x, new_cache): the dense cache written in place, or
+        None for prefill and `KVSource` caches."""
+        y, new_cache = self.attn(self.norm1(x), spec, cfg,
+                                 positions=positions, kv_cache=cache,
+                                 cache_pos=cache_pos, pim_ctx=pim_ctx)
+        x = x + y
+        if hasattr(self, "mlp"):
+            x = x + self.mlp(self.norm2(x))
+        return x, new_cache

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same inputs (exact for the integer kernels, bitwise for
-FBP), the launch counters, and the decoder on the card against its CPU
-run. Marked `cuda`: skipped without a GPU. Run on a GPU machine with
+FBP, a few bf16 ulps for attend_protected), the launch counters, and the
+decoder and a small protected-KV decode on the card against their CPU
+runs. Marked
+`cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
@@ -82,3 +84,192 @@ def test_kernel_wrappers_refuse_wrong_inputs(dev):
         fbp.fbp_cn(torch.zeros((2, 3, 3), dtype=torch.float64, device=dev), 3)
     with pytest.raises(ValueError, match="p=11"):
         fbp.fbp_cn(torch.zeros((2, 3, 11), device=dev), 11)
+
+
+# ---------------------------------------------------------------------------
+# attend_protected: the CUDA kernel against its plain version to a few
+# bf16 ulps (rtol 2^-7, atol 2^-10): the kernel rounds K/V and the logits
+# to bf16 where the plain version does and sums in fp32 in another order
+# ---------------------------------------------------------------------------
+
+ULP = dict(rtol=2 ** -7, atol=2 ** -10)
+
+
+def _attend_operands(dev, *, B, Sq, Hq, Hkv, D, T, NP, S, code_name, seed,
+                     ragged=False):
+    from repro_torch.memory.paged import quantize_tensor, words_for_tensor
+    from repro_torch.core import encode_words
+    code = get_code(code_name)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bsub = B // S
+    page_shape = (bsub, T, Hkv, D)
+    W = words_for_tensor(page_shape, code.p, code.k)
+    pages = torch.zeros((2, NP, S, W, code.n), dtype=torch.int8, device=dev)
+    scales = torch.zeros((2, NP, S), device=dev)
+    for c in range(2):
+        for j in range(NP):
+            for s in range(S):
+                x = torch.randn(page_shape, generator=gen, device=dev) * 2
+                words, meta = quantize_tensor(x.to(torch.bfloat16), code.p,
+                                              code.k)
+                pages[c, j, s] = encode_words(words, code)
+                scales[c, j, s] = meta.scale
+    if ragged:
+        valid = torch.randint(0, T + 1, (NP, B), generator=gen, device=dev,
+                              dtype=torch.int32)
+        hot_valid = torch.randint(1, T + 1, (B,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+    else:
+        valid = torch.full((NP, B), T, dtype=torch.int32, device=dev)
+        hot_valid = torch.full((B,), T // 2, dtype=torch.int32, device=dev)
+    bf = dict(device=dev, generator=gen)
+    q = torch.randn((B, Sq, Hq, D), **bf).to(torch.bfloat16)
+    hot = [torch.randn((B, T, Hkv, D), **bf).to(torch.bfloat16)
+           for _ in range(2)]
+    args = (q, pages[0].contiguous(), pages[1].contiguous(),
+            scales[0].contiguous(), scales[1].contiguous(), valid, *hot,
+            hot_valid)
+    return args, dict(p=code.p, k_info=code.k, page_shape=page_shape)
+
+
+ATTEND_SHAPES = [
+    # the serving shape (paper-pim-2b, wl160_r08, 16-token pages), small NP
+    dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, NP=3, S=1),
+    dict(B=3, Sq=1, Hq=4, Hkv=2, D=8, T=4, NP=5, S=3, ragged=True),  # S=B
+    dict(B=2, Sq=3, Hq=8, Hkv=2, D=32, T=8, NP=2, S=1, ragged=True),
+    # a query block that needs more than 48 KB of shared memory
+    dict(B=1, Sq=4, Hq=64, Hkv=1, D=64, T=16, NP=2, S=1),
+]
+HOT_ONLY = dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, NP=0, S=1)
+
+
+@pytest.mark.parametrize("shape,softcap,with_hot", [
+    # a cap of 2 bites on logits of about N(0, 1); 50 barely does
+    *((shape, cap, True) for shape in ATTEND_SHAPES
+      for cap in (0.0, 50.0, 2.0)),
+    *((shape, 0.0, False) for shape in ATTEND_SHAPES),   # right after a freeze
+    (HOT_ONLY, 0.0, True), (HOT_ONLY, 50.0, True)])
+def test_attend_protected_kernel_matches_plain(dev, shape, softcap,
+                                               with_hot):
+    from repro_torch.kernels import paged_attention as pa
+    args, kw = _attend_operands(dev, code_name="wl160_r08", seed=3, **shape)
+    kw.update(softcap=softcap, with_hot=with_hot)
+    n0 = LAUNCHES["attend_protected"]
+    got = pa.attend_protected(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attend_protected"] == n0 + 1
+    want = pa.attend_protected_plain(*args, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    torch.testing.assert_close(got.float(), want.float(), **ULP)
+
+
+def test_attend_protected_degrades_on_uncorrected_cells(dev):
+    """Cells out of the field (an uncorrectable word read raw) are clipped
+    like the plain version clips them, never read out of range."""
+    from repro_torch.kernels import paged_attention as pa
+    args, kw = _attend_operands(dev, B=2, Sq=1, Hq=4, Hkv=2, D=8, T=4,
+                                NP=2, S=1, code_name="wl40_r08", seed=1)
+    kp = args[1].clone()
+    flat = kp.view(-1)
+    idx = torch.arange(0, flat.numel(), 7, device=dev)
+    flat[idx] = torch.randint(-128, 128, (idx.numel(),), device=dev,
+                              dtype=torch.int8)
+    args = (args[0], kp, *args[2:])
+    torch.testing.assert_close(pa.attend_protected(*args, **kw).float(),
+                               pa.attend_protected_plain(*args, **kw).float(),
+                               **ULP)
+
+
+def test_attend_protected_refuses_wrong_inputs(dev):
+    from repro_torch.kernels import paged_attention as pa
+    args, kw = _attend_operands(dev, B=2, Sq=1, Hq=4, Hkv=2, D=8, T=4,
+                                NP=1, S=1, code_name="wl40_r08", seed=2)
+    q, kp, vp, ks, vs, valid, hk, hv, hval = args
+    with pytest.raises(TypeError, match="int8"):
+        pa.attend_protected(q, kp.to(torch.int32), vp.to(torch.int32), ks,
+                            vs, valid, hk, hv, hval, **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        pa.attend_protected(q.float(), kp, vp, ks, vs, valid, hk, hv, hval,
+                            **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.attend_protected(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            kp, vp, ks, vs, valid, hk, hv, hval, **kw)
+    with pytest.raises(ValueError, match="several devices"):
+        pa.attend_protected(q.cpu(), kp, vp, ks, vs, valid, hk, hv, hval,
+                            **kw)
+    with pytest.raises(ValueError, match="at least one KV page"):
+        pa.attend_protected(q, kp[:0], vp[:0], ks[:0], vs[:0], valid[:0],
+                            hk, hv, hval, **kw, with_hot=False)
+
+
+def test_protected_decode_on_card_matches_cpu(dev):
+    """A small protected prefill + decode on the card, through the
+    kernels, against the same model's plain CPU run: the same tokens'
+    logits (of magnitude 0.1 to 1) agree to a few bf16 ulps and every
+    decode step launches attend_protected once per layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ProtectedKVConfig, decode_step,
+                                    init_params, prefill)
+    cfg = get_config("paper_pim").reduced(n_groups=2, d_model=64,
+                                          n_heads=4, n_kv_heads=2, d_ff=128)
+    cpu_params = init_params(cfg, 0, device="cpu")
+    gpu_params = init_params(cfg, 0, device="cpu").to(dev)
+    pkv = ProtectedKVConfig(code_name="wl160_r08", page_tokens=4)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 9)))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (5, 2, 1)))
+    outs = []
+    for params in (cpu_params, gpu_params):
+        d = params.device
+        _, caches = prefill(params, cfg, prompt.to(d), protected_kv=pkv)
+        steps = []
+        for i in range(5):
+            n0 = LAUNCHES["attend_protected"]
+            lg, caches = decode_step(params, cfg, caches, toks[i].to(d),
+                                     9 + i)
+            if d.type == "cuda":
+                assert LAUNCHES["attend_protected"] == n0 + cfg.n_groups
+            steps.append(lg.cpu())
+        outs.append(torch.cat(steps, dim=1))
+    torch.testing.assert_close(outs[1], outs[0], **ULP)
+
+
+
+def _small_layer(device, **knobs):
+    """A protected layer on `device` holding two frozen pages and a
+    part-full hot page of fixed K/V."""
+    from repro_torch.models import ProtectedKVConfig, ProtectedKVLayer
+    pkv = ProtectedKVConfig(code_name="wl40_r08", page_tokens=4, **knobs)
+    layer = ProtectedKVLayer(pkv, 2, 2, 8, device=device)
+    x = torch.randn((2, 10, 2, 8), generator=torch.Generator().manual_seed(0))
+    x = x.to(torch.bfloat16)
+    layer.append(x.to(device), (x * 0.5).to(device))
+    return layer
+
+
+def test_raw_read_on_card_goes_through_the_kernel(dev):
+    """The uncorrected ablation reads the raw corrupted cells through
+    attend_protected (one launch, no decode) and agrees with the raw read
+    of the same cells on the CPU; the streaming plain read refuses card
+    tensors."""
+    import dataclasses
+    from repro_torch.memory import uniform_flip
+    q = torch.randn((2, 1, 4, 8), generator=torch.Generator().manual_seed(1))
+    q = q.to(torch.bfloat16)
+    card = _small_layer(dev, corrected=False)
+    card.inject(uniform_flip(3, 0.05), key=0)
+    n0 = dict(LAUNCHES)
+    got = card.attend(q.to(dev))
+    assert LAUNCHES["attend_protected"] == n0["attend_protected"] + 1
+    assert LAUNCHES["fbp_cn"] == n0["fbp_cn"]
+    cpu = _small_layer("cpu", corrected=False)
+    for sc, sg in ((cpu.k_store, card.k_store), (cpu.v_store, card.v_store)):
+        for i in range(sg.n_pages):
+            sc._set_page(i, sg.page(i).cpu())
+    cpu._metas = [tuple(dataclasses.replace(m, scale=m.scale.cpu())
+                        for m in pair) for pair in card._metas]
+    cpu.invalidate()
+    torch.testing.assert_close(got.float().cpu(), cpu.attend(q).float(),
+                               **ULP)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        _small_layer(dev, fused=False).attend(q.to(dev))

@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
 JAX nor the JAX package, and an entry point left on its default device
-raises when there is no CUDA device instead of running on the CPU."""
+(codec, memory mode, the paged store, the model and its caches) raises
+when there is no CUDA device instead of running on the CPU."""
 import ast
 import json
 import os
@@ -62,12 +63,23 @@ def test_default_device_raises_without_cuda(monkeypatch):
                                   decode_integers, get_code,
                                   protected_pim_matmul)
     from repro_torch.device import resolve_device
-    from repro_torch.memory import (MemoryController, ProtectedMemoryArray,
-                                    RepairQueue)
+    from repro_torch.configs import get_config
+    from repro_torch.memory import (MemoryController, PagedProtectedStore,
+                                    ProtectedMemoryArray, RepairQueue)
+    from repro_torch.models import (ProtectedKVConfig, ProtectedKVLayer,
+                                    init_caches, init_params)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     code = get_code("wl40_r08")
     y = np.zeros((2, code.n), np.int64)
+    cfg = get_config("paper_pim").reduced(n_groups=1, d_model=16,
+                                          n_heads=2, d_ff=32, vocab=32)
+    pkv = ProtectedKVConfig(code_name="wl40_r08", page_tokens=4)
     for call in (
+            lambda: PagedProtectedStore("wl40_r08"),
+            lambda: ProtectedKVLayer(pkv, 1, 2, 8),
+            lambda: init_params(cfg),
+            lambda: init_caches(cfg, 1, 8),
+            lambda: init_caches(cfg, 1, 8, protected_kv=pkv),
             lambda: resolve_device(),
             lambda: ProtectedMemoryArray("wl40_r08"),
             lambda: MemoryController(),
@@ -80,6 +92,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
             call()
     # asked for the CPU, or handed CPU tensors, they run there
     assert ProtectedMemoryArray("wl40_r08", device="cpu").device.type == "cpu"
+    assert init_params(cfg, device="cpu").device.type == "cpu"
+    assert PagedProtectedStore("wl40_r08", device="cpu").device.type == "cpu"
     y_corr, _ = decode_integers(code, torch.as_tensor(y), n_iters=2)
     assert y_corr.device.type == "cpu"
 
