@@ -37,11 +37,36 @@ Phases (any failure exits non-zero):
      correct every flagged word and reproduce the clean run's tokens and
      logits exactly, and `attend_protected` must run once per layer per
      decode step in every run (the uncorrected run hands it the raw
-     cells). Then one clean decode step under torch.profiler.
+     cells). Then one clean decode step under torch.profiler;
+  9. flash prefill: phase 8's model and prompts through `prefill`, naive
+     and with attn_impl="flash": flash_fwd once per layer (24), and the
+     flash logits no farther than the naive ones from a prefill whose
+     attention keeps its softmax in fp32; and the JAX package's own
+     model-level check (reduced gemma2, flash within 0.05 of naive)
+     through the kernels;
+ 10. reduced granite-3-2b (2 layers, d_model 128, seq 64, batch 4) under
+     attn_impl="flash": 5 steps of `launch.train.run` on the card against
+     the CPU from the same weights (losses within 1e-2 relative); a
+     protected checkpoint of the card run, flips injected into it, an
+     exact restore and a resumed run (gf_matmul, scan and FBP on the
+     training path);
+ 11. granite-3-2b at full width and depth (40 layers, 2.53 B parameters,
+     AdamW, remat, TokenPipeline at seq 4096 and batch 2) after phase 8's
+     model is freed: the first batch's loss and grad norm naive against
+     flash, 6 training steps (flash_fwd 80, flash_bwd_dq 40 and
+     flash_bwd_dkv 40 launches per step), peak memory, one more step
+     under torch.profiler.
+
+Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
+their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
+within 5e-3 of the largest) at the training and prefill shapes, a ragged
+bidirectional case, a window of 256 and a softcap of 2, timed beside
+torch's scaled_dot_product_attention (a yardstick the port never calls).
 
 Kernel launch counts are reset just before each main path, memory and
-PIM mode (phases 3-4) and serving (phase 8), and read just after it:
-every kernel must have run on its path. Each entry-point call of phases
+PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9) and
+training (phases 10-11), and read just after it: every kernel must have
+run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
 decode step. The last lines are the card's name and power limit, one JSON
@@ -51,6 +76,7 @@ outside the repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -77,6 +103,23 @@ ULP_RTOL, ULP_ATOL = 2 ** -7, 2 ** -10
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 FP32_OPS_PER_S = 67e12
+# bf16 dense tensor-core peak: products of bf16 inputs are exact in fp32,
+# so it bounds the flash kernels' fp32-accumulated work on bf16 operands
+BF16_OPS_PER_S = 989e12
+# the flash kernels' backward against its plain version: within 5e-3 of
+# the largest |gradient|, the JAX package's own bound for its kernel
+# against its oracle (tests/test_flash_attention.py)
+FLASH_BWD_BOUND = 5e-3
+PREFILL_LOGITS_ATOL = 0.05     # flash vs naive, the JAX model-level bound
+# one-layer full-width paper-pim-2b, flash prefill logits against an
+# fp32-softmax prefill: one bf16 ulp of the largest logits (2^-5 at |logit|
+# in [4, 8)) and a margin, under the 1.5-ulp gap of the naive prefill
+# (0.047-0.055 on an H100; see PERF.md)
+PREFILL_EXACT_ATOL = 0.04
+TRAIN_ARCH = "granite_3_2b"    # the training phases' model
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096   # global batch (cut from 256), seq_len
+TRAIN_STEPS = 6                # optimizer steps of the full-size run
+SMALL_TRAIN_STEPS = 5          # phase 10's card-vs-CPU steps
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -84,6 +127,9 @@ REPLACES = {
     "fbp_cn": "src/repro/kernels/fbp.py:89",
     "pim_mac": "src/repro/kernels/pim_mac.py:43",
     "attend_protected": "src/repro/kernels/paged_attention.py:122",
+    "flash_fwd": "src/repro/kernels/flash_attention.py:116",
+    "flash_bwd_dq": "src/repro/kernels/flash_attention.py:236",
+    "flash_bwd_dkv": "src/repro/kernels/flash_attention.py:236",
 }
 SOURCES = {
     "gf_matmul": "src/repro_torch/kernels/csrc/gf_matmul.cu",
@@ -91,6 +137,9 @@ SOURCES = {
     "fbp_cn": "src/repro_torch/kernels/csrc/fbp.cu",
     "pim_mac": "src/repro_torch/kernels/csrc/pim_mac.cu",
     "attend_protected": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "flash_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_bwd_dq": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_bwd_dkv": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 
 
@@ -384,6 +433,28 @@ def phase_memory(device, per_call: dict) -> dict:
     return res, mem
 
 
+def _device_busy(prof) -> tuple[int, dict, float]:
+    """(device events, device time by kernel name in us, busy us: the
+    union of the device events' intervals)."""
+    from torch.autograd import DeviceType
+    by_kernel: dict[str, float] = {}
+    spans = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    if not spans:
+        raise AssertionError("the profiler recorded no device events")
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return len(spans), by_kernel, busy_us
+
+
 def phase_profile(mem) -> dict:
     """Where a corrected read of the memory-mode array spends its time:
     a fresh injection, then one read under torch.profiler (device time by
@@ -394,7 +465,6 @@ def phase_profile(mem) -> dict:
     (kernels, copies, sets): the profiler also charges each kernel's time
     to the host op that launched it, so the host ops are left out."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import gf_matmul
     from repro_torch.memory import uniform_flip
@@ -406,21 +476,7 @@ def phase_profile(mem) -> dict:
         mem.read("t")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel: dict[str, float] = {}
-    spans = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (end - start)
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    if not spans:
-        raise AssertionError("the profiler recorded no device events")
+    events, by_kernel, busy_us = _device_busy(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     enc = mem.stored("t").enc
     code = mem.code
@@ -430,7 +486,7 @@ def phase_profile(mem) -> dict:
         raise AssertionError("scan_syndromes over the whole store differs "
                              "from its plain version")
     res = {"read_wall_ms_profiled": wall_us / 1e3,
-           "device_events": len(spans),
+           "device_events": events,
            "device_event_sum_ms": sum(by_kernel.values()) / 1e3,
            "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us,
@@ -625,9 +681,10 @@ def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
             "ms_per_decode_step": decode_s / SERVE_STEPS * 1e3}
 
 
-def phase_serving(device) -> tuple[dict, dict]:
+def phase_serving(device) -> tuple[dict, dict, tuple]:
     """Protected KV-cache serving of paper-pim-2b at full width and depth.
-    Returns (report, the kernel launches of its runs)."""
+    Returns (report, the kernel launches of its runs, (cfg, params,
+    prompts) for the flash prefill of phase 9)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -699,7 +756,7 @@ def phase_serving(device) -> tuple[dict, dict]:
     for name in ("clean", "injected", "uncorrected"):
         del runs[name]["caches"]
     report["profile_step"] = profile_decode_step(params, cfg, prompts, pkv)
-    return report, launches
+    return report, launches, (cfg, params, prompts)
 
 
 def profile_decode_step(params, cfg, prompts, pkv) -> dict:
@@ -708,7 +765,6 @@ def profile_decode_step(params, cfg, prompts, pkv) -> dict:
     events' intervals), the top device kernels, and the host ops with the
     most self time (with their call counts)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step, prefill
     S = prompts.shape[1]
@@ -723,31 +779,507 @@ def profile_decode_step(params, cfg, prompts, pkv) -> dict:
         decode_step(params, cfg, caches, tok, S + 1)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_kernel: dict[str, float] = {}
-    spans = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start)
-    if not spans:
-        raise AssertionError("the profiler recorded no device events")
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
+    events, by_kernel, busy_us = _device_busy(prof)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     host = sorted(((e.key, e.self_cpu_time_total, e.count)
                    for e in prof.key_averages()), key=lambda r: -r[1])[:10]
     return {"step_wall_ms_profiled": wall_us / 1e3,
-            "device_events": len(spans),
+            "device_events": events,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / wall_us,
             "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top},
             "top_host_ops_self_ms_calls": {
                 k[:60]: [us / 1e3, n] for k, us, n in host}}
+
+
+# ---------------------------------------------------------------------------
+# flash attention: kernels, prefill, training
+# ---------------------------------------------------------------------------
+
+# B, Sq, Skv, Hq, Hkv, D, causal, window, softcap: the training shape
+# (granite-3-2b, seq 4096, batch 2), the prefill shape (paper-pim-2b, 4 x
+# 512), a ragged bidirectional case, a sliding window, a softcap of 2
+FLASH_CASES = [
+    ("training", (2, 4096, 4096, 32, 8, 64, True, 0, 0.0)),
+    ("prefill", (4, 512, 512, 32, 8, 64, True, 0, 0.0)),
+    ("ragged_bidirectional", (1, 1000, 1200, 32, 8, 64, False, 0, 0.0)),
+    ("window256", (2, 4096, 4096, 32, 8, 64, True, 256, 0.0)),
+    ("softcap2", (2, 1024, 1024, 32, 8, 64, True, 0, 2.0)),
+]
+
+
+def flash_costs(case, n_visible: int) -> dict:
+    """(bytes, flops) of each flash kernel on `case`: every input read
+    once and every output written once; 2 flops per multiply-add over the
+    (q, k) pairs the mask lets through (`n_visible` per head): the forward
+    does QK^T and PV (4 per pair and head dim), dq recomputes QK^T and
+    dO V^T and takes dS K (6), dk/dv recompute both and take P^T dO and
+    dS^T Q (8)."""
+    B, Sq, Skv, Hq, Hkv, D = case[:6]
+    q_bytes, kv_bytes, row_bytes = B * Hq * Sq * D * 2, B * Hkv * Skv * D * 2, \
+        B * Hq * Sq * 4
+    pairs = B * Hq * D * n_visible
+    return {"flash_fwd": (2 * q_bytes + 2 * kv_bytes + row_bytes, 4 * pairs),
+            "flash_bwd_dq": (3 * q_bytes + 2 * kv_bytes + 2 * row_bytes,
+                             6 * pairs),
+            "flash_bwd_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * row_bytes,
+                              8 * pairs)}
+
+
+def sdpa_timings(q, k, v, do, case) -> tuple[float | None, float | None]:
+    """One PyTorch call computing the same function, timed as a yardstick
+    and never used by the port: scaled_dot_product_attention forward and
+    its autograd backward (dq, dk and dv together). None under a softcap,
+    which SDPA does not take."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
+    if cap:
+        return None, None
+    q4, do4 = q.view(B, Hq, Sq, D), do.view(B, Hq, Sq, D)
+    k4, v4 = k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, D)
+    mask = fa.flash_mask(Sq, Skv, causal, window, q.device) if window \
+        else None
+    kw = dict(attn_mask=mask, is_causal=causal and not window,
+              scale=1.0 / D ** 0.5, enable_gqa=True)
+    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                            **kw), 10)
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    out = F.scaled_dot_product_attention(*leaves, **kw)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do4,
+                                                 retain_graph=True), 10)
+    return fwd_ms, bwd_ms
+
+
+def phase_flash(device) -> dict:
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
+    versions at FLASH_CASES: o to a few bf16 ulps (rtol 2^-7, atol
+    2^-10), lse to rtol 1e-5, the gradients within FLASH_BWD_BOUND of the
+    largest |gradient|; each timed beside its plain version, its bound
+    and the SDPA yardstick."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rows: dict[str, list] = {}
+    for label, case in FLASH_CASES:
+        B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
+        q, do = (torch.randn((B * Hq, Sq, D), generator=gen, device=device)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B * Hkv, Skv, D), generator=gen, device=device)
+                .to(torch.bfloat16) for _ in range(2))
+        kw = dict(g=Hq // Hkv, scale=1.0 / D ** 0.5, causal=causal,
+                  window=window, softcap=cap)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = fa.flash_delta(o, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+        dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+        diff = (o.float() - o_p.float()).abs()
+        if not torch.isfinite(o.float()).all() or bool(
+                (diff > ULP_ATOL + ULP_RTOL * o_p.float().abs()).any()):
+            raise AssertionError(f"flash_fwd {label}: o differs from its "
+                                 f"plain version by {float(diff.max())}")
+        # lse to rtol 1e-5; atol 1e-5 for the rows with few keys, whose
+        # lse is a single score near 0 and carries its fp32 dot product's
+        # rounding (about 1e-6 at D = 64) and no more
+        lse_off = (lse - lse_p).abs() - 1e-5 * lse_p.abs()
+        if bool((lse_off > 1e-5).any()):
+            raise AssertionError(f"flash_fwd {label}: lse off by "
+                                 f"{float(lse_off.max())} past rtol 1e-5")
+        errs = {"flash_fwd": float(diff.max())}
+        for name, pairs in (("flash_bwd_dq", ((dq, dq_p),)),
+                            ("flash_bwd_dkv", ((dk, dk_p), (dv, dv_p)))):
+            err = 0.0
+            for got, want in pairs:
+                e = float((got.float() - want.float()).abs().max())
+                bound_abs = FLASH_BWD_BOUND * float(want.float().abs().max())
+                if not torch.isfinite(got.float()).all() or e > bound_abs:
+                    raise AssertionError(f"{name} {label}: off by {e}, "
+                                         f"bound {bound_abs}")
+                err = max(err, e)
+            errs[name] = err
+        del o_p, lse_p, dq_p, dk_p, dv_p
+        n_vis = int(fa.flash_mask(Sq, Skv, causal, window, device).sum())
+        costs = flash_costs(case, n_vis)
+        big = B * Hq * Sq * Skv > 2 ** 28
+        reps, plain_reps = (3, 2) if big else (10, 3)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                          lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+            "flash_bwd_dq": (
+                lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                              **kw)),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
+                lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               **kw))}
+        sdpa_fwd, sdpa_bwd = sdpa_timings(q, k, v, do, case)
+        for name, (kernel, plain) in calls.items():
+            nbytes, flops = costs[name]
+            b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
+            ms = cuda_ms(kernel, reps)
+            row = {"name": name, "case": label,
+                   "shape": dict(zip(("B", "Sq", "Skv", "Hq", "Hkv", "D",
+                                      "causal", "window", "softcap"), case)),
+                   "max_abs_err": errs[name], "ms": ms,
+                   "plain_ms": cuda_ms(plain, plain_reps),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": sdpa_fwd if name == "flash_fwd"
+                   else sdpa_bwd,
+                   "gflop": flops / 1e9, "tflop_per_s": flops / ms / 1e9}
+            rows.setdefault(name, []).append(row)
+            log(f"  {name} {label}: {json.dumps(row)}")
+        del q, k, v, do, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def exact_attend(q, k, v, mask, softcap, **_kw):
+    """Attention with the softmax and its weights kept in fp32 (scores
+    from bf16 inputs, which fp32 holds exactly, times 1/sqrt(D), the
+    softcap, the mask, then fp32 weights times fp32 V), rounded to q's
+    dtype once at the end: the function both the naive path (which rounds
+    the weights to bf16) and the flash kernels (fp32 throughout, another
+    order of sums) approximate. Phase 9's reference only; the port never
+    calls it."""
+    import torch
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / D ** 0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    if mask is not None:
+        s = torch.where(mask[:, :, None], s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _checked_attend(attend, ratios):
+    """`attend` (layers._attend) that also holds each flash call's output
+    against `exact_attend` on the same inputs: it appends to `ratios` the
+    largest |out - exact| / (ULP_ATOL + ULP_RTOL * |exact|) of the flash
+    output and, as a control, of the naive attention on those inputs."""
+    import torch
+
+    def ratio(out, ref):
+        return float(((out.float() - ref).abs() / (
+            ULP_ATOL + ULP_RTOL * ref.abs())).max())
+
+    def checked(q, k, v, mask, softcap, *, impl="naive", causal=True,
+                window=0):
+        out = attend(q, k, v, mask, softcap, impl=impl, causal=causal,
+                     window=window)
+        if impl == "flash" and q.shape[1] > 1:
+            qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+            kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+            ok = (kpos <= qpos) | (not causal)
+            if window:
+                ok &= kpos > qpos - window
+            mask = ok[None, None]
+            ref = exact_attend(q, k, v, mask, softcap).float()
+            ratios.append({"flash": ratio(out, ref), "naive": ratio(
+                attend(q, k, v, mask, softcap), ref)})
+        return out
+    return checked
+
+
+def phase_prefill(device, cfg, params, prompts) -> tuple[dict, dict]:
+    """Flash prefill of full paper-pim-2b on the serving prompts: `prefill`
+    naive and under attn_impl="flash" (flash_fwd once per layer), timed,
+    then checked against attention that keeps its softmax in fp32
+    (`exact_attend`):
+
+    - every layer's flash attention output in the real prefill, and in a
+      one-layer copy at full width on seeds SEED and SEED + 1, against
+      `exact_attend` on the same q/k/v within ULP_RTOL/ULP_ATOL (the
+      naive attention on those inputs, which rounds its weights to bf16,
+      is reported beside it as the control);
+    - the one-layer copies' logits within PREFILL_EXACT_ATOL of an
+      `exact_attend` prefill (the naive ones reported beside them);
+    - the 24-layer logits no farther from an `exact_attend` prefill than
+      the naive ones. Over 24 random-weight layers any two roundings of
+      attention drift apart (0.2 between naive and flash), so the JAX
+      package's 0.05 flash-vs-naive bound holds at model level only on
+      its own case: `forward` of reduced gemma2-27b (window, softcaps,
+      GQA) on 2 x 64 tokens, flash within PREFILL_LOGITS_ATOL of naive.
+
+    Returns (report, the launches of the timed prefills)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.models import forward, init_params, prefill
+    from repro_torch.nn import layers
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    n_layers = cfg.n_groups * len(cfg.group_spec)
+    out, secs = {}, {}
+    build.reset_launches()
+    for name, c in (("naive", cfg), ("flash", flash_cfg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = prefill(params, c, prompts)[0]
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        if name == "naive" and build.LAUNCHES["flash_fwd"]:
+            raise AssertionError("the naive prefill launched flash_fwd")
+    launches = dict(build.LAUNCHES)
+
+    attend, ratios = layers._attend, []
+    one = dataclasses.replace(cfg, n_groups=1)
+    one_dist, one_naive = {}, {}
+    try:
+        with torch.no_grad():
+            layers._attend = _checked_attend(attend, ratios)
+            prefill(params, flash_cfg, prompts)
+            layers._attend = exact_attend
+            ref = prefill(params, cfg, prompts)[0]
+            for seed in (SEED, SEED + 1):
+                one_params = init_params(one, seed, device=device)
+                layers._attend = _checked_attend(attend, ratios)
+                got = prefill(one_params, dataclasses.replace(
+                    one, attn_impl="flash"), prompts)[0]
+                layers._attend = attend
+                naive = prefill(one_params, one, prompts)[0]
+                layers._attend = exact_attend
+                exact = prefill(one_params, one, prompts)[0]
+                one_dist[seed] = float((got - exact).abs().max())
+                one_naive[seed] = float((naive - exact).abs().max())
+                del one_params, got, naive, exact
+    finally:
+        layers._attend = attend
+    dist = {name: float((out[name] - ref).abs().max()) for name in out}
+
+    small = get_config("gemma2_27b").reduced()
+    small_params = init_params(small, SEED, device=device)
+    toks = torch.randint(0, small.vocab_size, (2, 64), device=device,
+                         generator=torch.Generator(device=device)
+                         .manual_seed(SEED))
+    with torch.no_grad():
+        small_diff = float((forward(small_params, small, toks) - forward(
+            small_params, dataclasses.replace(small, attn_impl="flash"),
+            toks)).abs().max())
+    layer_ratio = {k: [r[k] for r in ratios] for k in ("flash", "naive")}
+    report = {"batch": tuple(prompts.shape)[0],
+              "prompt_tokens": tuple(prompts.shape)[1],
+              "naive_s": secs["naive"], "flash_s": secs["flash"],
+              "max_abs_logit": float(out["naive"].abs().max()),
+              "flash_vs_naive": float((out["flash"] - out["naive"])
+                                      .abs().max()),
+              "flash_vs_fp32_softmax": dist["flash"],
+              "naive_vs_fp32_softmax": dist["naive"],
+              "layer_ulp_ratio_flash_max": max(layer_ratio["flash"]),
+              "layer_ulp_ratio_naive_min": min(layer_ratio["naive"]),
+              "layer_ulp_ratio_naive_max": max(layer_ratio["naive"]),
+              "one_layer_flash_vs_fp32_softmax": one_dist,
+              "one_layer_naive_vs_fp32_softmax": one_naive,
+              "argmax_agree_flash_naive": float(
+                  (out["flash"].argmax(-1) == out["naive"].argmax(-1))
+                  .float().mean()),
+              "reduced_gemma2_flash_vs_naive": small_diff,
+              "flash_fwd_launches": launches.get("flash_fwd", 0)}
+    log(f"  prefill: {json.dumps(report)}")
+    if launches.get("flash_fwd", 0) != n_layers:
+        raise AssertionError(f"flash prefill launched flash_fwd "
+                             f"{launches.get('flash_fwd', 0)} times, "
+                             f"expected {n_layers}")
+    if len(ratios) != n_layers + 2 or not max(layer_ratio["flash"]) <= 1:
+        raise AssertionError(f"flash attention outputs of the prefill's "
+                             f"layers are not within a few bf16 ulps of "
+                             f"the fp32-softmax attention: {ratios}")
+    if not max(one_dist.values()) <= PREFILL_EXACT_ATOL:
+        raise AssertionError(f"one-layer flash prefill logits are "
+                             f"{one_dist} from the fp32-softmax reference")
+    if not torch.isfinite(out["flash"]).all() or not \
+            dist["flash"] <= dist["naive"]:
+        raise AssertionError(f"flash prefill logits are farther from the "
+                             f"fp32-softmax reference ({dist['flash']}) "
+                             f"than the naive ones ({dist['naive']})")
+    if not small_diff < PREFILL_LOGITS_ATOL:
+        raise AssertionError(f"reduced gemma2: flash differs from naive by "
+                             f"{small_diff}")
+    return report, launches
+
+
+def phase_small_training(device) -> dict:
+    """Reduced granite-3-2b (2 layers, d_model 128, seq 64, batch 4; the
+    shape of tests/test_system.py::test_training_learns) under
+    attn_impl="flash": SMALL_TRAIN_STEPS steps of `launch.train.run` on
+    the card and on the CPU from the same weights, losses within 1e-2
+    relative step by step. The card run saves a protected checkpoint of
+    its last step; flips injected into it are corrected on restore (the
+    parameters come back bit for bit), and the run resumes from it."""
+    import copy
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import checkpoint, optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.memory import uniform_flip
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(
+        n_groups=2, d_model=128, n_heads=4, d_ff=512), attn_impl="flash")
+    start = init_params(cfg, SEED, device="cpu")
+    kw = dict(batch=4, seq=64, lr=5e-3, log=lambda m: None)
+    with tempfile.TemporaryDirectory() as d:
+        cpu = run(cfg, steps=SMALL_TRAIN_STEPS, params=copy.deepcopy(start),
+                  device="cpu", ckpt_dir=os.path.join(d, "cpu"),
+                  save_every=100, **kw)
+        model = copy.deepcopy(start)
+        ckpt_dir = os.path.join(d, "card")
+        card = run(cfg, steps=SMALL_TRAIN_STEPS, params=model, device=device,
+                   ckpt_dir=ckpt_dir, save_every=SMALL_TRAIN_STEPS - 1,
+                   protect=True, **kw)
+        rel = [abs(b["loss"] - a["loss"]) / abs(a["loss"])
+               for a, b in zip(cpu, card, strict=True)]
+        changed = checkpoint.inject_storage_faults(
+            ckpt_dir, uniform_flip(3, 1e-4), key=SEED, device=device)
+        template = {"params": model.leaves(),
+                    "opt": optim.adamw(1.0).init(model.leaves())}
+        restored, manifest = checkpoint.restore_checkpoint(
+            ckpt_dir, template, device=device)
+        exact = all(torch.equal(a, b) for k, ps in model.leaves().items()
+                    for a, b in zip(ps, restored["params"][k], strict=True))
+        del restored, template
+        resumed = run(cfg, steps=SMALL_TRAIN_STEPS + 2,
+                      params=copy.deepcopy(start), device=device,
+                      ckpt_dir=ckpt_dir, save_every=100, protect=True, **kw)
+    stats = manifest["correction_stats"]
+    report = {"cpu_losses": [h["loss"] for h in cpu],
+              "card_losses": [h["loss"] for h in card],
+              "max_rel_loss_diff": max(rel), "injected_cells": changed,
+              "restore_corrected": stats["corrected"],
+              "restore_uncorrectable": stats["uncorrectable"],
+              "restored_exactly": exact,
+              "resumed_steps": [h["step"] for h in resumed],
+              "resumed_losses": [h["loss"] for h in resumed],
+              "card_launches_per_step": card[-1]["launches"]}
+    log(f"  small training: {json.dumps(report)}")
+    if not max(rel) <= 1e-2:
+        raise AssertionError(f"card losses differ from the CPU's by "
+                             f"{max(rel)} relative")
+    if changed <= 0 or stats["corrected"] <= 0 or not exact:
+        raise AssertionError(f"protected checkpoint: {changed} cells "
+                             f"injected, {stats}, exact={exact}")
+    if report["resumed_steps"] != [SMALL_TRAIN_STEPS - 1 + i
+                                   for i in range(3)]:
+        raise AssertionError(f"resumed steps {report['resumed_steps']}")
+    for h in card + resumed:
+        if not h["launches"].get("flash_bwd_dkv"):
+            raise AssertionError(f"step {h['step']} on the card ran no "
+                                 "flash backward")
+    return report
+
+
+def phase_full_training(device) -> dict:
+    """granite-3-2b at full width and depth (2.53 B parameters, seeded
+    random weights), AdamW, remat "full", the TokenPipeline at seq 4096
+    and global batch 2. The first batch's loss and global grad norm,
+    before any update, naive against flash (within 1e-3 and 1e-2
+    relative); then TRAIN_STEPS steps of `launch.train.run` under
+    attn_impl="flash" (no checkpoint written), each launching flash_fwd
+    twice per layer (forward and remat) and each backward kernel once per
+    layer; then one more step under torch.profiler."""
+    import dataclasses
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.steps import build_train
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params, loss_fn
+    cfg = get_config(TRAIN_ARCH)
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    n_layers = cfg.n_groups * len(cfg.group_spec)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    report = {"arch": cfg.name, "layers": n_layers,
+              "parameters": sum(p.numel() for p in model.parameters()),
+              "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "init_s": time.perf_counter() - t0}
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=SEED)
+    first = next(TokenPipeline(dcfg))
+    batch = {k: torch.as_tensor(v, device=device) for k, v in first.items()}
+    check = {}
+    for name, c in (("naive", cfg), ("flash", flash_cfg)):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(model, c, batch)
+        loss.backward()
+        gnorm = torch.sqrt(sum(p.grad.float().square().sum()
+                               for p in model.parameters()))
+        check[name] = {"loss": float(loss.detach()),
+                       "grad_norm": float(gnorm),
+                       "seconds": time.perf_counter() - t0}
+    model.zero_grad(set_to_none=True)
+    report["first_batch"] = check
+    log(f"  first batch naive vs flash: {json.dumps(check)}")
+    n, f = check["naive"], check["flash"]
+    if not abs(f["loss"] - n["loss"]) <= 1e-3 * abs(n["loss"]) or not \
+            abs(f["grad_norm"] - n["grad_norm"]) <= 1e-2 * n["grad_norm"]:
+        raise AssertionError(f"first batch: flash {f} against naive {n}")
+
+    with tempfile.TemporaryDirectory() as d:
+        hist = run(flash_cfg, steps=TRAIN_STEPS,
+                   batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=SEED,
+                   save_every=TRAIN_STEPS + 1, log_every=1, ckpt_dir=d,
+                   params=model, device=device, log=lambda m: log("  " + m))
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers}
+    report["steps"] = [
+        {"step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
+         "ms": h["seconds"] * 1e3,
+         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / h["seconds"],
+         "launches": h["launches"]} for h in hist]
+    for h in hist:
+        got = {k: h["launches"].get(k, 0) for k in want}
+        if got != want or not all(got.values()):
+            raise AssertionError(f"step {h['step']}: flash launches {got}, "
+                                 f"expected {want}")
+        if not torch.isfinite(torch.tensor(h["loss"])):
+            raise AssertionError(f"step {h['step']}: loss {h['loss']}")
+
+    train_step, tx = build_train(flash_cfg, lr=3e-3,
+                                 total_steps=TRAIN_STEPS)
+    opt = tx.init(model.leaves())
+    extra = next(TokenPipeline(dcfg, step=TRAIN_STEPS))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = train_step(model, opt, extra)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del opt
+    events, by_kernel, busy_us = _device_busy(prof)
+    flash_us = sum(us for k, us in by_kernel.items() if "flash_" in k)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    report["profile_step"] = {
+        "step_wall_ms_profiled": wall_us / 1e3, "device_events": events,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "flash_kernels_ms": flash_us / 1e3,
+        "flash_share_of_busy": flash_us / busy_us,
+        "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top}}
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  full training: {json.dumps(report)}")
+    del model
+    torch.cuda.empty_cache()
+    return report
 
 
 def check_path(name: str, launches: dict, kernels) -> None:
@@ -784,6 +1316,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     rows = phase_kernels(device)
     rows["attend_protected"] = phase_attend(device)
+    rows.update(phase_flash(device))
 
     log("phase 3-4: main path (memory mode, PIM mode)")
     build.reset_launches()
@@ -807,17 +1340,38 @@ def main() -> int:
     phase_small_serving(device)
 
     log("phase 8: protected KV-cache serving, paper-pim-2b")
-    serving, serve_launches = phase_serving(device)
+    serving, serve_launches, serve_model = phase_serving(device)
     log(f"  launches on the serving path: {serve_launches}")
     check_path("serving", serve_launches,
                ("attend_protected", "gf_matmul", "scan_syndromes", "fbp_cn"))
-    launches = {k: codec_launches.get(k, 0) + serve_launches.get(k, 0)
-                for k in KERNELS}
+
+    log("phase 9: flash prefill, paper-pim-2b")
+    prefill_report, prefill_launches = phase_prefill(device, *serve_model)
+    log(f"  launches on the prefill path: {prefill_launches}")
+    check_path("prefill", prefill_launches, ("flash_fwd",))
+    del serve_model                    # free the serving model's 6 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 10: reduced training, card against CPU, protected "
+        "checkpoint")
+    build.reset_launches()
+    small_training = phase_small_training(device)
+    log("phase 11: full-size training, granite-3-2b")
+    full_training = phase_full_training(device)
+    train_launches = dict(build.LAUNCHES)
+    log(f"  launches on the training path: {train_launches}")
+    check_path("training", train_launches,
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gf_matmul",
+                "scan_syndromes", "fbp_cn"))
+    launches = {k: sum(path.get(k, 0) for path in (
+        codec_launches, serve_launches, prefill_launches, train_launches))
+        for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
     # path's: p=3 for FBP, the ideal ADC for the MAC, the serving shape
-    # for attend_protected); the other checked shapes are in the phase 2
-    # log lines above
+    # for attend_protected, the training shape for the flash kernels); the
+    # other checked shapes are in the phase 2 log lines above
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 **{k: rows[name][0][k] for k in (
@@ -828,9 +1382,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
-                    "serving": serving, "launches_per_call": per_call,
+                    "serving": serving, "prefill": prefill_report,
+                    "small_training": small_training,
+                    "full_training": full_training,
+                    "launches_per_call": per_call,
                     "launches_codec": codec_launches,
                     "launches_serving": serve_launches,
+                    "launches_prefill": prefill_launches,
+                    "launches_training": train_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

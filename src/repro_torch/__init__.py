@@ -11,9 +11,13 @@ Memory mode:  `repro_torch.memory.ProtectedMemoryArray`
 PIM mode:     `repro_torch.core.protected_pim_matmul`
 Protected KV-cache serving: `repro_torch.models.prefill(...,
               protected_kv=ProtectedKVConfig(...))`, then `decode_step`
+Training:     `repro_torch.launch.train.run(cfg, ...)` (flash attention
+              forward and backward under `attn_impl="flash"`)
 """
-from . import configs, convert, core, kernels, memory, models, nn
+from . import (checkpoint, configs, convert, core, data, distributed,
+               kernels, launch, memory, models, nn, optim)
 from .device import resolve_device
 
-__all__ = ["configs", "convert", "core", "kernels", "memory", "models", "nn",
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "distributed",
+           "kernels", "launch", "memory", "models", "nn", "optim",
            "resolve_device"]

@@ -5,7 +5,8 @@ framework). Each architecture gets a module `repro_torch/configs/<id>.py`
 exporting `CONFIG: ArchConfig`; models are built from the config alone
 (`repro_torch.models.lm`). `attn_impl`, `remat` and `unroll_groups` are kept
 so that configs stay field for field equal to the reference's; the port
-reads only `attn_impl` ("naive"), and raises on anything else.
+reads `attn_impl` ("naive" or "flash"; "standin" raises), `remat` and
+`remat_policy` ("full"; "dots" raises).
 
 A transformer stack is described as `n_groups` repetitions of `group_spec`
 (a tuple of LayerSpec) — uniform stacks have a single-entry spec; gemma2

@@ -8,7 +8,9 @@ ints, e.g. `{f: getattr(code, f) for f in CODE_FIELDS}`), and
 device, so both packages can run on the identical graph and cells.
 `params_from_arrays` loads a model's weights from the JAX package's
 `init_params` pytree (as numpy arrays, stacked over groups), so both
-packages can run the same model.
+packages can run the same model, and `opt_state_from_arrays` carries an
+optimizer state (AdamW's `m`/`v`/`step`, Adafactor's `f`/`step`/`m`)
+across the same way, so both packages' optimizers start from one state.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from .configs.base import ArchConfig
 from .core.construction import LDPCCode
 from .device import resolve_device
 from .memory.array import StoredTensor
-from .models.lm import LM
+from .models.lm import LM, jax_path
 
 CODE_FIELDS = ("p", "n", "k", "H", "G", "P", "cn_vns", "cn_coefs", "cn_mask",
                "perm_to_contrib", "perm_to_sym", "dv", "dc_max")
@@ -63,18 +65,51 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
     model = LM(cfg, device=resolve_device(device))
     with torch.no_grad():
         for name, param in model.named_parameters():
-            path = name.split(".")
-            if path[0] == "blocks":
-                g, i = divmod(int(path[1]), len(cfg.group_spec))
-                node = tree["groups"][f"pos{i}"]
-                path = path[2:]
-            else:
-                node, g = tree, None
-            for key in path:
-                node = node[key]
-            arr = np.asarray(node if g is None else node[g])
+            path, g = jax_path(name, cfg)
+            arr = np.asarray(_node(tree, path) if g is None
+                             else _node(tree, path)[g])
             if arr.shape != tuple(param.shape):
                 raise ValueError(f"{name}: array of shape {arr.shape}, "
                                  f"parameter {tuple(param.shape)}")
             param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def _node(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _leaf_lists(tree, model: LM, device) -> dict[str, list[torch.Tensor]]:
+    """A params-shaped JAX pytree of numpy arrays -> {leaf path: tensors},
+    group leaves split into their per-layer slices (as `LM.leaves`)."""
+    out = {}
+    for path, params in model.leaves().items():
+        arr = np.asarray(_node(tree, path.split("/")), dtype=np.float32)
+        parts = list(arr) if path.startswith("groups/") else [arr]
+        if len(parts) != len(params):
+            raise ValueError(f"{path}: {len(parts)} arrays for "
+                             f"{len(params)} parameters")
+        out[path] = [torch.tensor(a, device=device) for a in parts]
+    return out
+
+
+def opt_state_from_arrays(state, model: LM, device=None) -> dict:
+    """The JAX package's optimizer state as numpy arrays
+    (`jax.tree.map(np.asarray, opt_state)`) -> the port's state for
+    `model` (`optim.adamw` / `optim.adafactor`): moments per leaf as lists
+    of per-layer tensors, Adafactor's factored `vr`/`vc` kept whole (they
+    belong to the stacked leaf), `step` an int."""
+    device = resolve_device(device)
+    out = {"step": int(np.asarray(state["step"]))}
+    for key in ("m", "v"):
+        if key in state:
+            out[key] = _leaf_lists(state[key], model, device)
+    if "f" in state:
+        out["f"] = {path: {k: torch.tensor(np.asarray(a, np.float32),
+                                           device=device)
+                           for k, a in _node(state["f"],
+                                             path.split("/")).items()}
+                    for path in model.leaves()}
+    return out

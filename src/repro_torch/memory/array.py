@@ -55,8 +55,9 @@ def _raw_bytes(array, device: torch.device):
         dtype = np.dtype(str(t.dtype).removeprefix("torch.")).name
         raw = t.contiguous().reshape(-1).view(torch.uint8).to(device)
         return raw, dtype, tuple(t.shape)
-    arr = np.ascontiguousarray(array)
-    raw = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+    arr = np.asarray(array)          # a 0-d array keeps its shape ()
+    flat = np.ascontiguousarray(arr).reshape(-1)
+    raw = torch.from_numpy(flat.view(np.uint8).copy())
     return raw.to(device), arr.dtype.name, arr.shape
 
 
@@ -99,6 +100,11 @@ class ProtectedMemoryArray:
         self._store[name] = StoredTensor(
             enc.to(device=self.device, dtype=torch.int8).contiguous(),
             str(st.dtype), tuple(st.shape), int(st.nbytes))
+
+    def discard(self, name: str) -> None:
+        """Drop a tensor's stored codewords (streaming save/restore keeps
+        one leaf resident at a time instead of the whole checkpoint)."""
+        self._store.pop(name, None)
 
     # -- write / read -------------------------------------------------------
 

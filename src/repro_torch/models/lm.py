@@ -8,7 +8,11 @@ sliding-window self-attention with a gated MLP. MoE, mamba,
 encoder-decoder and cross blocks raise `NotImplementedError`
 (ROADMAP Queue 1 item 9).
 
-Entry points: `init_params` / `init_caches` / `prefill` / `decode_step`.
+Entry points: `init_params` / `forward` / `loss_fn` / `init_caches` /
+`prefill` / `decode_step`. `forward` and `loss_fn` are the training pass:
+under `cfg.remat` (with grad enabled) each group runs under
+`torch.utils.checkpoint`, the counterpart of the JAX package's
+`jax.checkpoint` over the group body.
 `prefill(..., protected_kv=ProtectedKVConfig(...))` returns a
 `ProtectedKVCaches` manager whose global-attention K/V live in NB-LDPC
 protected paged stores; `decode_step` serves through it (or through the
@@ -19,13 +23,16 @@ the CPU.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
 from ..nn.layers import CDT, Block, RMSNorm, _param, no_pim
 
-__all__ = ["LM", "init_params", "init_caches", "prefill", "decode_step"]
+__all__ = ["LM", "init_params", "forward", "loss_fn", "init_caches",
+           "prefill", "decode_step"]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -59,6 +66,29 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def leaves(self) -> dict[str, list[nn.Parameter]]:
+        """The parameters as the JAX package's pytree leaves, keyed by path
+        ("embed", "final_norm/scale", "groups/pos0/attn/wq", ...) in that
+        tree's leaf order: a group leaf lists its `n_groups` per-layer
+        tensors (the JAX leaf stacks them), any other leaf one tensor."""
+        out: dict[str, list[nn.Parameter]] = {}
+        for name, param in self.named_parameters():
+            path, _g = jax_path(name, self.cfg)
+            out.setdefault("/".join(path), []).append(param)
+        return dict(sorted(out.items()))
+
+
+def jax_path(name: str, cfg: ArchConfig) -> tuple[tuple[str, ...],
+                                                  int | None]:
+    """A parameter name of `LM` -> (its path in the JAX package's pytree,
+    its group index or None): "blocks.3.attn.wq" with a 2-layer group is
+    (("groups", "pos1", "attn", "wq"), 1)."""
+    path = name.split(".")
+    if path[0] != "blocks":
+        return tuple(path), None
+    g, i = divmod(int(path[1]), len(cfg.group_spec))
+    return ("groups", f"pos{i}", *path[2:]), g
+
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, *,
                 device=None) -> LM:
@@ -81,7 +111,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, *,
 
 
 def _embed(params: LM, cfg: ArchConfig, tokens) -> torch.Tensor:
-    tokens = torch.as_tensor(tokens, device=params.device)
+    tokens = torch.as_tensor(tokens, device=params.device).to(torch.int64)
     x = params.embed[tokens].to(CDT)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=CDT)
@@ -124,6 +154,57 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
                                                       max_seq,
                                                       device).items()}
             for i, spec in enumerate(cfg.group_spec)}
+
+
+# ---------------------------------------------------------------------------
+# forward / loss (training)
+# ---------------------------------------------------------------------------
+
+
+def _run_group(params: LM, cfg: ArchConfig, g: int, x, positions):
+    for i, spec in enumerate(cfg.group_spec):
+        x, _ = params.block(g, i)(x, spec, cfg, positions=positions)
+    return x
+
+
+def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
+            pim_ctx=None) -> torch.Tensor:
+    """tokens: (B, S) ints. Returns logits (B, S, V) float32. With
+    `cfg.remat` and grad enabled, each group's activations are recomputed
+    in the backward pass (remat_policy "full": nothing inside a group is
+    saved)."""
+    no_pim(pim_ctx)
+    if aux is not None:
+        raise NotImplementedError("auxiliary (cross-attention) inputs are "
+                                  "not ported yet: ROADMAP Queue 1 item 9")
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported (no config "
+            "uses it): ROADMAP Queue 1 item 9")
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=params.device)
+    for g in range(cfg.n_groups):
+        if remat:
+            x = checkpoint(_run_group, params, cfg, g, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _run_group(params, cfg, g, x, positions)
+    return _head_logits(params, cfg, x)
+
+
+def loss_fn(params: LM, cfg: ArchConfig, batch, *, pim_ctx=None):
+    """Causal-LM cross entropy (a 0-d float32 tensor). batch: "tokens"
+    (B, S) and "labels" (B, S), label -1 = ignore."""
+    logits = forward(params, cfg, batch["tokens"], aux=batch.get("aux"),
+                     pim_ctx=pim_ctx)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    mask = (labels >= 0).to(torch.float32)
+    lab = torch.clamp_min(labels, 0).to(torch.int64)
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    tot = torch.clamp_min(mask.sum(), 1.0)
+    return (nll * mask).sum() / tot
 
 
 # ---------------------------------------------------------------------------

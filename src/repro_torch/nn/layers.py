@@ -7,9 +7,14 @@ projection is `x @ w`, w of shape (in, out)) and compute in bf16 (`CDT`),
 casting each weight at use and keeping the softmax and norm sums in fp32,
 as `repro.nn.layers` does.
 
-Not in this slice (they raise `NotImplementedError`): cross-attention,
-`attn_impl="flash"` (the `flash_fwd` kernel, ROADMAP Queue 1 item A), and
-PIM-protected projections (`pim_ctx`, ROADMAP Queue 1 item 1).
+Under `attn_impl="flash"` a full pass (prefill, training) with more than
+one query goes through `kernels.flash_attention.flash_attention` (the
+flash kernels, forward and backward), as `repro.nn.layers._attend` routes
+it; decode steps read their caches with the naive attention.
+
+Not ported (they raise `NotImplementedError`): cross-attention,
+`attn_impl="standin"` (cost-lowering tooling), and PIM-protected
+projections (`pim_ctx`, ROADMAP Queue 1 item 1).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import (NEG_INF, paged_softmax_finalize,
                                        paged_softmax_init,
                                        paged_softmax_update)
@@ -90,10 +96,20 @@ def _softcap(logits, cap):
     return logits
 
 
-def _attend(q, k, v, mask, softcap):
-    """Naive GQA attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D), mask:
-    broadcastable to (B,1,Sq,Skv) or None."""
+def _attend(q, k, v, mask, softcap, *, impl="naive", causal=True,
+            window=0):
+    """GQA attention. q: (B,Sq,Hq,D), k/v: (B,Skv,Hkv,D), mask:
+    broadcastable to (B,1,Sq,Skv) or None. impl="flash" with Sq > 1 runs
+    the flash kernels, the mask given as `causal`/`window`; otherwise the
+    naive softmax over the masked logits."""
     B, Sq, Hq, D = q.shape
+    if impl == "standin" and Sq > 1:
+        raise NotImplementedError(
+            "attn_impl='standin' is cost-lowering tooling of the JAX "
+            "package, not ported: ROADMAP Queue 1 item 9")
+    if impl == "flash" and Sq > 1:
+        return flash_attention(q, k, v, causal, window,
+                               float(softcap or 0.0), None)
     G = Hq // k.shape[2]
     qg = q.reshape(B, Sq, k.shape[2], G, D)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
@@ -184,17 +200,17 @@ class Attention(nn.Module):
             if spec.local_window and spec.local_window < W:
                 ok &= kv_pos > cache_pos - spec.local_window
             mask = ok[None, None, None, :]             # (1, 1, 1, W)
+        elif cfg.attn_impl == "flash" and S > 1:
+            mask = None                    # the kernels mask by position
         else:
-            if cfg.attn_impl != "naive":
-                raise NotImplementedError(
-                    f"attn_impl={cfg.attn_impl!r}: the flash kernels are "
-                    "the next slice of the port (ROADMAP Queue 1 item A)")
             pos = torch.arange(S, device=x.device)
             ok = pos[None, :] <= pos[:, None]
             if spec.local_window:
                 ok &= pos[None, :] > pos[:, None] - spec.local_window
             mask = ok[None, None]
-        out = _attend(q, k, v, mask, cfg.softcap_attn)
+        impl = cfg.attn_impl if kv_cache is None else "naive"
+        out = _attend(q, k, v, mask, cfg.softcap_attn, impl=impl,
+                      causal=True, window=spec.local_window)
         return out.reshape(B, S, hq * dh) @ self.wo.to(CDT), new_cache
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version on the same inputs (exact for the integer kernels, bitwise for
-FBP, a few bf16 ulps for attend_protected), the launch counters, and the
-decoder and a small protected-KV decode on the card against their CPU
-runs. Marked
+FBP, a few bf16 ulps for attend_protected and the flash forward, 5e-3 of
+the largest gradient for the flash backward), the launch counters, and
+the decoder, a small protected-KV decode and two reduced training steps
+on the card against their CPU runs. Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -273,3 +274,141 @@ def test_raw_read_on_card_goes_through_the_kernel(dev):
                                **ULP)
     with pytest.raises(ValueError, match="CPU tensors"):
         _small_layer(dev, fused=False).attend(q.to(dev))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# B, Sq, Skv, Hq, Hkv, D, causal, window, softcap: chip_smoke.py's phase 2
+# shapes (training, prefill, ragged bidirectional, window, softcap 2),
+# then a head dim of 128 and rows that see no key
+FLASH_SHAPES = [
+    (2, 4096, 4096, 32, 8, 64, True, 0, 0.0),
+    (4, 512, 512, 32, 8, 64, True, 0, 0.0),
+    (1, 1000, 1200, 32, 8, 64, False, 0, 0.0),
+    (2, 1024, 1024, 32, 8, 64, True, 256, 0.0),
+    (2, 1024, 1024, 32, 8, 64, True, 0, 2.0),
+    (1, 300, 300, 8, 2, 128, True, 0, 0.0),
+    (1, 200, 100, 4, 1, 40, False, 16, 0.0),
+]
+FLASH_BWD_BOUND = 5e-3       # of max |plain|, the JAX package's own bound
+
+
+def _flash_operands(dev, case, seed=0):
+    B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((B * Hq, Sq, D), generator=gen, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B * Hkv, Skv, D), generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    kw = dict(g=Hq // Hkv, scale=1.0 / D ** 0.5, causal=causal,
+              window=window, softcap=cap)
+    return (q, k, v, do), kw
+
+
+def _within(got, want, bound):
+    scale = float(want.float().abs().max()) + 1e-9
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= bound * scale, (err, scale)
+
+
+@pytest.mark.parametrize("case", FLASH_SHAPES)
+def test_flash_kernels_match_plain(dev, case):
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v, do), kw = _flash_operands(dev, case)
+    n0 = dict(LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert LAUNCHES[name] == n0.get(name, 0) + 1
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_p.float(), **ULP)
+    # atol for the rows with few keys, whose lse is one score near 0
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    _within(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **kw),
+            FLASH_BWD_BOUND)
+    for got, want in zip((dk, dv), fa.flash_bwd_dkv_plain(
+            q, k, v, do, lse, delta, **kw), strict=True):
+        assert got.dtype == k.dtype and got.shape == k.shape
+        _within(got, want, FLASH_BWD_BOUND)
+
+
+def test_flash_attention_backward_matches_plain(dev):
+    """`FlashAttention` on (B, S, H, D) operands through autograd against
+    the plain forward and backward of the same folded operands."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S, Hq, Hkv, D = 2, 700, 8, 2, 64
+    q = torch.randn((B, S, Hq, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+            for _ in range(2))
+    do = torch.randn((B, S, Hq, D), generator=gen, device=dev)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*leaves, True, 128, 2.0)
+    o.backward(do)
+    kw = dict(g=Hq // Hkv, scale=1.0 / D ** 0.5, causal=True, window=128,
+              softcap=2.0)
+    fold = fa._fold
+    o_p, lse_p = fa.flash_fwd_plain(fold(q), fold(k), fold(v), **kw)
+    torch.testing.assert_close(fold(o.detach()).float(), o_p.float(), **ULP)
+    delta = fa.flash_delta(o_p, fold(do))
+    dq = fa.flash_bwd_dq_plain(fold(q), fold(k), fold(v), fold(do), lse_p,
+                               delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_plain(fold(q), fold(k), fold(v), fold(do),
+                                    lse_p, delta, **kw)
+    for t, want, H in zip(leaves, (dq, dk, dv), (Hq, Hkv, Hkv), strict=True):
+        _within(t.grad, fa._unfold(want, B, H), FLASH_BWD_BOUND)
+
+
+def test_flash_wrappers_refuse_wrong_inputs(dev):
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v, do), kw = _flash_operands(dev, FLASH_SHAPES[-1])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(q, k.float(), v, **kw)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(q.float(), k.float(), v.float(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                     **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((4, 8, 136), dtype=torch.bfloat16, device=dev)
+        fa.flash_fwd(big, big[:1], big[:1], **kw)
+    with pytest.raises(ValueError, match="several devices"):
+        fa.flash_fwd(q.cpu(), k, v, **kw)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_bwd_dq(q, k, v, do, lse.to(torch.bfloat16),
+                        fa.flash_delta(o, do), **kw)
+
+
+def test_training_steps_on_card_match_cpu(dev, tmp_path):
+    """Two steps of reduced granite-3-2b under attn_impl="flash" through
+    `launch.train.run` on the card and on the CPU from the same weights:
+    the losses agree within 1e-2 relative (bf16 matmuls round in their
+    own order on each device), and every step on the card launches all
+    three flash kernels."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config("granite_3_2b").reduced(
+        n_groups=2, d_model=128, n_heads=4, d_ff=512), attn_impl="flash")
+    start = init_params(cfg, 0, device="cpu")
+    kw = dict(steps=2, batch=4, seq=64, lr=5e-3, save_every=100,
+              log=lambda m: None)
+    cpu = run(cfg, params=copy.deepcopy(start), device="cpu",
+              ckpt_dir=str(tmp_path / "cpu"), **kw)
+    n0 = dict(LAUNCHES)
+    card = run(cfg, params=copy.deepcopy(start), device=dev,
+               ckpt_dir=str(tmp_path / "card"), **kw)
+    for name, per_step in (("flash_fwd", 4), ("flash_bwd_dq", 2),
+                           ("flash_bwd_dkv", 2)):
+        assert LAUNCHES[name] - n0.get(name, 0) == per_step * 2, name
+    for a, b in zip(cpu, card, strict=True):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-2)

@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
 JAX nor the JAX package, and an entry point left on its default device
-(codec, memory mode, the paged store, the model and its caches) raises
+(codec, memory mode, the paged store, the model and its caches, the
+training driver and protected checkpoints) raises
 when there is no CUDA device instead of running on the CPU."""
 import ast
 import json
@@ -58,7 +59,7 @@ def test_no_source_file_imports_jax_or_repro():
         assert not roots & {"jax", "jaxlib", "repro"}, f
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from repro_torch.core import (PIMConfig, ProtectionConfig,
                                   decode_integers, get_code,
                                   protected_pim_matmul)
@@ -68,6 +69,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
                                     ProtectedMemoryArray, RepairQueue)
     from repro_torch.models import (ProtectedKVConfig, ProtectedKVLayer,
                                     init_caches, init_params)
+    from repro_torch import checkpoint
+    from repro_torch.launch.train import run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     code = get_code("wl40_r08")
     y = np.zeros((2, code.n), np.int64)
@@ -80,6 +83,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
             lambda: init_params(cfg),
             lambda: init_caches(cfg, 1, 8),
             lambda: init_caches(cfg, 1, 8, protected_kv=pkv),
+            lambda: run(cfg, steps=1, batch=1, seq=4),
+            lambda: checkpoint.save_checkpoint(
+                str(tmp_path), 1, {"w": np.zeros(2)}, protect=True),
             lambda: resolve_device(),
             lambda: ProtectedMemoryArray("wl40_r08"),
             lambda: MemoryController(),

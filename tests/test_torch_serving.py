@@ -321,9 +321,9 @@ def test_unported_model_parts_raise():
     toks = torch.zeros((1, 3), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         prefill(params, cfg, toks, pim_ctx=object())
-    flash = dataclasses.replace(cfg, attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="flash"):
-        prefill(params, flash, toks)
+    standin = dataclasses.replace(cfg, attn_impl="standin")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        prefill(params, standin, toks)
 
 
 def test_caches_inject_then_scrub_restores_clean_serving(model, rng):
