@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build the CUDA kernels from `src/repro_torch/kernels/csrc/`;
+  1. build the CUDA kernels from `src/repro_torch/kernels/csrc/` and log
+     the wgmma flash kernels' registers, spills and shared memory;
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes, and time both: the integer kernels and FBP
      with exact equality, `attend_protected` to a few bf16 ulps (rtol
@@ -61,7 +62,9 @@ Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
 their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest) at the training and prefill shapes, a ragged
 bidirectional case, a window of 256 and a softcap of 2, timed beside
-torch's scaled_dot_product_attention (a yardstick the port never calls).
+torch's scaled_dot_product_attention under each of its flash,
+memory-efficient and cuDNN backends that takes the case (the fastest is
+the yardstick; the port never calls SDPA).
 
 Kernel launch counts are reset just before each main path, memory and
 PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9) and
@@ -79,10 +82,12 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -173,6 +178,43 @@ def launches_of(fn, per_call: dict, name: str):
     per_call[name] = {k: v - before.get(k, 0)
                       for k, v in build.LAUNCHES.items()
                       if v - before.get(k, 0)}
+    return out
+
+
+# dynamic shared memory of the wgmma flash kernels by head-dim template DM:
+# a 1024-byte alignment margin and 64-row bf16 tiles (fwd_smem and
+# dkv_smem in csrc/flash_attention.cu)
+FLASH_SMEM = {"flash_fwd": lambda dm: 1024 + 5 * 64 * dm * 2,
+              "flash_bwd_dkv": lambda dm: 1024 + 6 * 64 * dm * 2 + 1024}
+
+
+def ptxas_report(logs: dict) -> dict:
+    """Registers, spill bytes and shared memory of each instantiation of
+    the wgmma flash kernels, from nvcc's -Xptxas -v output (`logs`, empty
+    when the library was not rebuilt by this process)."""
+    out = {}
+    entry = None
+    for line in logs.get("flash_attention.cu", "").splitlines():
+        m = re.search(r"Compiling entry function '\S*?(flash_fwd|flash_bwd_dkv)"
+                      r"_kernelILi(\d+)E", line)
+        if m:
+            entry = (m.group(1), int(m.group(2)))
+            out[f"{entry[0]}<{entry[1]}>"] = {
+                "dynamic_smem_bytes": FLASH_SMEM[entry[0]](entry[1])}
+            continue
+        if "Compiling entry function" in line:
+            entry = None
+        if entry is None:
+            continue
+        rec = out[f"{entry[0]}<{entry[1]}>"]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_store_bytes"] = int(m.group(1))
+            rec["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
     return out
 
 
@@ -826,30 +868,53 @@ def flash_costs(case, n_visible: int) -> dict:
                               8 * pairs)}
 
 
-def sdpa_timings(q, k, v, do, case) -> tuple[float | None, float | None]:
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_timings(q, k, v, do, case) -> dict:
     """One PyTorch call computing the same function, timed as a yardstick
     and never used by the port: scaled_dot_product_attention forward and
-    its autograd backward (dq, dk and dv together). None under a softcap,
-    which SDPA does not take."""
+    its autograd backward (dq, dk and dv together), under each backend of
+    SDPA_BACKENDS that takes the case; the fastest of each is kept, with
+    its name. Empty under a softcap, which SDPA does not take."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, Hq, Hkv, D, causal, window, cap = case
     if cap:
-        return None, None
+        return {}
     q4, do4 = q.view(B, Hq, Sq, D), do.view(B, Hq, Sq, D)
     k4, v4 = k.view(B, Hkv, Skv, D), v.view(B, Hkv, Skv, D)
     mask = fa.flash_mask(Sq, Skv, causal, window, q.device) if window \
         else None
     kw = dict(attn_mask=mask, is_causal=causal and not window,
               scale=1.0 / D ** 0.5, enable_gqa=True)
-    fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                            **kw), 10)
-    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
-    out = F.scaled_dot_product_attention(*leaves, **kw)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, do4,
-                                                 retain_graph=True), 10)
-    return fwd_ms, bwd_ms
+    times = {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]), \
+                    warnings.catch_warnings():
+                warnings.simplefilter("ignore")    # why a backend declines
+                fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, **kw), 10)
+                leaves = [t.detach().clone().requires_grad_()
+                          for t in (q4, k4, v4)]
+                out = F.scaled_dot_product_attention(*leaves, **kw)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, do4, retain_graph=True), 10)
+        except RuntimeError as e:      # the backend does not take the case
+            log(f"  sdpa {name}: {str(e).splitlines()[0][:100]}")
+            continue
+        times[name] = (fwd_ms, bwd_ms)
+        del out, leaves
+    if not times:
+        return {}
+    fwd = min(times, key=lambda n: times[n][0])
+    bwd = min(times, key=lambda n: times[n][1])
+    return {"fwd_ms": times[fwd][0], "fwd_backend": fwd,
+            "bwd_ms": times[bwd][1], "bwd_backend": bwd,
+            "all_ms": times}
 
 
 def phase_flash(device) -> dict:
@@ -918,7 +983,8 @@ def phase_flash(device) -> dict:
                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw),
                 lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                **kw))}
-        sdpa_fwd, sdpa_bwd = sdpa_timings(q, k, v, do, case)
+        sdpa = sdpa_timings(q, k, v, do, case)
+        log(f"  sdpa {label}: {json.dumps(sdpa)}")
         for name, (kernel, plain) in calls.items():
             nbytes, flops = costs[name]
             b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
@@ -929,8 +995,11 @@ def phase_flash(device) -> dict:
                    "max_abs_err": errs[name], "ms": ms,
                    "plain_ms": cuda_ms(plain, plain_reps),
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": sdpa_fwd if name == "flash_fwd"
-                   else sdpa_bwd,
+                   "library_ms": sdpa.get("fwd_ms" if name == "flash_fwd"
+                                          else "bwd_ms"),
+                   "library_backend": sdpa.get(
+                       "fwd_backend" if name == "flash_fwd"
+                       else "bwd_backend"),
                    "gflop": flops / 1e9, "tflop_per_s": flops / ms / 1e9}
             rows.setdefault(name, []).append(row)
             log(f"  {name} {label}: {json.dumps(row)}")
@@ -1312,6 +1381,7 @@ def main() -> int:
     log("phase 1: build")
     build.library(verbose=True)
     log(f"  built in {build.build_seconds:.2f} s")
+    log(f"  wgmma flash kernels: {json.dumps(ptxas_report(build.build_logs))}")
 
     log("phase 2: kernels against their plain versions")
     rows = phase_kernels(device)

@@ -56,6 +56,9 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds: float | None = None
+# nvcc's output per source of the last build made with verbose=True (with
+# -Xptxas -v: each kernel's registers, spills and static shared memory)
+build_logs: dict[str, str] = {}
 
 
 def reset_launches() -> None:
@@ -103,6 +106,7 @@ def _compile(out: Path, verbose: bool) -> None:
     for src, _obj, proc in procs:
         log, _ = proc.communicate()
         if verbose and log:
+            build_logs[src.name] = log
             print(f"[nvcc {src.name}]\n{log}", flush=True)
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{log}")

@@ -1,9 +1,10 @@
 // Flash attention, forward and backward: three kernels for GQA attention
 // with causal, sliding-window and softcap masks.
 //
-// Replaces src/repro/kernels/flash_attention.py: flash_fwd (body
-// _fwd_kernel) with flash_fwd_kernel, and flash_bwd (bodies _bwd_dq_kernel
-// and _bwd_dkv_kernel) with flash_bwd_dq_kernel and flash_bwd_dkv_kernel.
+// Replaces src/repro/kernels/flash_attention.py: flash_fwd (:116, body
+// _fwd_kernel) with flash_fwd_kernel, and flash_bwd (:236, bodies
+// _bwd_dq_kernel and _bwd_dkv_kernel) with flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel.
 // Operands are folded over heads and contiguous: q, do, o (BH, Sq, D);
 // k, v (BHkv, Skv, D); lse, delta (BH, Sq) f32; q row b reads kv row b / g.
 // q/k/v/do/o and the gradients are bf16 (the model's compute type); D is
@@ -25,32 +26,66 @@
 //     taken in fp32 and dk/dv are written once per KV row, in bf16: no
 //     atomics, deterministic.
 //
-// Design. One CTA of 256 threads per (row, 64-row tile): a q tile for the
-// forward and dq kernels, a KV tile for dk/dv. The tile's operands are
-// converted to fp32 in shared memory (rows padded to D + 1 floats so that
-// the 16 column threads of a 4 x 4 register tile hit 16 banks), and each
-// thread owns a 4 x 4 block of the 64 x 64 score tile and a 4 x D/16
-// block of the output. Scores, p and every product accumulate in fp32 on
-// the CUDA cores, as the TPU kernel keeps them in fp32; rounding p to
-// bf16 for the tensor cores would move outputs past the tolerance the
-// port holds these kernels to. KV tiles (or, for dk/dv, q tiles) that the
-// causal/window mask excludes entirely are skipped, as _fwd_kernel does;
-// in the backward kernels a skipped tile has p = 0, so the sums are
-// unchanged. Ragged edges (Sq, Skv not multiples of 64) load as zeros and
-// are masked; nothing is padded in device memory.
+// Design of flash_fwd and flash_bwd_dkv (Hopper, sm_90a; helpers in
+// sm90.cuh). One warpgroup of 128 threads per (row, 64-row tile): a q tile
+// for the forward, a KV tile for dk/dv. Operands stay bf16 in 128-byte-
+// swizzled shared memory (tiles padded with zero columns to DM = 64 or
+// 128; ragged rows copied as zeros), filled by cp.async in two stages so
+// the next tile is in flight while this one is multiplied. Every product
+// runs on wgmma with fp32 accumulators in registers:
+//   forward  S = Q.K^T (both K-major), O += P.V (P in registers, V MN-major);
+//   dk/dv    S^T = K.Q^T, dP^T = V.dO^T (K-major), dV += P^T.dO and
+//            dK += dS^T.Q (P^T, dS^T in registers; dO, Q MN-major).
+// The accumulator of S (S^T, dP^T) has the register layout of the A
+// fragment of the next wgmma, so P and dS never leave registers.
 //
-// Bound on the card: operations. At the training shape (BH 64, S 4096,
-// D 64, causal) the forward does 137 GFLOP against 64 MB of operands,
-// some 2,000 flops per byte, far past the ridge; the least time is the
-// FLOPs over the bf16 tensor-core peak. These kernels run the products
-// on the fp32 CUDA cores (67 TFLOP/s peak) with scalar shared-memory
-// loads, so they sit well above that bound; wgmma on bf16 q/k/do/v for
-// QK^T and dO V^T (exact products, fp32 sums) and a bf16 p under a
-// stated tolerance are the speed work for a later change.
+// Split-bf16 P and dS. Q, K, V and dO are bf16, so their products are
+// exact in fp32 and Q.K^T, V.dO^T on the tensor cores equal the fp32
+// CUDA-core products up to the order of the sums. P and dS are fp32, as
+// the TPU kernel keeps them; rounding them to bf16 would cost the outputs
+// several bf16 ulps. Each is split into hi = bf16(x) and lo = bf16(x - hi)
+// and multiplied twice into the same accumulator: |hi + lo - x| <=
+// 2^-16 |x|, far under o's half-ulp of 2^-9. The price is 1.5x the tensor-
+// core work of a bf16 P.
+//
+// Softmax runs in log2 units (ex2 on the MUFU unit, log2 e folded into
+// the scale, or applied after the softcap); the per-element mask is
+// applied only on tiles that straddle the diagonal, the window's edge or a
+// ragged edge (tile_full); tiles that tile_runs excludes are not visited.
+// Under a causal mask the grid launches the heaviest tiles first: the last
+// q tiles in the forward, the first KV tiles in dk/dv. dk/dv sum the
+// group's g q heads and every visible q tile in fp32 registers and write
+// once, without atomics: two calls agree bit for bit.
+//
+// Bounds on the card (training shape, BH 64, BHkv 16, S 4096, D 64,
+// causal): the forward does 137 GFLOP of products, 0.139 ms at the bf16
+// tensor-core peak of 989 TFLOP/s, and 537 M exponentials, about 0.14 ms
+// at 16 a clock on each of 132 SMs: the softmax is as heavy as the
+// products. dk/dv do 275 GFLOP, 0.278 ms.
+//
+// What sets the pace is latency: each warpgroup waits on its own products
+// between the softmax and the next wgmma, so the kernels are tuned for
+// warpgroups in flight. The forward is held to 96 registers (five CTAs an
+// SM at DM = 64); dk/dv take p while dP^T is still on the tensor cores and
+// keep 185 registers, two CTAs an SM, without spills (three would spill).
+// Every register A fragment lives within one loop iteration: Q, K or V
+// held as A fragments across the KV loop came out wrong, ptxas giving
+// their registers to the P fragments.
+//
+// flash_bwd_dq still runs the earlier design: one CTA of 256 threads per q
+// tile, operands widened to fp32 in shared memory (rows padded to D + 1
+// floats), each thread a 4 x 4 block of the score tile, every product an
+// fp32 FMA on the CUDA cores (load_tile, dot_tile, grad_terms). The
+// redesign took the two kernels that lost the most time first (the
+// forward runs twice a layer under remat, and dk/dv was the slowest);
+// dq, now the largest flash cost, is next, on the helpers of sm90.cuh.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <initializer_list>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -58,7 +93,6 @@ constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64, BK = 64;          // q rows, KV rows per tile
 constexpr int TX = 16, TY = 16, THREADS = TX * TY;
 constexpr int LDS = BK + 1;              // row stride of a 64 x 64 tile
-constexpr int WARPS = THREADS / 32;
 
 using bf16 = __nv_bfloat16;
 
@@ -134,7 +168,7 @@ __device__ __forceinline__ void grad_terms(const float s[4][4],
                                            const float dp[4][4],
                                            const float* Lr, const float* Dr,
                                            int q0, int k0, const Params& a,
-                                           float* Ps, float* dSs) {
+                                           float* dSs) {
   const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -148,121 +182,8 @@ __device__ __forceinline__ void grad_terms(const float s[4][4],
         const float t = x / a.softcap;
         ds = ds * (1.f - t * t);
       }
-      if (Ps) Ps[r * LDS + c] = p;
       dSs[r * LDS + c] = ds * a.scale;
     }
-}
-
-template <int DM>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, Params a) {
-  extern __shared__ float sm[];
-  constexpr int NC = DM / TX;
-  const int D = a.D, ld = D + 1;
-  float* Qs = sm;                   // BQ x ld
-  float* Ks = Qs + BQ * ld;         // BK x ld
-  float* Vs = Ks + BK * ld;         // BK x ld
-  float* Ss = Vs + BK * ld;         // BQ x LDS scores, then p
-  float* mrow = Ss + BQ * LDS;
-  float* lrow = mrow + BQ;
-  float* crow = lrow + BQ;
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const long kvb = b / a.g;
-  const bf16* kb = k + kvb * a.Skv * D;
-  const bf16* vb = v + kvb * a.Skv * D;
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  load_tile(Qs, q + (long)b * a.Sq * D, q0, BQ, a.Sq, D, ld);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    mrow[r] = NEG_INF;
-    lrow[r] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < a.Skv; k0 += BK) {
-    if (!tile_runs(q0, k0, a)) continue;        // uniform over the CTA
-    __syncthreads();               // the previous tile's readers are done
-    load_tile(Ks, kb, k0, BK, a.Skv, D, ld);
-    load_tile(Vs, vb, k0, BK, a.Skv, D, ld);
-    __syncthreads();
-    float s[4][4];
-    dot_tile(Qs, Ks, D, ld, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + TY * i, c = tx + TX * j;
-        Ss[r * LDS + c] =
-            visible(q0 + r, k0 + c, a) ? score(s[i][j], a) : NEG_INF;
-      }
-    __syncthreads();
-    // online softmax: each warp owns BQ / WARPS rows, two columns a lane
-    for (int rr = 0; rr < BQ / WARPS; ++rr) {
-      const int r = warp * (BQ / WARPS) + rr;
-      float* Sr = Ss + r * LDS;
-      const float x0 = Sr[lane], x1 = Sr[lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mo = mrow[r], mn = fmaxf(mo, mx);
-      const bool alive = mn > NEG_INF / 2;
-      const float p0 = alive ? expf(x0 - mn) : 0.f;
-      const float p1 = alive ? expf(x1 - mn) : 0.f;
-      Sr[lane] = p0;
-      Sr[lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float c = alive ? expf(mo - mn) : 1.f;
-        crow[r] = c;
-        lrow[r] = lrow[r] * c + sum;
-        mrow[r] = mn;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = crow[ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= c;
-    }
-    for (int t = 0; t < BK; ++t) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ss[(ty + TY * i) * LDS + t];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int col = tx + TX * j;
-        const float vv = col < D ? Vs[t * ld + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + TY * i, gq = q0 + r;
-    if (gq >= a.Sq) continue;
-    const float L = fmaxf(lrow[r], 1e-30f);
-    bf16* orow = o + ((long)b * a.Sq + gq) * D;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int col = tx + TX * j;
-      if (col < D) orow[col] = __float2bfloat16(acc[i][j] / L);
-    }
-    if (tx == 0) lse[(long)b * a.Sq + gq] = mrow[r] + logf(L);
-  }
 }
 
 template <int DM>
@@ -307,7 +228,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[4][4], dp[4][4];
     dot_tile(Qs, Ks, D, ld, s);
     dot_tile(dOs, Vs, D, ld, dp);
-    grad_terms(s, dp, Lr, Dr, q0, k0, a, nullptr, dSs);
+    grad_terms(s, dp, Lr, Dr, q0, k0, a, dSs);
     __syncthreads();
     for (int t = 0; t < BK; ++t) {
       float dv[4];
@@ -335,97 +256,364 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_fwd and flash_bwd_dkv: one warpgroup, every product on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// whether every (q, kv) pair of the tiles at q0 and k0 is visible, so that
+// no per-element mask is needed
+__device__ __forceinline__ bool tile_full(int q0, int k0, const Params& a) {
+  if (q0 + BQ > a.Sq || k0 + BK > a.Skv) return false;
+  if (a.causal && k0 + BK - 1 > q0) return false;
+  if (a.window && k0 <= q0 + BQ - 1 - a.window) return false;
+  return true;
+}
+
+// [*lo, *hi] = the tiles t of n along one axis for which `runs(t)` holds
+// (a contiguous range, since tile_runs bounds it from each side)
+template <class F>
+__device__ __forceinline__ void run_range(int n, F runs, int* lo, int* hi) {
+  int t0 = 0, t1 = n - 1;
+  while (t0 < n && !runs(t0)) ++t0;
+  while (t1 >= t0 && !runs(t1)) --t1;
+  *lo = t0;
+  *hi = t1;
+}
+
+// d (64 x DM) += A (64 x 16, registers) . B (16 x DM, smem, MN-major)
 template <int DM>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void wgmma_pv(float (&d)[DM / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DM == 64)
+    sm90::wgmma_rs_n64<1>(d, a, db);
+  else
+    sm90::wgmma_rs_n128<1>(d, a, db);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// this thread's accumulator rows r0 and r0 + 8 (columns c0 + 8 j + {0, 1}),
+// times inv0 and inv1, rounded to bf16 into rows row0 + r0 (+ 8) of the
+// (S, D) matrix `dst`; rows past S and columns past D are not written
+template <int N>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&d)[N],
+                                           int row0, int S, int D,
+                                           float inv0, float inv1) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gr = row0 + r0 + 8 * h;
+    if (gr >= S) continue;
+    const float inv = h ? inv1 : inv0;
+    bf16* row = dst + (long)gr * D;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const int col = 8 * j + c0;
+      const float x0 = d[4 * j + 2 * h] * inv, x1 = d[4 * j + 2 * h + 1] * inv;
+      if (col + 1 < D && !(D & 1)) {
+        *reinterpret_cast<__nv_bfloat162*>(row + col) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (col < D) row[col] = __float2bfloat16(x0);
+        if (col + 1 < D) row[col + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// One CTA (one warpgroup) per q head and 64-row q tile; at most 96
+// registers at DM = 64, five CTAs an SM. Q stays in shared memory; K/V
+// tiles run through two stages of cp.async copies, the next in flight
+// while the current one is multiplied. S = Q.K^T (wgmma, both
+// operands K-major), the online softmax on S's registers, then O += P.V
+// with P split into bf16 hi and lo A fragments (registers) and V MN-major.
+template <int DM>
+__global__ void __launch_bounds__(sm90::WG, DM == 64 ? 5 : 3)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, Params a, bool vec) {
+  using namespace sm90;
+  constexpr int TILE = BQ * DM * 2;        // bytes of a 64 x DM tile
+  constexpr int NO = DM / 2;               // O accumulator registers
+  extern __shared__ uint8_t smem[];
+  const uint32_t Qs = (smem_u32(smem) + 1023) & ~1023u;
+  const int b = blockIdx.x, D = a.D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const long kvb = b / a.g;
+  const bf16* kb = k + kvb * a.Skv * D;
+  const bf16* vb = v + kvb * a.Skv * D;
+  int t0, t1;
+  run_range((a.Skv + BK - 1) / BK,
+            [&](int t) { return tile_runs(q0, t * BK, a); }, &t0, &t1);
+
+  load_tile_async<BQ, DM>(Qs, q + (long)b * a.Sq * D, q0, a.Sq, D, vec);
+  cp_async_commit();
+  if (t0 <= t1) {
+    load_tile_async<BK, DM>(Qs + TILE, kb, t0 * BK, a.Skv, D, vec);
+    load_tile_async<BK, DM>(Qs + 2 * TILE, vb, t0 * BK, a.Skv, D, vec);
+  }
+  cp_async_commit();
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
+  float acc[NO];
+  zero(acc);
+  // per row r0 + 8 h: running max (log2 units) and this thread's part of l
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const float sl2 = a.scale * LOG2E;
+
+  for (int t = t0; t <= t1; ++t) {
+    const uint32_t Ks = Qs + TILE * (1 + 2 * ((t - t0) & 1)), Vs = Ks + TILE;
+    __syncthreads();                 // the stage refilled next is not read
+    if (t < t1) {
+      const uint32_t nK = Qs + TILE * (1 + 2 * ((t + 1 - t0) & 1));
+      load_tile_async<BK, DM>(nK, kb, (t + 1) * BK, a.Skv, D, vec);
+      load_tile_async<BK, DM>(nK + TILE, vb, (t + 1) * BK, a.Skv, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();              // tile t has landed
+    fence_async_smem();
+    __syncthreads();
+
+    float s[32];
+    zero(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DM / 16; ++kk)
+      wgmma_ss_n64<0>(s, desc_k<BQ>(Qs, kk), desc_k<BK>(Ks, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // scores in log2 units: exp2(x - m) = exp(s - m / log2 e)
+    const int k0 = t * BK;
+    const bool edge = !tile_full(q0, k0, a);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      float x = a.softcap > 0.f ? score(s[i], a) * LOG2E : s[i] * sl2;
+      if (edge && !visible(q0 + r0 + 8 * h, k0 + 8 * (i >> 2) + c0 + (i & 1),
+                           a))
+        x = NEG_INF;
+      s[i] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+    float corr[2];
+    bool alive[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      alive[h] = mn > NEG_INF / 2;
+      corr[h] = alive[h] ? ex2(m[h] - mn) : 1.f;
+      m[h] = mn;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = alive[h] ? ex2(s[i] - m[h]) : 0.f;
+      s[i] = p;
+      l[h] += p;
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) split_a(s, kk, hi[kk], lo[kk]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_pv<DM>(acc, hi[kk], desc_mn<BK>(Vs, kk));
+      wgmma_pv<DM>(acc, lo[kk], desc_mn<BK>(Vs, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const float L = fmaxf(l[h], 1e-30f);
+    inv[h] = 1.f / L;
+    const int gq = q0 + r0 + 8 * h;
+    if (gq < a.Sq && lane % 4 == 0)
+      lse[(long)b * a.Sq + gq] =
+          (m[h] > NEG_INF / 2 ? m[h] * LN2 : NEG_INF) + logf(L);
+  }
+  store_rows(o + (long)b * a.Sq * D, acc, q0, a.Sq, D, inv[0], inv[1]);
+}
+
+// One CTA (one warpgroup) per KV head and 64-row KV tile; the warpgroup's
+// rows are KV rows. K and V stay in shared memory; the (q, dO, lse, delta)
+// tiles of the group's g q heads and of every q tile that can see this KV
+// tile run through two stages of cp.async copies. S^T = K.Q^T and dP^T =
+// V.dO^T (wgmma, K-major), p on its registers while dP^T is in flight
+// (lse and delta are per column), then ds; then dV += P^T.dO and dK +=
+// dS^T.Q with P^T and dS^T split into bf16 hi and lo A fragments and dO,
+// Q MN-major. The sums stay in registers over the whole group; dk and dv
+// are written once, in bf16.
+template <int DM>
+__global__ void __launch_bounds__(sm90::WG, DM == 64 ? 2 : 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, Params a) {
-  extern __shared__ float sm[];
-  constexpr int NC = DM / TX;
-  const int D = a.D, ld = D + 1;
-  float* Ks = sm;                   // BK x ld
-  float* Vs = Ks + BK * ld;         // BK x ld
-  float* Qs = Vs + BK * ld;         // BQ x ld
-  float* dOs = Qs + BQ * ld;        // BQ x ld
-  float* Ps = dOs + BQ * ld;        // BQ x LDS
-  float* dSs = Ps + BQ * LDS;       // BQ x LDS
-  float* Lr = dSs + BQ * LDS;
-  float* Dr = Lr + BQ;
-  const int kvb = blockIdx.y, k0 = blockIdx.x * BK;
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
+                     bf16* __restrict__ dv, Params a, bool vec) {
+  using namespace sm90;
+  constexpr int TILE = BK * DM * 2;
+  constexpr int NO = DM / 2;
+  extern __shared__ uint8_t smem[];
+  const uint32_t Ks = (smem_u32(smem) + 1023) & ~1023u, Vs = Ks + TILE;
+  // stage st: Q at Ks + TILE (2 + 2 st), dO after it; lse, delta rows
+  // after both stages
+  const uint32_t rows = Ks + 6 * TILE;
+  const float* rows_p =
+      reinterpret_cast<const float*>(smem + (rows - smem_u32(smem)));
+  const int kvb = blockIdx.x, k0 = blockIdx.y * BK, D = a.D;
+  int t0, t1;
+  run_range((a.Sq + BQ - 1) / BQ,
+            [&](int t) { return tile_runs(t * BQ, k0, a); }, &t0, &t1);
+  const int nrun = t1 - t0 + 1, items = a.g * max(nrun, 0);
 
-  float acck[4][NC], accv[4][NC];   // KV rows ty + 16 i, columns tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acck[i][j] = accv[i][j] = 0.f;
-  load_tile(Ks, k + (long)kvb * a.Skv * D, k0, BK, a.Skv, D, ld);
-  load_tile(Vs, v + (long)kvb * a.Skv * D, k0, BK, a.Skv, D, ld);
+  // item i: q head kvb g + i / nrun, q tile t0 + i % nrun
+  auto issue = [&](int i) {
+    const int st = i & 1, q0 = (t0 + i % nrun) * BQ;
+    const long b = (long)kvb * a.g + i / nrun;
+    const uint32_t Qd = Ks + TILE * (2 + 2 * st);
+    load_tile_async<BQ, DM>(Qd, q + b * a.Sq * D, q0, a.Sq, D, vec);
+    load_tile_async<BQ, DM>(Qd + TILE, dout + b * a.Sq * D, q0, a.Sq, D,
+                            vec);
+    const int r = threadIdx.x % BQ, gq = q0 + r;
+    const float* src = (threadIdx.x < BQ ? lse : delta) + b * a.Sq;
+    cp_async4(rows + 4 * (st * 2 * BQ + threadIdx.x), gq < a.Sq ? src + gq
+                                                                : src,
+              gq < a.Sq ? 4 : 0);
+  };
+  load_tile_async<BK, DM>(Ks, k + (long)kvb * a.Skv * D, k0, a.Skv, D, vec);
+  load_tile_async<BK, DM>(Vs, v + (long)kvb * a.Skv * D, k0, a.Skv, D, vec);
+  cp_async_commit();
+  if (items) issue(0);
+  cp_async_commit();
 
-  for (int h = 0; h < a.g; ++h) {
-    const long b = (long)kvb * a.g + h;
-    for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
-      if (!tile_runs(q0, k0, a)) continue;
-      __syncthreads();
-      load_tile(Qs, q + b * a.Sq * D, q0, BQ, a.Sq, D, ld);
-      load_tile(dOs, dout + b * a.Sq * D, q0, BQ, a.Sq, D, ld);
-      load_rows(Lr, lse + b * a.Sq, q0, a.Sq);
-      load_rows(Dr, delta + b * a.Sq, q0, a.Sq);
-      __syncthreads();
-      float s[4][4], dp[4][4];      // q rows ty + 16 i, KV columns tx + 16 j
-      dot_tile(Qs, Ks, D, ld, s);
-      dot_tile(dOs, Vs, D, ld, dp);
-      grad_terms(s, dp, Lr, Dr, q0, k0, a, Ps, dSs);
-      __syncthreads();
-      for (int r = 0; r < BQ; ++r) {
-        float pv[4], dsv[4];
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
+  float acck[NO], accv[NO];
+  zero(acck);
+  zero(accv);
+
+  for (int i = 0; i < items; ++i) {
+    const int st = i & 1, q0 = (t0 + i % nrun) * BQ;
+    const uint32_t Qs = Ks + TILE * (2 + 2 * st), dOs = Qs + TILE;
+    const float* Lr = rows_p + st * 2 * BQ;
+    const float* Dr = Lr + BQ;
+    __syncthreads();                 // the stage refilled next is not read
+    if (i + 1 < items) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();              // item i has landed
+    fence_async_smem();
+    __syncthreads();
+
+    float s[32], dp[32];             // KV rows r0 + 8 h, q columns
+    zero(s);
+    zero(dp);
+    wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[r * LDS + ty + TY * i];
-          dsv[i] = dSs[r * LDS + ty + TY * i];
-        }
+    for (int kk = 0; kk < DM / 16; ++kk)
+      wgmma_ss_n64<0>(s, desc_k<BK>(Ks, kk), desc_k<BQ>(Qs, kk), 1);
+    wgmma_commit();
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const int col = tx + TX * j;
-          const float qv = col < D ? Qs[r * ld + col] : 0.f;
-          const float dov = col < D ? dOs[r * ld + col] : 0.f;
+    for (int kk = 0; kk < DM / 16; ++kk)
+      wgmma_ss_n64<0>(dp, desc_k<BK>(Vs, kk), desc_k<BQ>(dOs, kk), 1);
+    wgmma_commit();
+
+    // p = exp(s - lse), masked; ds = p (dp - delta) scale, times
+    // 1 - (s / cap)^2 under a softcap
+    const bool edge = !tile_full(q0, k0, a);
+    auto prob = [&](int j, float x) {
+      const int c = 8 * (j >> 2) + c0 + (j & 1), r = r0 + 8 * ((j >> 1) & 1);
+      return !edge || visible(q0 + c, k0 + r, a)
+                 ? ex2(fmaf(x, LOG2E, -Lr[c] * LOG2E))
+                 : 0.f;
+    };
+    auto delta_of = [&](int j) { return Dr[8 * (j >> 2) + c0 + (j & 1)]; };
+    if (a.softcap > 0.f) {
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            accv[i][j] = fmaf(pv[i], dov, accv[i][j]);
-            acck[i][j] = fmaf(dsv[i], qv, acck[i][j]);
-          }
-        }
+      for (int j = 0; j < 32; ++j) {
+        const float x = score(s[j], a), u = x / a.softcap;
+        s[j] = prob(j, x);
+        dp[j] = s[j] * (dp[j] - delta_of(j)) * (1.f - u * u) * a.scale;
       }
-    }
-  }
+    } else {                         // p while dP^T is still in flight
+      wgmma_wait<1>();
+      fence_regs(s);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + ty + TY * i;
-    if (gk >= a.Skv) continue;
-    const long off = ((long)kvb * a.Skv + gk) * D;
+      for (int j = 0; j < 32; ++j) s[j] = prob(j, s[j] * a.scale);
+      wgmma_wait<0>();
+      fence_regs(dp);
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int col = tx + TX * j;
-      if (col < D) {
-        dk[off + col] = __float2bfloat16(acck[i][j]);
-        dv[off + col] = __float2bfloat16(accv[i][j]);
-      }
+      for (int j = 0; j < 32; ++j)
+        dp[j] = s[j] * (dp[j] - delta_of(j)) * a.scale;
     }
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dl[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      split_a(s, kk, ph[kk], pl[kk]);
+      split_a(dp, kk, dh[kk], dl[kk]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_pv<DM>(accv, ph[kk], desc_mn<BQ>(dOs, kk));
+      wgmma_pv<DM>(accv, pl[kk], desc_mn<BQ>(dOs, kk));
+      wgmma_pv<DM>(acck, dh[kk], desc_mn<BQ>(Qs, kk));
+      wgmma_pv<DM>(acck, dl[kk], desc_mn<BQ>(Qs, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acck);
+    fence_regs(accv);
   }
+  cp_async_wait<0>();
+  const long off = (long)kvb * a.Skv * D;
+  store_rows(dk + off, acck, k0, a.Skv, D, 1.f, 1.f);
+  store_rows(dv + off, accv, k0, a.Skv, D, 1.f, 1.f);
 }
 
-size_t fwd_smem(int D) {
-  return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + BQ * LDS + 3 * BQ);
+// a 1024-byte alignment margin, then the swizzled bf16 tiles: Q and two
+// stages of K and V (forward); K, V and two stages of Q and dO, then two
+// stages of the lse and delta rows (dk/dv)
+template <int DM>
+constexpr size_t fwd_smem() {
+  return 1024 + 5 * (size_t)BQ * DM * 2;
+}
+template <int DM>
+constexpr size_t dkv_smem() {
+  return 1024 + 6 * (size_t)BK * DM * 2 + 2 * 2 * BQ * sizeof(float);
 }
 size_t dq_smem(int D) {
   return sizeof(float) *
          ((size_t)(2 * BQ + 2 * BK) * (D + 1) + BQ * LDS + 2 * BQ);
-}
-size_t dkv_smem(int D) {
-  return sizeof(float) *
-         ((size_t)(2 * BQ + 2 * BK) * (D + 1) + 2 * BQ * LDS + 2 * BQ);
 }
 
 template <class K>
@@ -437,15 +625,24 @@ cudaError_t prepare(K kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// whether every bf16 operand can be copied in 16-byte chunks
+bool vec_ok(int D, std::initializer_list<const void*> ptrs) {
+  if (D % 8) return false;
+  for (const void* p : ptrs)
+    if ((uintptr_t)p % 16) return false;
+  return true;
+}
+
 template <int DM>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int BH, const Params& a, cudaStream_t st) {
-  const size_t smem = fwd_smem(a.D);
-  cudaError_t e = prepare(flash_fwd_kernel<DM>, smem);
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  if (nq > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = prepare(flash_fwd_kernel<DM>, fwd_smem<DM>());
   if (e != cudaSuccess) return (int)e;
-  flash_fwd_kernel<DM><<<dim3((a.Sq + BQ - 1) / BQ, BH), THREADS, smem,
-                         st>>>((const bf16*)q, (const bf16*)k,
-                               (const bf16*)v, (bf16*)o, (float*)lse, a);
+  flash_fwd_kernel<DM><<<dim3(BH, nq), sm90::WG, fwd_smem<DM>(), st>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      a, vec_ok(a.D, {q, k, v}));
   return (int)cudaGetLastError();
 }
 
@@ -467,13 +664,15 @@ template <int DM>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv,
             int BHkv, const Params& a, cudaStream_t st) {
-  const size_t smem = dkv_smem(a.D);
-  cudaError_t e = prepare(flash_bwd_dkv_kernel<DM>, smem);
+  const int nkv = (a.Skv + BK - 1) / BK;
+  if (nkv > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = prepare(flash_bwd_dkv_kernel<DM>, dkv_smem<DM>());
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkv_kernel<DM><<<dim3((a.Skv + BK - 1) / BK, BHkv), THREADS,
-                             smem, st>>>(
+  flash_bwd_dkv_kernel<DM><<<dim3(BHkv, nkv), sm90::WG, dkv_smem<DM>(),
+                             st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, a);
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, a,
+      vec_ok(a.D, {q, k, v, dout}));
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,270 @@
+// Hopper (sm_90a) building blocks for kernels that multiply bf16 tiles on
+// the tensor cores with wgmma: 128-byte-swizzled shared-memory tiles, their
+// matrix descriptors, cp.async copies into them, the wgmma wrappers and
+// fences, and the conversion of an fp32 accumulator into split-bf16 A
+// fragments.
+//
+// One warpgroup (128 threads) issues each wgmma. A tile of R rows by DM
+// bf16 columns (DM 64 or 128) is stored as DM / 64 column blocks of R x 128
+// bytes; within a block, the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8) of that row (the 128-byte swizzle, which the hardware undoes
+// from the address bits, so each tile starts 1024-byte aligned). One copy
+// serves both descriptors:
+// - K-major (the contraction runs along a row, as Q and K do in Q.K^T):
+//   k16 step kk starts 32 bytes into the swizzle atom, LBO unused, SBO the
+//   1024 bytes between 8-row groups;
+// - MN-major (the contraction runs down the rows, as V does in P.V): k16
+//   step kk starts 16 rows down, LBO the R x 128 bytes between 64-column
+//   blocks, SBO the 1024 bytes between 8-row groups; the wgmma's
+//   transpose-B flag is 1.
+#pragma once
+
+#include <cstdint>
+#include <cuda_bf16.h>
+
+namespace sm90 {
+
+constexpr int WG = 128;                    // threads of a warpgroup
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk c of row r in a swizzled tile of R rows
+template <int R>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
+         ((uint64_t)sbo << 32) | (1ull << 62);      // layout: 128B swizzle
+}
+
+// operand descriptor of k16 step kk of a swizzled R-row tile at `tile`,
+// contracting along its rows' columns (K-major)
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc(tile + (kk >> 2) * (R * 128) + (kk & 3) * 32, 1, 64);
+}
+
+// ... contracting down its rows (MN-major, transpose-B 1)
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc(tile + kk * 16 * 128, R * 8, 64);
+}
+
+// ---------------------------------------------------------------------------
+// copies
+// ---------------------------------------------------------------------------
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// make this thread's shared-memory writes visible to wgmma's (async
+// proxy) reads; a barrier then publishes them to the warpgroup
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [row0, row0 + R) of a row-major (S, D) bf16 matrix into the
+// swizzled R x DM tile at `tile`, by the CTA's WG threads. Rows past S
+// and columns past D are zero. With `vec` (D a multiple of 8 and `src`
+// 16-byte aligned) each chunk is one asynchronous 16-byte copy; otherwise it is
+// gathered element by element and stored at once.
+template <int R, int DM>
+__device__ __forceinline__ void load_tile_async(uint32_t tile,
+                                                const __nv_bfloat16* src,
+                                                int row0, int S, int D,
+                                                bool vec) {
+  constexpr int CH = DM / 8;
+  for (int idx = threadIdx.x; idx < R * CH; idx += WG) {
+    const int r = idx / CH, c = idx % CH, gr = row0 + r;
+    const uint32_t dst = tile + sw128<R>(r, c);
+    if (vec) {
+      const bool ok = gr < S && c * 8 < D;
+      cp_async16(dst, ok ? src + (long)gr * D + c * 8 : src, ok ? 16 : 0);
+    } else {
+      const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = c * 8 + 2 * e;
+        const uint32_t lo = gr < S && c0 < D ? s[(long)gr * D + c0] : 0u;
+        const uint32_t hi = gr < S && c0 + 1 < D ? s[(long)gr * D + c0 + 1]
+                                                  : 0u;
+        w[e] = lo | (hi << 16);
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                   "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                   : "memory");
+    }
+  }
+}
+
+// 2^x on the MUFU unit (about 2 ulp; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin an accumulator's registers in place across a wgmma fence or wait, so
+// that the compiler moves no read or write of them past it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The accumulator of m64nNk16 holds, in thread t of the warpgroup (warp w,
+// lane l), d[4 j + e] = row 16 w + l / 4 + 8 (e / 2), column 8 j + 2 (l % 4)
+// + e % 2. Columns [16 kk, 16 kk + 16) of it are, register for register,
+// the A fragment of a wgmma over k16 step kk: A[i] = (d[8 kk + 2 i],
+// d[8 kk + 2 i + 1]). split_a rounds them to bf16 pairs hi and the
+// remainders x - hi to bf16 pairs lo, so that hi.B + lo.B is x.B to within
+// 2^-16 |x| (the remainder of a bf16 rounding is at most 2^-8 |x|, and its
+// own rounding loses at most 2^-8 of that).
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int N>
+__device__ __forceinline__ void split_a(const float (&d)[N], int kk,
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x0 = d[8 * kk + 2 * i], x1 = d[8 * kk + 2 * i + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    hi[i] = bf16x2_bits(h);
+    lo[i] = bf16x2_bits(__floats2bfloat162_rn(x0 - __low2float(h),
+                                              x1 - __high2float(h)));
+  }
+}
+
+// d (64 x 64) += A (64 x 16, smem) . B (64 x 16 / 16 x 64, smem)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d (64 x 64) += A (64 x 16, registers) . B (16 x 64, smem)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 128) += A (64 x 16, registers) . B (16 x 128, smem)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1), "n"(TRANS_B));
+}
+
+}  // namespace sm90

@@ -3,7 +3,9 @@ version on the same inputs (exact for the integer kernels, bitwise for
 FBP, a few bf16 ulps for attend_protected and the flash forward, 5e-3 of
 the largest gradient for the flash backward), the launch counters, and
 the decoder, a small protected-KV decode and two reduced training steps
-on the card against their CPU runs. Marked
+on the card against their CPU runs. The wgmma flash kernels also at the
+edges of their tiles, bitwise repeatable, with HGMMA in their SASS, and
+beside a bf16-P control that shows their split P is needed. Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -292,6 +294,22 @@ FLASH_SHAPES = [
     (1, 300, 300, 8, 2, 128, True, 0, 0.0),
     (1, 200, 100, 4, 1, 40, False, 16, 0.0),
 ]
+# the edges of the kernels' 64-row tiles and of their zero-padded head
+# dims (DM 64 or 128): Sq and Skv of 1, 63, 65, 127 and 129, D of 16, 40,
+# 80 and 128, g of 1, 4 and 8, windows narrower than a tile, causal with
+# Sq != Skv, and a head dim that is not a multiple of 8 (copied element by
+# element instead of in 16-byte chunks)
+FLASH_EDGE_SHAPES = [
+    (1, 1, 65, 4, 1, 64, False, 0, 0.0),
+    (1, 63, 65, 8, 1, 16, True, 0, 0.0),
+    (1, 65, 63, 8, 8, 40, True, 0, 0.0),
+    (1, 127, 129, 4, 1, 80, False, 0, 0.0),
+    (1, 129, 127, 4, 4, 128, True, 0, 0.0),
+    (1, 129, 129, 8, 1, 64, True, 8, 0.0),
+    (1, 1, 129, 4, 4, 128, False, 40, 2.0),
+    (2, 65, 127, 4, 2, 80, True, 16, 0.0),
+    (1, 130, 70, 2, 1, 33, True, 0, 0.0),
+]
 FLASH_BWD_BOUND = 5e-3       # of max |plain|, the JAX package's own bound
 
 
@@ -313,7 +331,7 @@ def _within(got, want, bound):
     assert err <= bound * scale, (err, scale)
 
 
-@pytest.mark.parametrize("case", FLASH_SHAPES)
+@pytest.mark.parametrize("case", FLASH_SHAPES + FLASH_EDGE_SHAPES)
 def test_flash_kernels_match_plain(dev, case):
     from repro_torch.kernels import flash_attention as fa
     (q, k, v, do), kw = _flash_operands(dev, case)
@@ -335,6 +353,100 @@ def test_flash_kernels_match_plain(dev, case):
             q, k, v, do, lse, delta, **kw), strict=True):
         assert got.dtype == k.dtype and got.shape == k.shape
         _within(got, want, FLASH_BWD_BOUND)
+
+
+@pytest.mark.parametrize("case", [(1, 1, 1, 4, 1, 64, True, 0, 0.0),
+                                  (1, 200, 1, 4, 1, 40, True, 0, 0.0)])
+def test_flash_kernels_single_key(dev, case):
+    """Skv = 1: every row sees one key, so o is that key's v, and the
+    softmax has no gradient: dq and dk are 0 up to the rounding of
+    dp - delta (dp = do.v, delta = do.o in another order), which is held
+    within FLASH_BWD_BOUND of the call's largest |dv|; o, lse and dv
+    against the plain versions as in test_flash_kernels_match_plain."""
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v, do), kw = _flash_operands(dev, case)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+    torch.testing.assert_close(o.float(), o_p.float(), **ULP)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-5)
+    dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)[1]
+    _within(dv, dv_p, FLASH_BWD_BOUND)
+    scale = float(dv_p.float().abs().max())
+    for g in (dq, dk):
+        assert float(g.float().abs().max()) <= FLASH_BWD_BOUND * scale
+
+
+@pytest.mark.parametrize("case", [FLASH_SHAPES[1], FLASH_SHAPES[4],
+                                  FLASH_EDGE_SHAPES[7]])
+def test_flash_kernels_are_bitwise_repeatable(dev, case):
+    """Two calls of flash_fwd and of flash_bwd_dkv (no atomics: each KV
+    tile sums its group in a fixed order) give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v, do), kw = _flash_operands(dev, case)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = fa.flash_delta(o, do)
+        runs.append((o, lse, *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                               **kw)))
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)
+
+
+def _fwd_bf16_p(q, k, v, *, g, scale, causal, window=0, softcap=0.0):
+    """The plain forward with p = exp(s - m) rounded to bf16 before P.V
+    (l summed from the fp32 p): what a kernel that fed a bf16 P to the
+    tensor cores would compute."""
+    from repro_torch.kernels import flash_attention as fa
+    rows = torch.arange(q.shape[0], device=q.device) // g
+    s = fa._scores(q, k[rows], scale, softcap)
+    s = torch.where(fa.flash_mask(q.shape[1], k.shape[1], causal, window,
+                                  q.device), s, fa.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.matmul(p.to(torch.bfloat16).float(), v[rows].float())
+    return (o / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def test_flash_fwd_split_p_is_needed_and_present(dev):
+    """On the training shape's heads (32/8 of 64, causal) at S 1024, a
+    forward whose P is rounded to bf16 leaves the ULP bound (rtol 2^-7,
+    atol 2^-10) against flash_fwd_plain, while the kernel, which splits P
+    into bf16 hi and lo, stays inside it."""
+    from repro_torch.kernels import flash_attention as fa
+    (q, k, v, _do), kw = _flash_operands(
+        dev, (2, 1024, 1024, 32, 8, 64, True, 0, 0.0))
+    want = fa.flash_fwd_plain(q, k, v, **kw)[0].float()
+
+    def ratio(got):
+        return float(((got.float() - want).abs() / (
+            ULP["atol"] + ULP["rtol"] * want.abs())).max())
+
+    assert ratio(_fwd_bf16_p(q, k, v, **kw)) > 1.0
+    assert ratio(fa.flash_fwd(q, k, v, **kw)[0]) <= 1.0
+
+
+def test_flash_kernels_run_on_the_tensor_cores(dev):
+    """The built library's SASS has HGMMA (wgmma) instructions in both
+    instantiations of the forward and the dk/dv kernel."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from repro_torch.kernels import build
+    lib = build.library()
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        tool = shutil.which("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib._name], check=True,
+                          capture_output=True, text=True).stdout
+    bodies = re.split(r"\n\s*Function : ", sass)[1:]
+    for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+        found = [b for b in bodies if name in b.split("\n", 1)[0]]
+        assert len(found) == 2, (name, len(found))
+        assert all("HGMMA" in b for b in found), name
 
 
 def test_flash_attention_backward_matches_plain(dev):
