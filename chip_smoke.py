@@ -5,14 +5,17 @@
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from `src/repro_torch/kernels/csrc/` and log
-     the wgmma flash kernels' registers, spills and shared memory;
+     the wgmma kernels' registers, spills and shared memory (the three
+     flash kernels and the PIM MAC);
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes, and time both: the integer kernels and FBP
      with exact equality, `attend_protected` to a few bf16 ulps (rtol
      2^-7, atol 2^-10) at the serving shape (paper-pim-2b heads, wl160_r08
      pages, NP 32, hot page), hot-only (NP 0), with softcaps of 50 and of
      2 (one that bites on logits of about N(0, 1)), and with per-slot
-     sub-pages (S = B);
+     sub-pages (S = B); the PIM MAC also beside torch._int_mm (cuBLASLt
+     s8 x s8 -> s32, its adc-0 function) and the W transpose a K-major
+     operand would cost in the wrapper;
   3. memory mode: a 64 MiB float32 tensor in a `ProtectedMemoryArray` on
      wl1024_r08 (writeback policy): write, inject uniform flips, read back
      exactly, inject again, scrub, re-scrub clean;
@@ -56,11 +59,13 @@ Phases (any failure exits non-zero):
      model is freed: the first batch's loss and grad norm naive against
      flash, 6 training steps (flash_fwd 80, flash_bwd_dq 40 and
      flash_bwd_dkv 40 launches per step), peak memory, one more step
-     under torch.profiler.
+     under torch.profiler (step time, busy share, each flash kernel's
+     share of the busy time).
 
 Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
 their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
-within 5e-3 of the largest) at the training and prefill shapes, a ragged
+within 5e-3 of the largest, each gradient's error relative to its largest
+logged) at the training and prefill shapes, a ragged
 bidirectional case, a window of 256 and a softcap of 2, timed beside
 torch's scaled_dot_product_attention under each of its flash,
 memory-efficient and cuDNN backends that takes the case (the fastest is
@@ -169,6 +174,26 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, match: str, reps: int) -> float:
+    """Device time of one call of `fn` in the kernels whose name holds
+    `match`, from torch.profiler over `reps` calls after a warm-up call:
+    the kernel alone, without the host time of its wrapper that
+    `cuda_ms` includes when the kernel is shorter than the launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if match in e.key)
+    if not us:
+        raise AssertionError(f"the profiler saw no {match} kernel")
+    return us / reps / 1e3
+
+
 def launches_of(fn, per_call: dict, name: str):
     """Run `fn` and record, under `name`, the kernel launches it made:
     the change of every launch count across the call."""
@@ -181,41 +206,53 @@ def launches_of(fn, per_call: dict, name: str):
     return out
 
 
-# dynamic shared memory of the wgmma flash kernels by head-dim template DM:
-# a 1024-byte alignment margin and 64-row bf16 tiles (fwd_smem and
-# dkv_smem in csrc/flash_attention.cu)
-FLASH_SMEM = {"flash_fwd": lambda dm: 1024 + 5 * 64 * dm * 2,
-              "flash_bwd_dkv": lambda dm: 1024 + 6 * 64 * dm * 2 + 1024}
+# dynamic shared memory of the wgmma kernels by template argument: a
+# 1024-byte alignment margin and 64-row bf16 tiles of DM columns (fwd_smem,
+# dq_smem and dkv_smem in csrc/flash_attention.cu; dq adds 3 mbarriers);
+# for the PIM MAC (CLIP 0 or 1) six stages of a 128 x 128-byte X tile and
+# W tile, two transposed W tiles and six mbarriers (SMEM in
+# csrc/pim_mac.cu)
+WGMMA_SMEM = {
+    "flash_fwd": lambda dm: 1024 + 5 * 64 * dm * 2,
+    "flash_bwd_dq": lambda dm: 1024 + 6 * 64 * dm * 2 + 3 * 8,
+    "flash_bwd_dkv": lambda dm: 1024 + 6 * 64 * dm * 2 + 1024,
+    "pim_mac": lambda clip: 1024 + 6 * 2 * 128 * 128 + 2 * 128 * 128 + 6 * 8}
+WGMMA_ENTRIES = {
+    "flash_attention.cu": r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv)"
+                          r"_kernelILi(\d+)E",
+    "pim_mac.cu": r"(pim_mac)_kernelILb(\d)E"}
 
 
 def ptxas_report(logs: dict) -> dict:
     """Registers, spill bytes and shared memory of each instantiation of
-    the wgmma flash kernels, from nvcc's -Xptxas -v output (`logs`, empty
-    when the library was not rebuilt by this process)."""
+    the wgmma kernels, from nvcc's -Xptxas -v output (`logs`, empty when
+    the library was not rebuilt by this process)."""
     out = {}
-    entry = None
-    for line in logs.get("flash_attention.cu", "").splitlines():
-        m = re.search(r"Compiling entry function '\S*?(flash_fwd|flash_bwd_dkv)"
-                      r"_kernelILi(\d+)E", line)
-        if m:
-            entry = (m.group(1), int(m.group(2)))
-            out[f"{entry[0]}<{entry[1]}>"] = {
-                "dynamic_smem_bytes": FLASH_SMEM[entry[0]](entry[1])}
-            continue
-        if "Compiling entry function" in line:
-            entry = None
-        if entry is None:
-            continue
-        rec = out[f"{entry[0]}<{entry[1]}>"]
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            rec["spill_store_bytes"] = int(m.group(1))
-            rec["spill_load_bytes"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            rec["registers"] = int(m.group(1))
+    for source, pattern in WGMMA_ENTRIES.items():
+        entry = None
+        for line in logs.get(source, "").splitlines():
+            m = re.search(r"Compiling entry function '\S*?" + pattern, line)
+            if m:
+                entry = f"{m.group(1)}<{m.group(2)}>"
+                out[entry] = {"dynamic_smem_bytes": WGMMA_SMEM[m.group(1)](
+                    int(m.group(2)))}
+                continue
+            if "Compiling entry function" in line:
+                entry = None
+            if entry is not None:
+                _ptxas_counts(out[entry], line)
     return out
+
+
+def _ptxas_counts(rec: dict, line: str) -> None:
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                  line)
+    if m:
+        rec["spill_store_bytes"] = int(m.group(1))
+        rec["spill_load_bytes"] = int(m.group(2))
+    m = re.search(r"Used (\d+) registers", line)
+    if m:
+        rec["registers"] = int(m.group(1))
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -247,7 +284,8 @@ def phase_kernels(device) -> dict:
     rng = np.random.default_rng(SEED)
     rows = {}
 
-    def record(name, out, ref, kernel, plain, library, nbytes, ops, peak):
+    def record(name, out, ref, kernel, plain, library, nbytes, ops, peak,
+               **extra):
         err = (out.to(torch.float64) - ref.to(torch.float64)).abs().max()
         err = float(err) if out.numel() else 0.0
         if not torch.equal(out, ref):
@@ -257,7 +295,8 @@ def phase_kernels(device) -> dict:
         row = {"name": name, "max_abs_err": err,
                "ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 5),
                "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": cuda_ms(library, 20) if library else None}
+               "library_ms": cuda_ms(library, 20) if library else None,
+               **extra}
         rows.setdefault(name, []).append(row)
         log(f"  {name} {list(out.shape)}: exact, {json.dumps(row)}")
 
@@ -314,6 +353,14 @@ def phase_kernels(device) -> dict:
     xf, wf = x.float(), w.float()
     B, K = x.shape
     N = w.shape[1]
+    # second yardstick: cuBLASLt's s8 x s8 -> s32 product, the adc-0
+    # function on the same int8 operands (held to the plain version too)
+    if not torch.equal(torch._int_mm(x, w), pim_mac.pim_mac_plain(
+            x, w, row_parallelism=64, adc_levels=0)):
+        raise AssertionError("torch._int_mm differs from the exact MAC")
+    yardsticks = {"int_mm_ms": cuda_ms(lambda: torch._int_mm(x, w), 20),
+                  # what a K-major W made by the wrapper would add per call
+                  "w_transpose_ms": cuda_ms(lambda: w.t().contiguous(), 20)}
     for adc in (0, 6):
         kw = dict(row_parallelism=64, adc_levels=adc)
         record("pim_mac", pim_mac.pim_mac(x, w, **kw),
@@ -321,7 +368,9 @@ def phase_kernels(device) -> dict:
                lambda kw=kw: pim_mac.pim_mac(x, w, **kw),
                lambda kw=kw: pim_mac.pim_mac_plain(x, w, **kw),
                lambda: xf @ wf, B * K + K * N + 4 * B * N, 2 * B * K * N,
-               INT8_OPS_PER_S)
+               INT8_OPS_PER_S, adc_levels=adc, **yardsticks,
+               device_ms=device_ms(lambda kw=kw: pim_mac.pim_mac(x, w, **kw),
+                                   "pim_mac_kernel", 20))
     return rows
 
 
@@ -956,16 +1005,21 @@ def phase_flash(device) -> dict:
             raise AssertionError(f"flash_fwd {label}: lse off by "
                                  f"{float(lse_off.max())} past rtol 1e-5")
         errs = {"flash_fwd": float(diff.max())}
+        # the backward's errors, absolute and relative to the largest
+        # |gradient| of the plain version (dk and dv each against its own)
+        rel = {}
         for name, pairs in (("flash_bwd_dq", ((dq, dq_p),)),
                             ("flash_bwd_dkv", ((dk, dk_p), (dv, dv_p)))):
-            err = 0.0
+            err = rel[name] = 0.0
             for got, want in pairs:
                 e = float((got.float() - want.float()).abs().max())
-                bound_abs = FLASH_BWD_BOUND * float(want.float().abs().max())
-                if not torch.isfinite(got.float()).all() or e > bound_abs:
+                scale = float(want.float().abs().max())
+                if not torch.isfinite(got.float()).all() or \
+                        e > FLASH_BWD_BOUND * scale:
                     raise AssertionError(f"{name} {label}: off by {e}, "
-                                         f"bound {bound_abs}")
+                                         f"bound {FLASH_BWD_BOUND * scale}")
                 err = max(err, e)
+                rel[name] = max(rel[name], e / scale if scale else 0.0)
             errs[name] = err
         del o_p, lse_p, dq_p, dk_p, dv_p
         n_vis = int(fa.flash_mask(Sq, Skv, causal, window, device).sum())
@@ -1001,6 +1055,8 @@ def phase_flash(device) -> dict:
                        "fwd_backend" if name == "flash_fwd"
                        else "bwd_backend"),
                    "gflop": flops / 1e9, "tflop_per_s": flops / ms / 1e9}
+            if name in rel:
+                row["rel_err"] = rel[name]
             rows.setdefault(name, []).append(row)
             log(f"  {name} {label}: {json.dumps(row)}")
         del q, k, v, do, o, lse, delta, dq, dk, dv
@@ -1335,15 +1391,25 @@ def phase_full_training(device) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     del opt
     events, by_kernel, busy_us = _device_busy(prof)
-    flash_us = sum(us for k, us in by_kernel.items() if "flash_" in k)
+    flash_us = {name: sum(us for k, us in by_kernel.items()
+                          if f"{name}_kernel" in k) for name in want}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     report["profile_step"] = {
         "step_wall_ms_profiled": wall_us / 1e3, "device_events": events,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
-        "flash_kernels_ms": flash_us / 1e3,
-        "flash_share_of_busy": flash_us / busy_us,
+        "flash_kernels_ms": sum(flash_us.values()) / 1e3,
+        "flash_share_of_busy": sum(flash_us.values()) / busy_us,
+        "flash_ms_by_kernel": {k: us / 1e3 for k, us in flash_us.items()},
+        "flash_share_of_busy_by_kernel": {k: us / busy_us
+                                          for k, us in flash_us.items()},
         "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top}}
+    step_ms = [r["ms"] for r in report["steps"][1:]] or \
+        [r["ms"] for r in report["steps"]]
+    shares = report["profile_step"]["flash_share_of_busy_by_kernel"]
+    log(f"  step ms {statistics.median(step_ms):.1f} (median after the "
+        f"first), busy {busy_us / wall_us:.3f}, flash share of busy "
+        f"{json.dumps(shares)}")
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  full training: {json.dumps(report)}")
     del model
@@ -1381,7 +1447,7 @@ def main() -> int:
     log("phase 1: build")
     build.library(verbose=True)
     log(f"  built in {build.build_seconds:.2f} s")
-    log(f"  wgmma flash kernels: {json.dumps(ptxas_report(build.build_logs))}")
+    log(f"  wgmma kernels: {json.dumps(ptxas_report(build.build_logs))}")
 
     log("phase 2: kernels against their plain versions")
     rows = phase_kernels(device)

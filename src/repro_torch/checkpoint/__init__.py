@@ -103,7 +103,7 @@ def _stored_to_npz(st: StoredTensor) -> dict[str, np.ndarray]:
 
 
 def _npz_to_stored(z) -> StoredTensor:
-    return StoredTensor(torch.as_tensor(np.asarray(z["enc"], np.int8)),
+    return StoredTensor(torch.as_tensor(np.asarray(z["enc"])),
                         str(z["dtype"]), tuple(int(s) for s in z["shape"]),
                         int(z["nbytes"][0]))
 
@@ -131,9 +131,9 @@ def inject_storage_faults(directory: str, channel: Channel, *,
     changed = 0
     for i, fn in enumerate(sorted(glob.glob(os.path.join(d, "*.prot.npz")))):
         z = dict(np.load(fn, allow_pickle=False))
-        enc = torch.as_tensor(np.asarray(z["enc"], np.int8), device=device)
+        enc = torch.as_tensor(np.asarray(z["enc"]), device=device)
         new = channel.apply(_leaf_generator(key, i, device), enc, t=t,
-                            n_reads=n_reads).to(torch.int8)
+                            n_reads=n_reads).to(enc.dtype)
         changed += int((new != enc).sum())
         z["enc"] = new.cpu().numpy()
         with open(fn, "wb") as f:

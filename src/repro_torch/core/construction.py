@@ -80,13 +80,21 @@ class LDPCCode:
     def tensor(self, name: str, device, dtype=None) -> torch.Tensor:
         """The array `name` (a field such as "H" or "P", "vn_edges", or a
         transpose such as "H.T") as a contiguous tensor on `device`, built
-        once per (name, device, dtype)."""
+        once per (name, device, dtype). An integer `dtype` that cannot hold
+        every entry (GF(257)'s H in int8) raises instead of wrapping."""
         device = torch.device(device)
         key = (name, str(device), dtype)
         t = self._tensors.get(key)
         if t is None:
             arr = (getattr(self, name[:-2]).T if name.endswith(".T")
                    else getattr(self, name))
+            if (dtype is not None and arr.size and not dtype.is_floating_point
+                    and dtype != torch.bool):
+                info = torch.iinfo(dtype)
+                if arr.min() < info.min or arr.max() > info.max:
+                    raise ValueError(
+                        f"{name} of GF({self.p}) has entries in "
+                        f"[{arr.min()}, {arr.max()}], outside {dtype}")
             t = torch.as_tensor(np.ascontiguousarray(arr), device=device)
             if dtype is not None:
                 t = t.to(dtype)

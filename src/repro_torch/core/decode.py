@@ -11,7 +11,9 @@ All state is batched: `B` codewords decode simultaneously; shapes are
   msgs_cv (B, c, dc, p)   CN->VN messages in each VN's symbol space
 The CN step is `repro_torch.kernels.fbp_cn_batched`: the CUDA FBP kernel on
 the card, its plain version on the CPU. The per-iteration syndrome check
-goes through the scan kernel the same way.
+goes through the scan kernel the same way, or through the exact product
+for fields past int8 (`gf_matmul.field_route`); hard decisions are held
+in `symbol_dtype(p)`, int8 while p <= 128.
 
 Early exit (converged mask): with `early_exit=True` codewords whose hard
 decisions satisfy every check are *frozen* — their messages and LLV totals
@@ -36,15 +38,16 @@ import torch
 
 from ..device import as_tensor
 from ..kernels.fbp import fbp_cn_batched, identity_msg, maxplus_conv
-from ..kernels.gf_matmul import scan_syndromes
+from ..kernels.gf_matmul import scan_syndromes_routed
 from .construction import LDPCCode
+from .gf import symbol_dtype
 from .llv import init_llv, normalize_llv, reinterpret
 
 __all__ = ["DecodeResult", "decode_llv", "decode_integers", "maxplus_conv"]
 
 
 class DecodeResult(NamedTuple):
-    symbols: torch.Tensor        # (B, n) int8 hard decisions in GF(p)
+    symbols: torch.Tensor        # (B, n) hard decisions, symbol_dtype(p)
     llv_totals: torch.Tensor     # (B, n, p) final accumulated LLVs
     detect_fail: torch.Tensor    # (B,) True if final syndrome still nonzero
     iterations: torch.Tensor     # (B,) int32 iterations consumed per codeword
@@ -60,7 +63,7 @@ def _edge_consts(code: LDPCCode, device) -> dict:
         to_sym=code.tensor("perm_to_sym", device, torch.int64),
         vn_edges=code.tensor("vn_edges", device),
         ident=identity_msg((code.c, code.dc_max), code.p, device=device),
-        ht=code.tensor("H.T", device, torch.int8),
+        ht=code.tensor("H.T", device, symbol_dtype(code.p)),
     )
 
 
@@ -121,11 +124,11 @@ def decode_llv(code: LDPCCode, prior: torch.Tensor, *, n_iters: int = 10,
     B = prior.shape[0]
     msgs0 = prior.new_zeros(B, code.c, code.dc_max, code.p)
 
-    def hard(totals):
-        return torch.argmax(totals, dim=-1).to(torch.int8)   # first max
+    def hard(totals):                                         # first max
+        return torch.argmax(totals, dim=-1).to(symbol_dtype(code.p))
 
     def synd_fail(totals):
-        return scan_syndromes(hard(totals), consts["ht"], code.p)
+        return scan_syndromes_routed(hard(totals), consts["ht"], code.p)
 
     def step(msgs):
         new, totals = _one_iteration(code, consts, prior, msgs)

@@ -15,6 +15,7 @@ import torch
 __all__ = [
     "is_prime", "gf_inv", "mul_table", "inv_table",
     "gf_matmul_np", "gf_rref", "gf_mat_inv", "gf_rank", "centered_lift",
+    "symbol_dtype",
 ]
 
 
@@ -103,6 +104,15 @@ def gf_mat_inv(mat: np.ndarray, p: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # integer <-> field helpers (the "arithmetic" part of the arithmetic code)
 # ---------------------------------------------------------------------------
+
+def symbol_dtype(p: int) -> torch.dtype:
+    """The narrowest signed integer dtype that holds every symbol of GF(p),
+    [0, p): int8, the cell level the int8 kernels take, while p <= 128;
+    int16 or int32 for larger fields, which never pass through int8."""
+    if p <= 2 ** 7:
+        return torch.int8
+    return torch.int16 if p <= 2 ** 15 else torch.int32
+
 
 def centered_lift(k, p: int):
     """Lift field element k in [0, p) to the centered representative in

@@ -25,10 +25,11 @@ import torch
 import torch.nn.functional as F
 
 from ..device import as_tensor
-from ..kernels.gf_matmul import scan_syndromes
+from ..kernels.gf_matmul import scan_syndromes_routed
 from .construction import LDPCCode
 from .decode import DecodeResult, decode_integers
 from .encode import encode_weight_matrix
+from .gf import symbol_dtype
 from .pim import PIMConfig, pim_mac
 
 
@@ -51,9 +52,10 @@ class ProtectedResult(NamedTuple):
 
 def _flag_words(yb: torch.Tensor, code: LDPCCode) -> torch.Tensor:
     """(W, n) integer MAC words -> (W,) nonzero-syndrome flags."""
-    levels = torch.remainder(yb, code.p).to(torch.int8)
-    return scan_syndromes(levels, code.tensor("H.T", yb.device, torch.int8),
-                          code.p)
+    dtype = symbol_dtype(code.p)
+    levels = torch.remainder(yb, code.p).to(dtype)
+    return scan_syndromes_routed(levels, code.tensor("H.T", yb.device, dtype),
+                                 code.p)
 
 
 def _mac_words(x, W_enc, code, pim_cfg, generator, out_noise, device):

@@ -45,7 +45,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "rt_gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rt_scan_syndromes": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "rt_pim_mac": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rt_pim_mac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fbp_cn": [_P, _P, _I, _I, _I, _P],
     "rt_attend_protected": [_P] * 10 + [_I] * 14 + [_F, _P],
     "rt_flash_fwd": [_P] * 5 + [_I] * 7 + [_F, _F, _P],
@@ -151,7 +151,13 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current `cudaStream_t` on `device`, as an int. The raw
+    query (as Triton's launcher makes it) costs about a microsecond, where
+    building a `torch.cuda.Stream` object costs about ten, a quarter of a
+    small kernel's host time."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def route(name: str, *tensors) -> str:
@@ -171,8 +177,9 @@ def exact_matmul(a, b, bound: int):
     """Integer product a @ b (any leading batch dims) without an integer
     matmul, which CUDA lacks: float32 is exact while every partial sum is
     below 2^24 (`bound` is a cap on |sum|), else int64 on the CPU and
-    float64 (exact below 2^53) on the card. TF32 stays off, so the float32
-    product is a true float32 one. Returns int64."""
+    float64 (exact below 2^53) on the card. TF32 is off for the product,
+    so the float32 one is a true float32 product; the caller's TF32
+    setting is restored after it. Returns int64."""
     if bound < 2 ** 24:
         dtype = torch.float32
     elif a.device.type == "cpu":
@@ -181,15 +188,28 @@ def exact_matmul(a, b, bound: int):
         if bound >= 2 ** 53:
             raise ValueError(f"integer product bound {bound} >= 2^53")
         dtype = torch.float64
+    tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    return (a.to(dtype) @ b.to(dtype)).to(torch.int64)
+    try:
+        return (a.to(dtype) @ b.to(dtype)).to(torch.int64)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# the largest field whose symbols, [0, p), an int8 operand holds
+INT8_FIELD_MAX = 128
 
 
 def int8_operand(x, p: int | None = None):
-    """A contiguous int8 view of an integer operand. Other dtypes are
-    reduced mod p first (floored, so negatives land in [0, p)) when `p` is
-    given, which leaves every mod-p result unchanged; without `p` they must
-    already be int8."""
+    """A contiguous int8 view of an integer operand. With `p` the operand
+    holds GF(p) symbols: a field past INT8_FIELD_MAX raises (its symbols
+    would wrap in int8), and other dtypes are reduced mod p first (floored,
+    so negatives land in [0, p)), which leaves every mod-p result
+    unchanged. Without `p` the operand must already be int8."""
+    if p is not None and p > INT8_FIELD_MAX:
+        raise ValueError(f"GF({p}) symbols do not fit int8 (p > "
+                         f"{INT8_FIELD_MAX}): the int8 kernels cannot take "
+                         f"them; route the product to exact_matmul")
     if x.dtype == torch.int8:
         return x.contiguous()
     if p is None:

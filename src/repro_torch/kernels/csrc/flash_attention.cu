@@ -26,17 +26,21 @@
 //     taken in fp32 and dk/dv are written once per KV row, in bf16: no
 //     atomics, deterministic.
 //
-// Design of flash_fwd and flash_bwd_dkv (Hopper, sm_90a; helpers in
-// sm90.cuh). One warpgroup of 128 threads per (row, 64-row tile): a q tile
-// for the forward, a KV tile for dk/dv. Operands stay bf16 in 128-byte-
-// swizzled shared memory (tiles padded with zero columns to DM = 64 or
-// 128; ragged rows copied as zeros), filled by cp.async in two stages so
-// the next tile is in flight while this one is multiplied. Every product
-// runs on wgmma with fp32 accumulators in registers:
+// Design (Hopper, sm_90a; helpers in sm90.cuh). One warpgroup of 128
+// threads per (row, 64-row tile): a q tile for the forward and dq, a KV
+// tile for dk/dv. Operands stay bf16 in 128-byte-swizzled shared memory
+// (tiles padded with zero columns to DM = 64 or 128; ragged rows copied as
+// zeros), filled in two stages so the next tile is in flight while this
+// one is multiplied: by cp.async in the forward and dk/dv, by TMA tensor
+// copies in dq (one thread issues them; they complete on the stage's
+// mbarrier). Every product runs on wgmma with fp32 accumulators in
+// registers:
 //   forward  S = Q.K^T (both K-major), O += P.V (P in registers, V MN-major);
+//   dq       S = Q.K^T, dP = dO.V^T (K-major), dQ += dS.K (dS in
+//            registers, K MN-major from the same swizzled tile);
 //   dk/dv    S^T = K.Q^T, dP^T = V.dO^T (K-major), dV += P^T.dO and
 //            dK += dS^T.Q (P^T, dS^T in registers; dO, Q MN-major).
-// The accumulator of S (S^T, dP^T) has the register layout of the A
+// The accumulator of S (S^T, dP, dP^T) has the register layout of the A
 // fragment of the next wgmma, so P and dS never leave registers.
 //
 // Split-bf16 P and dS. Q, K, V and dO are bf16, so their products are
@@ -53,32 +57,28 @@
 // applied only on tiles that straddle the diagonal, the window's edge or a
 // ragged edge (tile_full); tiles that tile_runs excludes are not visited.
 // Under a causal mask the grid launches the heaviest tiles first: the last
-// q tiles in the forward, the first KV tiles in dk/dv. dk/dv sum the
-// group's g q heads and every visible q tile in fp32 registers and write
-// once, without atomics: two calls agree bit for bit.
+// q tiles in the forward and dq, the first KV tiles in dk/dv. dq holds lse
+// and delta per accumulator row in registers. dk/dv sum the group's g q
+// heads and every visible q tile in fp32 registers and write once, without
+// atomics: two calls agree bit for bit, as dq's do (one CTA per q tile).
 //
 // Bounds on the card (training shape, BH 64, BHkv 16, S 4096, D 64,
 // causal): the forward does 137 GFLOP of products, 0.139 ms at the bf16
 // tensor-core peak of 989 TFLOP/s, and 537 M exponentials, about 0.14 ms
 // at 16 a clock on each of 132 SMs: the softmax is as heavy as the
-// products. dk/dv do 275 GFLOP, 0.278 ms.
+// products. dq does 206 GFLOP, 0.209 ms; dk/dv 275 GFLOP, 0.278 ms.
 //
 // What sets the pace is latency: each warpgroup waits on its own products
 // between the softmax and the next wgmma, so the kernels are tuned for
-// warpgroups in flight. The forward is held to 96 registers (five CTAs an
-// SM at DM = 64); dk/dv take p while dP^T is still on the tensor cores and
-// keep 185 registers, two CTAs an SM, without spills (three would spill).
-// Every register A fragment lives within one loop iteration: Q, K or V
-// held as A fragments across the KV loop came out wrong, ptxas giving
-// their registers to the P fragments.
-//
-// flash_bwd_dq still runs the earlier design: one CTA of 256 threads per q
-// tile, operands widened to fp32 in shared memory (rows padded to D + 1
-// floats), each thread a 4 x 4 block of the score tile, every product an
-// fp32 FMA on the CUDA cores (load_tile, dot_tile, grad_terms). The
-// redesign took the two kernels that lost the most time first (the
-// forward runs twice a layer under remat, and dk/dv was the slowest);
-// dq, now the largest flash cost, is next, on the helpers of sm90.cuh.
+// warpgroups in flight; and the copies: with cp.async, dq moved its K/V
+// tiles at about 20 GB/s an SM and ran much faster when they were skipped,
+// so dq now copies by TMA. The forward is held to 96 registers (five CTAs an
+// SM at DM = 64) and dq to 128 (four CTAs; three, at 132 registers, took
+// 8% longer); dq and dk/dv take p while dP (dP^T) is still on the tensor
+// cores; dk/dv keep 185 registers, two CTAs an SM, without spills (three
+// would spill). Every register A fragment lives within one loop
+// iteration: Q, K or V held as A fragments across the KV loop came out
+// wrong, ptxas giving their registers to the P fragments.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -91,8 +91,6 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64, BK = 64;          // q rows, KV rows per tile
-constexpr int TX = 16, TY = 16, THREADS = TX * TY;
-constexpr int LDS = BK + 1;              // row stride of a 64 x 64 tile
 
 using bf16 = __nv_bfloat16;
 
@@ -100,26 +98,6 @@ struct Params {
   float scale, softcap;
   int Sq, Skv, D, g, causal, window;
 };
-
-// rows [row0, row0 + R) of a (S, D) matrix into an fp32 tile of row
-// stride ld; rows past S load as 0
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const bf16* __restrict__ src,
-                                          int row0, int R, int S, int D,
-                                          int ld) {
-  for (int idx = threadIdx.x; idx < R * D; idx += THREADS) {
-    const int r = idx / D, d = idx - r * D;
-    const int gr = row0 + r;
-    dst[r * ld + d] = gr < S ? __bfloat162float(src[(long)gr * D + d]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int S) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS)
-    dst[r] = row0 + r < S ? src[row0 + r] : 0.f;
-}
 
 __device__ __forceinline__ bool visible(int qp, int kp, const Params& a) {
   if (qp >= a.Sq || kp >= a.Skv) return false;
@@ -136,128 +114,14 @@ __device__ __forceinline__ bool tile_runs(int q0, int k0, const Params& a) {
   return true;
 }
 
-// s[i][j] = A[ty + 16 i] . B[tx + 16 j] over D, both fp32 tiles of stride ld
-__device__ __forceinline__ void dot_tile(const float* A, const float* B,
-                                         int D, int ld, float s[4][4]) {
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + TY * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + TX * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
 __device__ __forceinline__ float score(float dot, const Params& a) {
   float s = dot * a.scale;
   if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
   return s;
 }
 
-// p and ds of one (q tile, KV tile) pair from the score and dp tiles
-__device__ __forceinline__ void grad_terms(const float s[4][4],
-                                           const float dp[4][4],
-                                           const float* Lr, const float* Dr,
-                                           int q0, int k0, const Params& a,
-                                           float* dSs) {
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + TY * i, c = tx + TX * j;
-      const float x = score(s[i][j], a);
-      const float p = visible(q0 + r, k0 + c, a) ? expf(x - Lr[r]) : 0.f;
-      float ds = p * (dp[i][j] - Dr[r]);
-      if (a.softcap > 0.f) {
-        const float t = x / a.softcap;
-        ds = ds * (1.f - t * t);
-      }
-      dSs[r * LDS + c] = ds * a.scale;
-    }
-}
-
-template <int DM>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    Params a) {
-  extern __shared__ float sm[];
-  constexpr int NC = DM / TX;
-  const int D = a.D, ld = D + 1;
-  float* Qs = sm;                   // BQ x ld
-  float* dOs = Qs + BQ * ld;        // BQ x ld
-  float* Ks = dOs + BQ * ld;        // BK x ld
-  float* Vs = Ks + BK * ld;         // BK x ld
-  float* dSs = Vs + BK * ld;        // BQ x LDS
-  float* Lr = dSs + BQ * LDS;
-  float* Dr = Lr + BQ;
-  const int b = blockIdx.y, q0 = blockIdx.x * BQ;
-  const long kvb = b / a.g;
-  const bf16* kb = k + kvb * a.Skv * D;
-  const bf16* vb = v + kvb * a.Skv * D;
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  load_tile(Qs, q + (long)b * a.Sq * D, q0, BQ, a.Sq, D, ld);
-  load_tile(dOs, dout + (long)b * a.Sq * D, q0, BQ, a.Sq, D, ld);
-  load_rows(Lr, lse + (long)b * a.Sq, q0, a.Sq);
-  load_rows(Dr, delta + (long)b * a.Sq, q0, a.Sq);
-
-  for (int k0 = 0; k0 < a.Skv; k0 += BK) {
-    if (!tile_runs(q0, k0, a)) continue;
-    __syncthreads();
-    load_tile(Ks, kb, k0, BK, a.Skv, D, ld);
-    load_tile(Vs, vb, k0, BK, a.Skv, D, ld);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile(Qs, Ks, D, ld, s);
-    dot_tile(dOs, Vs, D, ld, dp);
-    grad_terms(s, dp, Lr, Dr, q0, k0, a, dSs);
-    __syncthreads();
-    for (int t = 0; t < BK; ++t) {
-      float dv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = dSs[(ty + TY * i) * LDS + t];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int col = tx + TX * j;
-        const float kv = col < D ? Ks[t * ld + col] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dv[i], kv, acc[i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gq = q0 + ty + TY * i;
-    if (gq >= a.Sq) continue;
-    bf16* row = dq + ((long)b * a.Sq + gq) * D;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      const int col = tx + TX * j;
-      if (col < D) row[col] = __float2bfloat16(acc[i][j]);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// flash_fwd and flash_bwd_dkv: one warpgroup, every product on wgmma
+// the kernels: one warpgroup, every product on wgmma
 // ---------------------------------------------------------------------------
 
 constexpr float LOG2E = 1.4426950408889634f;
@@ -461,6 +325,173 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows(o + (long)b * a.Sq * D, acc, q0, a.Sq, D, inv[0], inv[1]);
 }
 
+// TMA tensor maps of dq's operands, (D, S, heads) in bf16, read in boxes
+// of 64 columns x 64 rows x 1 head (128-byte swizzle)
+struct DqMaps {
+  CUtensorMap q, dout, k, v;
+};
+
+// One CTA (one warpgroup) per q head and 64-row q tile, the heaviest
+// tiles first. Q and dO stay in shared memory; K/V tiles run through two
+// stages. With `tma` (D a multiple of 8, 16-byte aligned operands) thread
+// 0 fills each tile by TMA tensor copies that complete on its stage's
+// mbarrier, zero-filled past S and D; otherwise every thread gathers the
+// tiles element by element. S = Q.K^T and dP = dO.V^T (wgmma, K-major), p
+// on S's registers while dP is in flight (lse and delta are per row, held
+// in registers), then ds; then dQ += dS.K with dS split into bf16 hi and
+// lo A fragments and K read MN-major from the tile that served Q.K^T.
+template <int DM>
+__global__ void __launch_bounds__(sm90::WG, DM == 64 ? 4 : 2)
+flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const __grid_constant__ DqMaps maps, Params a,
+                    bool tma) {
+  using namespace sm90;
+  constexpr int TILE = BQ * DM * 2;
+  constexpr int NO = DM / 2;
+  extern __shared__ uint8_t smem[];
+  const uint32_t Qs = (smem_u32(smem) + 1023) & ~1023u, dOs = Qs + TILE;
+  const uint32_t bars = Qs + 6 * TILE;   // Q and dO, then the two stages
+  const int b = blockIdx.x, D = a.D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  const int kvb = b / a.g;
+  const bf16* kb = k + (long)kvb * a.Skv * D;
+  const bf16* vb = v + (long)kvb * a.Skv * D;
+  int t0, t1;
+  run_range((a.Skv + BK - 1) / BK,
+            [&](int t) { return tile_runs(q0, t * BK, a); }, &t0, &t1);
+
+  // the 64-row tile at row0 of head `head` of `map`, one box per 64
+  // columns
+  auto copy = [&](uint32_t dst, const CUtensorMap* map, int row0, int head,
+                  uint32_t bar) {
+#pragma unroll
+    for (int cb = 0; cb < DM / 64; ++cb)
+      tma_load(dst + cb * BQ * 128, map, bar, 64 * cb, row0, head);
+  };
+  // K and V tile t into stage st
+  auto load_kv = [&](int t, int st) {
+    const uint32_t Kd = Qs + TILE * (2 + 2 * st);
+    if (tma) {
+      if (threadIdx.x == 0) {
+        mbar_expect(bars + 8 * (1 + st), 2 * TILE);
+        copy(Kd, &maps.k, t * BK, kvb, bars + 8 * (1 + st));
+        copy(Kd + TILE, &maps.v, t * BK, kvb, bars + 8 * (1 + st));
+      }
+    } else {
+      load_tile_async<BK, DM>(Kd, kb, t * BK, a.Skv, D, false);
+      load_tile_async<BK, DM>(Kd + TILE, vb, t * BK, a.Skv, D, false);
+      fence_async_smem();
+    }
+  };
+  if (tma) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i);
+      fence_mbar_init();
+    }
+    __syncthreads();                 // no thread waits on an unset barrier
+    if (threadIdx.x == 0) {
+      mbar_expect(bars, 2 * TILE);
+      copy(Qs, &maps.q, q0, b, bars);
+      copy(dOs, &maps.dout, q0, b, bars);
+    }
+  } else {
+    load_tile_async<BQ, DM>(Qs, q + (long)b * a.Sq * D, q0, a.Sq, D, false);
+    load_tile_async<BQ, DM>(dOs, dout + (long)b * a.Sq * D, q0, a.Sq, D,
+                            false);
+  }
+  if (t0 <= t1) load_kv(t0, 0);
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
+  // rows r0 + 8 h: -lse in log2 units, and delta
+  float nl[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gq = q0 + r0 + 8 * h;
+    nl[h] = gq < a.Sq ? -lse[(long)b * a.Sq + gq] * LOG2E : 0.f;
+    dl[h] = gq < a.Sq ? delta[(long)b * a.Sq + gq] : 0.f;
+  }
+  float acc[NO];
+  zero(acc);
+  if (tma) mbar_wait(bars, 0);       // Q and dO have landed
+
+  for (int t = t0; t <= t1; ++t) {
+    const int st = (t - t0) & 1;
+    const uint32_t Ks = Qs + TILE * (2 + 2 * st), Vs = Ks + TILE;
+    // the last iteration's products are done (and, gathering, this tile's
+    // stores are published), so the stage refilled next is not read
+    __syncthreads();
+    if (t < t1) {
+      if (tma && threadIdx.x == 0) fence_async_smem();
+      load_kv(t + 1, st ^ 1);
+    }
+    if (tma) mbar_wait(bars + 8 * (1 + st), ((t - t0) >> 1) & 1);
+
+    float s[32], dp[32];             // q rows r0 + 8 h, KV columns
+    zero(s);
+    zero(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DM / 16; ++kk)
+      wgmma_ss_n64<0>(s, desc_k<BQ>(Qs, kk), desc_k<BK>(Ks, kk), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DM / 16; ++kk)
+      wgmma_ss_n64<0>(dp, desc_k<BQ>(dOs, kk), desc_k<BK>(Vs, kk), 1);
+    wgmma_commit();
+
+    // p = exp(s - lse), masked; ds = p (dp - delta) scale, times
+    // 1 - (s / cap)^2 under a softcap
+    const int k0 = t * BK;
+    const bool edge = !tile_full(q0, k0, a);
+    auto prob = [&](int j, float x) {
+      const int h = (j >> 1) & 1;
+      return !edge || visible(q0 + r0 + 8 * h,
+                              k0 + 8 * (j >> 2) + c0 + (j & 1), a)
+                 ? ex2(fmaf(x, LOG2E, nl[h]))
+                 : 0.f;
+    };
+    if (a.softcap > 0.f) {
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float x = score(s[j], a), u = x / a.softcap;
+        dp[j] = prob(j, x) * (dp[j] - dl[(j >> 1) & 1]) * (1.f - u * u) *
+                a.scale;
+      }
+    } else {                         // p while dP is still in flight
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) s[j] = prob(j, s[j] * a.scale);
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        dp[j] = s[j] * (dp[j] - dl[(j >> 1) & 1]) * a.scale;
+    }
+    uint32_t dh[BK / 16][4], dlo[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) split_a(dp, kk, dh[kk], dlo[kk]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_pv<DM>(acc, dh[kk], desc_mn<BK>(Ks, kk));
+      wgmma_pv<DM>(acc, dlo[kk], desc_mn<BK>(Ks, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  store_rows(dq + (long)b * a.Sq * D, acc, q0, a.Sq, D, 1.f, 1.f);
+}
+
 // One CTA (one warpgroup) per KV head and 64-row KV tile; the warpgroup's
 // rows are KV rows. K and V stay in shared memory; the (q, dO, lse, delta)
 // tiles of the group's g q heads and of every q tile that can see this KV
@@ -601,8 +632,9 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // a 1024-byte alignment margin, then the swizzled bf16 tiles: Q and two
-// stages of K and V (forward); K, V and two stages of Q and dO, then two
-// stages of the lse and delta rows (dk/dv)
+// stages of K and V (forward); Q, dO and two stages of K and V, then three
+// mbarriers (dq); K, V and two stages of Q and dO, then two stages of the
+// lse and delta rows (dk/dv)
 template <int DM>
 constexpr size_t fwd_smem() {
   return 1024 + 5 * (size_t)BQ * DM * 2;
@@ -611,9 +643,9 @@ template <int DM>
 constexpr size_t dkv_smem() {
   return 1024 + 6 * (size_t)BK * DM * 2 + 2 * 2 * BQ * sizeof(float);
 }
-size_t dq_smem(int D) {
-  return sizeof(float) *
-         ((size_t)(2 * BQ + 2 * BK) * (D + 1) + BQ * LDS + 2 * BQ);
+template <int DM>
+constexpr size_t dq_smem() {
+  return 1024 + 6 * (size_t)BQ * DM * 2 + 3 * 8;
 }
 
 template <class K>
@@ -646,17 +678,35 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+// a TMA tensor map of the (heads, S, D) bf16 operand at `base`, in boxes
+// of 64 x 64 x 1
+bool dq_map(CUtensorMap* map, const void* base, int heads, int S, int D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)BQ, 1};
+  return sm90::tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base,
+                          dims, strides, box, true);
+}
+
 template <int DM>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int BH,
            const Params& a, cudaStream_t st) {
-  const size_t smem = dq_smem(a.D);
-  cudaError_t e = prepare(flash_bwd_dq_kernel<DM>, smem);
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  if (nq > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = prepare(flash_bwd_dq_kernel<DM>, dq_smem<DM>());
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq_kernel<DM><<<dim3((a.Sq + BQ - 1) / BQ, BH), THREADS, smem,
-                            st>>>(
+  DqMaps maps{};
+  const bool tma = vec_ok(a.D, {q, k, v, dout}) && a.Skv > 0;
+  if (tma && !(dq_map(&maps.q, q, BH, a.Sq, a.D) &&
+               dq_map(&maps.dout, dout, BH, a.Sq, a.D) &&
+               dq_map(&maps.k, k, BH / a.g, a.Skv, a.D) &&
+               dq_map(&maps.v, v, BH / a.g, a.Skv, a.D)))
+    return (int)cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<DM><<<dim3(BH, nq), sm90::WG, dq_smem<DM>(), st>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, a);
+      (const float*)lse, (const float*)delta, (bf16*)dq, maps, a, tma);
   return (int)cudaGetLastError();
 }
 

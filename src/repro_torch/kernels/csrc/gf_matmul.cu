@@ -27,7 +27,7 @@ gf_matmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   const long row0 = (long)blockIdx.x * rt::BM;
   const int col0 = blockIdx.y * rt::BN;
   int acc[rt::TM][rt::TN];
-  rt::tile_product<false>(s, acc, A, B, M, N, K, row0, col0, 0, 0);
+  rt::tile_product(s, acc, A, B, M, N, K, row0, col0);
 #pragma unroll
   for (int i = 0; i < rt::TM; ++i) {
     const long r = row0 + threadIdx.y + rt::TY * i;
@@ -50,7 +50,7 @@ scan_syndromes_kernel(const int8_t* __restrict__ Y,
   const long row0 = (long)blockIdx.x * rt::BM;
   int acc[rt::TM][rt::TN];
   for (int col0 = 0; col0 < C; col0 += rt::BN) {
-    rt::tile_product<false>(s, acc, Y, Ht, M, C, K, row0, col0, 0, 0);
+    rt::tile_product(s, acc, Y, Ht, M, C, K, row0, col0);
 #pragma unroll
     for (int i = 0; i < rt::TM; ++i) {
       const int lr = threadIdx.y + rt::TY * i;

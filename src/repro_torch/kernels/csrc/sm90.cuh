@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for kernels that multiply bf16 tiles on
-// the tensor cores with wgmma: 128-byte-swizzled shared-memory tiles, their
-// matrix descriptors, cp.async copies into them, the wgmma wrappers and
-// fences, and the conversion of an fp32 accumulator into split-bf16 A
-// fragments.
+// Hopper (sm_90a) building blocks for kernels that multiply bf16 or int8
+// tiles on the tensor cores with wgmma: 128-byte-swizzled shared-memory
+// tiles, their matrix descriptors, cp.async copies into them, the wgmma
+// wrappers and fences, and the conversion of an fp32 accumulator into
+// split-bf16 A fragments; and TMA tensor copies into such tiles that
+// complete on an mbarrier, with the host's tensor maps for them.
 //
 // One warpgroup (128 threads) issues each wgmma. A tile of R rows by DM
 // bf16 columns (DM 64 or 128) is stored as DM / 64 column blocks of R x 128
@@ -17,10 +18,16 @@
 //   step kk starts 16 rows down, LBO the R x 128 bytes between 64-column
 //   blocks, SBO the 1024 bytes between 8-row groups; the wgmma's
 //   transpose-B flag is 1.
+// An int8 tile is the same layout with 128 int8 values to a 128-byte row:
+// a k32 step of an s8 wgmma is 32 bytes, as a k16 step of bf16 is, so
+// desc_k serves it unchanged. 8-bit wgmma takes only K-major operands.
 #pragma once
 
 #include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace sm90 {
 
@@ -132,6 +139,97 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // ---------------------------------------------------------------------------
+// TMA: one thread issues a tile's tensor copies; the tile's mbarrier
+// completes when their bytes have landed (the copy applies the 128-byte
+// swizzle of the tensor map, and zero-fills boxes past the tensor's edge)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// box {c0 (innermost), c1} of the 2D tensor `map` into shared memory at
+// `dst`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// box {c0, c1, c2} of the 3D tensor `map`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// make this thread's mbarrier inits visible to the copies that complete on
+// them (a barrier then publishes them to the CTA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Host: a tiled tensor map of `rank` dimensions (innermost first; strides
+// in bytes for dimensions 1.., multiples of 16), read in boxes of `box`
+// elements, with the 128-byte swizzle or none. The encoder is the driver's
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                       const void* base, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       bool swizzle) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                         12000, cudaEnableDefault,
+                                         &found) != cudaSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess)
+#endif
+      return false;
+    if (found != cudaDriverEntryPointSuccess) return false;
+    encode = (PFN_cuTensorMapEncodeTiled_v12000)fn;
+  }
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, type, rank, const_cast<void*>(base), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
 
@@ -152,6 +250,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The accumulator of m64nNk16 holds, in thread t of the warpgroup (warp w,
@@ -265,6 +368,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 128, int32) += A (64 x 32 int8, smem) . B (128 x 32 int8, smem),
+// both K-major; accumulate 0 starts d from 0 (the wgmma's scale-d)
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 }  // namespace sm90

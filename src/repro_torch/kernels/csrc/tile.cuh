@@ -1,14 +1,13 @@
-// Shared tile skeleton of the integer GEMM kernels (gf_matmul, scan_syndromes,
-// pim_mac): C(M,N) = A(M,K) . B(K,N) with A and B int8, row-major, and an
-// int32 accumulator.
+// Shared tile skeleton of the integer GEMM kernels (gf_matmul and
+// scan_syndromes): C(M,N) = A(M,K) . B(K,N) with A and B int8, row-major,
+// and an int32 accumulator.
 //
 // A block of TY x TX = 16 x 16 threads owns a BM x BN = 64 x 64 output tile;
 // each thread keeps a 4 x 4 register tile, on rows ty + 16 i and columns
 // tx + 16 j. K advances in steps of 4 * BKW bytes: each step packs four
 // consecutive K values of an A row, and of a B column, into one 32-bit word
 // in shared memory, so one __dp4a does four multiply-adds. Rows, columns and
-// K past the edge load as 0, which adds nothing to a sum (and clip(0) = 0,
-// so a zero-padded row group is a no-op for the ADC clip too).
+// K past the edge load as 0, which adds nothing to a sum.
 #pragma once
 
 #include <cstdint>
@@ -66,22 +65,15 @@ __device__ __forceinline__ void load_step(Tiles& s,
 
 // acc[i][j] = sum over K of A[row][k] * B[k][col] for this thread's 4 x 4
 // outputs of the tile at (row0, col0).
-//
-// With CLIP, K splits into groups of R rows (R a multiple of 4): each
-// group's partial sum is clipped to [-half, half] before it joins acc, the
-// PIM ADC model. Without CLIP the groups are not tracked at all, since
-// unclipped partials sum to the plain product.
-template <bool CLIP>
 __device__ __forceinline__ void tile_product(Tiles& s, int acc[TM][TN],
                                              const int8_t* __restrict__ A,
                                              const int8_t* __restrict__ B,
                                              int M, int N, int K, long row0,
-                                             int col0, int R, int half) {
-  int part[TM][TN];
+                                             int col0) {
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = part[i][j] = 0;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
   const int ty = threadIdx.y, tx = threadIdx.x;
   for (int k0 = 0; k0 < K; k0 += BK) {
     __syncthreads();               // the previous step's reads are done
@@ -89,18 +81,6 @@ __device__ __forceinline__ void tile_product(Tiles& s, int acc[TM][TN],
     __syncthreads();
 #pragma unroll
     for (int kw = 0; kw < BKW; ++kw) {
-      if (CLIP) {
-        const int gk = k0 + 4 * kw;
-        if (gk > 0 && gk % R == 0) {   // a new row group starts here
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j) {
-              acc[i][j] += min(max(part[i][j], -half), half);
-              part[i][j] = 0;
-            }
-        }
-      }
       int a[TM], b[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) a[i] = s.a[kw][ty + TY * i];
@@ -109,20 +89,9 @@ __device__ __forceinline__ void tile_product(Tiles& s, int acc[TM][TN],
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          if (CLIP)
-            part[i][j] = __dp4a(a[i], b[j], part[i][j]);
-          else
-            acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-        }
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
     }
-  }
-  if (CLIP) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        acc[i][j] += min(max(part[i][j], -half), half);
   }
 }
 

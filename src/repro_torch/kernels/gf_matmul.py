@@ -16,6 +16,15 @@ On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. The plain versions are the reference the
 kernels are held against, on the card by `chip_smoke.py` and against the
 JAX package by the CPU tests.
+
+The kernels hold a GF(p) product exactly only while its symbols fit int8
+(p <= 128) and the int32 accumulator holds K (p - 1)^2. `field_route`
+says, from the field and K alone, whether a product goes to the kernel or
+to the exact product (`build.exact_matmul`: int64 on the CPU, float64 on
+the card, then a floored mod p), as the JAX controller's `_scan_route`
+sends such codes to its exact host scan; `gf_matmul_routed` and
+`scan_syndromes_routed` are the callers' entry points. The route never
+depends on a kernel failing.
 """
 from __future__ import annotations
 
@@ -28,10 +37,18 @@ from . import build
 INT8_K_MAX = (2 ** 31 - 1) // (128 * 128)
 
 
+def _reduce(x: torch.Tensor, p: int) -> torch.Tensor:
+    """x mod p (floored), in a dtype that holds p - 1."""
+    if torch.iinfo(x.dtype).max < p - 1:
+        x = x.to(torch.int64)
+    return torch.remainder(x, p)
+
+
 def gf_matmul_plain(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
-    """(a @ b) mod p as int32. a: (M, K), b: (K, N), any integer dtype."""
-    a = torch.remainder(a, p)
-    b = torch.remainder(b, p)
+    """(a @ b) mod p as int32. a: (M, K), b: (K, N), any integer dtype;
+    exact for any field (the product runs through `build.exact_matmul`)."""
+    a = _reduce(a, p)
+    b = _reduce(b, p)
     prods = build.exact_matmul(a, b, a.shape[-1] * (p - 1) ** 2)
     return torch.remainder(prods, p).to(torch.int32)
 
@@ -53,9 +70,36 @@ def _check_shapes(name: str, a: torch.Tensor, b: torch.Tensor, p: int):
         raise ValueError(f"{name}: int32 accumulator bound exceeded, K={K}")
 
 
+def field_route(K: int, p: int) -> str:
+    """"kernel" when the int8 kernels compute a GF(p) product over K terms
+    exactly (p <= 128, K (p - 1)^2 < 2^31, K <= INT8_K_MAX), else "exact"."""
+    fits = (p <= build.INT8_FIELD_MAX and K * (p - 1) ** 2 < 2 ** 31
+            and K <= INT8_K_MAX)
+    return "kernel" if fits else "exact"
+
+
+def gf_matmul_routed(a: torch.Tensor, b: torch.Tensor,
+                     p: int) -> torch.Tensor:
+    """(a @ b) mod p -> (M, N) int32 through `field_route`'s choice: the
+    kernel (its plain version on the CPU), or the exact product."""
+    if field_route(a.shape[-1], p) == "kernel":
+        return gf_matmul(a, b, p)
+    return gf_matmul_plain(a, b, p)
+
+
+def scan_syndromes_routed(y: torch.Tensor, ht: torch.Tensor,
+                          p: int) -> torch.Tensor:
+    """(M,) nonzero-syndrome flags through `field_route`'s choice."""
+    if field_route(y.shape[-1], p) == "kernel":
+        return scan_syndromes(y, ht, p)
+    return scan_syndromes_plain(y, ht, p)
+
+
 def gf_matmul(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     """(a @ b) mod p -> (M, N) int32 in [0, p). Operands that are not int8
-    are reduced mod p into int8 first (the result is the same)."""
+    are reduced mod p into int8 first (the result is the same). On the card
+    a field past int8 or a K past the int32 bound raises (see
+    `field_route`)."""
     if build.route("gf_matmul", a, b) == "cpu":
         return gf_matmul_plain(a, b, p)
     _check_shapes("gf_matmul", a, b, p)

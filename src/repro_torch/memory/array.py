@@ -6,11 +6,12 @@ encoded with the array's systematic code — and decoded on read under a
 pluggable controller policy (`controller`). Device faults are injected
 through the `channel` models, never by hand-editing stored words.
 
-The stored cells of every tensor are one (n_words, n) int8 tensor on the
-array's device (the card by default), so the write encode (the gf_matmul
-kernel), the read and scrub scans (the scan kernel) and the decodes of
-flagged words (FBP) all run where the cells are; only the bytes a read
-returns cross to the host.
+The stored cells of every tensor are one (n_words, n) int8 tensor (a
+wider `symbol_dtype(p)` for GF(p) past int8) on the array's device (the
+card by default), so the write encode (the gf_matmul kernel), the read
+and scrub scans (the scan kernel) and the decodes of flagged words (FBP)
+all run where the cells are; only the bytes a read returns cross to the
+host.
 
     mem = ProtectedMemoryArray("wl1024_r08", controller="writeback")
     mem.write("kv", kv_cache)
@@ -29,6 +30,7 @@ import torch.nn.functional as F
 from ..core.codes import get_code
 from ..core.construction import LDPCCode
 from ..core.encode import encode_words
+from ..core.gf import symbol_dtype
 from ..device import generator, resolve_device
 from .channel import Channel
 from .controller import MemoryController, make_controller
@@ -41,7 +43,8 @@ __all__ = ["ProtectedMemoryArray", "StoredTensor"]
 class StoredTensor:
     """One tensor's protected representation: (n_words, n) cell levels."""
 
-    enc: torch.Tensor              # (n_words, n) int8 levels in [0, p)
+    enc: torch.Tensor              # (n_words, n) levels in [0, p), int8
+                                   # while p <= 128
     dtype: str                     # numpy dtype name of the stored tensor
     shape: tuple
     nbytes: int
@@ -98,7 +101,8 @@ class ProtectedMemoryArray:
         enc = torch.as_tensor(np.asarray(st.enc) if not isinstance(
             st.enc, torch.Tensor) else st.enc)
         self._store[name] = StoredTensor(
-            enc.to(device=self.device, dtype=torch.int8).contiguous(),
+            enc.to(device=self.device,
+                   dtype=symbol_dtype(self.code.p)).contiguous(),
             str(st.dtype), tuple(st.shape), int(st.nbytes))
 
     def discard(self, name: str) -> None:
@@ -156,7 +160,8 @@ class ProtectedMemoryArray:
         changed = torch.zeros((), dtype=torch.int64, device=self.device)
         for name in self.names:
             st = self._store[name]
-            new = ch.apply(gen, st.enc, t=t, n_reads=n_reads).to(torch.int8)
+            new = ch.apply(gen, st.enc, t=t, n_reads=n_reads).to(
+                st.enc.dtype)
             changed += (new != st.enc).sum()
             st.enc = new
         return int(changed)

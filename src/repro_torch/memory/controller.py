@@ -14,7 +14,9 @@ refresh):
 
 All policies share the same read path: the fused syndrome scan
 (`repro_torch.kernels.scan_syndromes`, the CUDA kernel on the card) over
-the stored int8 words, then the decoder runs ONLY on flagged words,
+the stored int8 words, or the exact product for codes past the kernel's
+int8 symbols or int32 bound (`_scan_route`, as the JAX controller's), then
+the decoder runs ONLY on flagged words,
 through the controller's `RepairQueue`. Sweeps use the coalesced repair
 pipeline: pages are scanned a window ahead, flagged rows from many pages
 are queued and decoded together. Per-policy counters (detected / corrected
@@ -30,7 +32,8 @@ import torch
 
 from ..core.construction import LDPCCode
 from ..device import resolve_device
-from ..kernels.gf_matmul import scan_syndromes
+from ..core.gf import symbol_dtype
+from ..kernels.gf_matmul import field_route, scan_syndromes_routed
 from .repair import RepairQueue
 
 __all__ = ["ControllerStats", "MemoryController", "WritebackController",
@@ -104,10 +107,17 @@ class MemoryController:
                            device=self.device)
 
     @staticmethod
+    def _scan_route(code: LDPCCode) -> str:
+        """Where a scan of `code` runs: "kernel" (the int8 scan kernel, its
+        plain version on the CPU) or "exact" (the exact product, for GF(p)
+        past int8 or n (p - 1)^2 >= 2^31), decided by the code alone."""
+        return field_route(code.n, code.p)
+
+    @staticmethod
     def _scan(code: LDPCCode, enc: torch.Tensor) -> torch.Tensor:
         """(B, n) stored words -> (B,) flags, on the words' device."""
-        return scan_syndromes(enc, code.tensor("H.T", enc.device, torch.int8),
-                              code.p)
+        ht = code.tensor("H.T", enc.device, symbol_dtype(code.p))
+        return scan_syndromes_routed(enc, ht, code.p)
 
     def _correct(self, code: LDPCCode, enc: torch.Tensor):
         """-> (corrected levels (B, n) int8, flagged, fail) without stats."""
@@ -261,6 +271,7 @@ class MemoryController:
                                       totals["uncorrectable"])
         self._note_scrub_totals(code, words, corrected_n, fail_n, dt)
         return {"policy": self.policy, "backend": backend,
+                "scan_route": self._scan_route(code),
                 "words_scanned": words,
                 "cells_scanned": words * code.n,
                 "flagged": totals["flagged"],

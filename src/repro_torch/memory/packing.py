@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..core.gf import symbol_dtype
+
 __all__ = ["digits_per_byte", "symbolize_u8", "desymbolize_u8"]
 
 
@@ -21,12 +23,12 @@ def digits_per_byte(p: int) -> int:
 
 
 def symbolize_u8(vals: torch.Tensor, p: int) -> torch.Tensor:
-    """Byte values in [0, 256) of any shape -> (..., D) int8 base-p digits
-    (base-p digits, little-endian per byte)."""
+    """Byte values in [0, 256) of any shape -> (..., D) base-p digits,
+    little-endian per byte, in `symbol_dtype(p)` (int8 while p <= 128)."""
     D = digits_per_byte(p)
     v = vals.to(torch.int32)
     return torch.stack([torch.div(v, p ** i, rounding_mode="floor") % p
-                        for i in range(D)], dim=-1).to(torch.int8)
+                        for i in range(D)], dim=-1).to(symbol_dtype(p))
 
 
 def desymbolize_u8(digits: torch.Tensor, p: int) -> torch.Tensor:

@@ -50,7 +50,8 @@ from ..core.decode import decode_integers
 from ..core.encode import encode_words
 from ..core.protected import decode_pipelined
 from ..device import as_tensor, generator, resolve_device
-from ..kernels.gf_matmul import scan_syndromes
+from ..core.gf import symbol_dtype
+from ..kernels.gf_matmul import scan_syndromes_routed
 from .channel import Channel
 from .controller import ControllerStats
 from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
@@ -116,20 +117,18 @@ def dequantize_tensor(words: torch.Tensor, meta: QuantizedTensor,
 
 
 class PagedProtectedStore:
-    """Fixed-shape (page_words, n) int8 GF-level pages on one device, with
-    device encode, per-page syndrome flags and corrected reads."""
+    """Fixed-shape (page_words, n) GF-level pages on one device, with
+    device encode, per-page syndrome flags and corrected reads. Pages are
+    int8 while p <= 128 (`symbol_dtype(p)` past it); encode and scan go to
+    the kernels or, for fields past int8 or the int32 bound, to the exact
+    product (`gf_matmul.field_route`)."""
 
     def __init__(self, code: str | LDPCCode = "wl1024_r08", *,
                  page_words: int = 256, n_iters: int = 10,
                  damping: float = 0.3, llv_scale: float = 4.0,
                  llv_mode: str = "manhattan", key: int = 0, device=None):
         self.code = get_code(code) if isinstance(code, str) else code
-        # the scan and encode kernels accumulate int32 products of symbols
-        # in [0, p): the per-word sum n*(p-1)^2 must stay below 2^31
-        if self.code.n * (self.code.p - 1) ** 2 >= 2 ** 31:
-            raise ValueError(
-                f"code n={self.code.n} p={self.code.p} exceeds the int32 "
-                "kernel accumulator bound n*(p-1)^2 < 2^31")
+        self.dtype = symbol_dtype(self.code.p)
         if page_words <= 0:
             raise ValueError(f"page_words must be positive, got {page_words}")
         self.device = resolve_device(device)
@@ -138,7 +137,7 @@ class PagedProtectedStore:
         self.damping = damping
         self.llv_scale = llv_scale
         self.llv_mode = llv_mode
-        self._pages: list[torch.Tensor] = []    # (page_words, n) int8
+        self._pages: list[torch.Tensor] = []    # (page_words, n) levels
         self._n_words = 0                       # valid words across pages
         self._gen = torch.Generator(device=self.device).manual_seed(key)
         self._repair_q: RepairQueue | None = None
@@ -170,7 +169,7 @@ class PagedProtectedStore:
     def _append_page(self) -> None:
         """Grow storage by one zeroed page."""
         self._pages.append(torch.zeros((self.page_words, self.code.n),
-                                       dtype=torch.int8, device=self.device))
+                                       dtype=self.dtype, device=self.device))
 
     def _iter_pages(self) -> Iterator[torch.Tensor]:
         for i in range(self.n_pages):
@@ -185,8 +184,8 @@ class PagedProtectedStore:
 
     def _scan(self, page: torch.Tensor) -> torch.Tensor:
         """(page_words,) bool nonzero-syndrome flags of one page."""
-        return scan_syndromes(page, self.code.tensor("H.T", page.device,
-                                                     torch.int8), self.code.p)
+        ht = self.code.tensor("H.T", page.device, self.dtype)
+        return scan_syndromes_routed(page, ht, self.code.p)
 
     def _decode(self, page: torch.Tensor):
         """(y_corrected, DecodeResult) of a whole page, early exit on."""
@@ -207,7 +206,7 @@ class PagedProtectedStore:
     # -- write path ---------------------------------------------------------
 
     def _put_rows(self, enc: torch.Tensor) -> tuple[int, int]:
-        """Pack (m, n) int8 codewords into pages after the valid words. A
+        """Pack (m, n) codewords into pages after the valid words. A
         partly filled trailing page is padded with all-zero words (valid
         codewords, scan-neutral) and topped up by the next append."""
         m = enc.shape[0]
@@ -237,7 +236,7 @@ class PagedProtectedStore:
         if u.dim() != 2 or u.shape[1] != self.code.k:
             raise ValueError(f"expected (m, {self.code.k}) info words, got "
                              f"{tuple(u.shape)}")
-        enc = encode_words(u.to(torch.int8), self.code)
+        enc = encode_words(u.to(self.dtype), self.code)
         return self._put_rows(enc)
 
     def append_encoded(self, enc) -> tuple[int, int]:
@@ -247,12 +246,12 @@ class PagedProtectedStore:
         if enc.dim() != 2 or enc.shape[1] != self.code.n:
             raise ValueError(f"expected (m, {self.code.n}) codewords, got "
                              f"{tuple(enc.shape)}")
-        return self._put_rows(enc.to(torch.int8))
+        return self._put_rows(enc.to(self.dtype))
 
     def export_words(self) -> torch.Tensor:
-        """All valid stored codewords as one (n_words, n) int8 tensor."""
+        """All valid stored codewords as one (n_words, n) tensor."""
         if not self.n_pages:
-            return torch.zeros((0, self.code.n), dtype=torch.int8,
+            return torch.zeros((0, self.code.n), dtype=self.dtype,
                                device=self.device)
         return torch.cat(list(self._iter_pages()))[:self._n_words]
 
@@ -274,7 +273,7 @@ class PagedProtectedStore:
         for i in range(self.n_pages):
             page = self.page(i)
             new = channel.apply(gen, page, t=t, n_reads=n_reads).to(
-                torch.int8)
+                self.dtype)
             changed += (new != page).sum()
             self._set_page(i, new)
         return int(changed)
@@ -338,7 +337,7 @@ class PagedProtectedStore:
         """Whole-store corrected read: every page decoded, stacked to
         (n_words, n) symbols (the baseline of the pipelined read)."""
         if not self.n_pages:
-            return torch.zeros((0, self.code.n), dtype=torch.int8,
+            return torch.zeros((0, self.code.n), dtype=self.dtype,
                                device=self.device)
         outs = [self._decode(pg)[1].symbols for pg in self._iter_pages()]
         return torch.cat(outs)[:self._n_words]
@@ -351,7 +350,7 @@ class PagedProtectedStore:
             raise ValueError(f"word range [{start}, {stop}) outside "
                              f"[0, {self._n_words})")
         if start == stop:
-            return torch.zeros((0, self.code.n), dtype=torch.int8,
+            return torch.zeros((0, self.code.n), dtype=self.dtype,
                                device=self.device)
         pw = self.page_words
         out = []
@@ -435,7 +434,7 @@ class PagedProtectedStore:
                 good = rows[ok]
                 if good.numel():
                     new = page.clone()
-                    new[good] = syms[ok].to(torch.int8)
+                    new[good] = syms[ok].to(self.dtype)
                     self._set_page(i, new)
 
             queue.enqueue(page[rows], writeback,

@@ -29,6 +29,7 @@ import torch
 
 from ..core.construction import LDPCCode
 from ..core.decode import decode_integers
+from ..core.gf import symbol_dtype
 from ..device import resolve_device
 
 __all__ = ["RepairQueue"]
@@ -65,12 +66,13 @@ class RepairQueue:
 
     def decode_batch(self, words: torch.Tensor):
         """Decode (B, n) flagged level-words in `chunk_size` chunks.
-        Returns (symbols (B, n) int8, fail (B,) bool, iterations (B,)
-        int32), tensors on the queue's device."""
+        Returns (symbols (B, n) in symbol_dtype(p), fail (B,) bool,
+        iterations (B,) int32), tensors on the queue's device."""
         words = words.to(self.device)
         if words.shape[0] == 0:
             n = self.code.n
-            return (torch.zeros((0, n), dtype=torch.int8, device=self.device),
+            return (torch.zeros((0, n), dtype=symbol_dtype(self.code.p),
+                                device=self.device),
                     torch.zeros(0, dtype=torch.bool, device=self.device),
                     torch.zeros(0, dtype=torch.int32, device=self.device))
         syms, fail, iters = [], [], []

@@ -273,7 +273,7 @@ class ProtectedKVLayer(KVSource):
                 ks, vs = ks.reshape(NP, 1), vs.reshape(NP, 1)
             else:
                 kp = torch.zeros((0, 1, self.words_per_page, code.n),
-                                 dtype=torch.int8, device=dev)
+                                 dtype=self.k_store.dtype, device=dev)
                 vp = kp
                 ks = vs = torch.zeros((0, 1), dtype=torch.float32,
                                       device=dev)

@@ -5,7 +5,10 @@ the largest gradient for the flash backward), the launch counters, and
 the decoder, a small protected-KV decode and two reduced training steps
 on the card against their CPU runs. The wgmma flash kernels also at the
 edges of their tiles, bitwise repeatable, with HGMMA in their SASS, and
-beside a bf16-P control that shows their split P is needed. Marked
+beside a bf16-P control that shows their split P is needed; the s8 wgmma
+PIM MAC exactly at the PIM shape and at its edges, with IGMMA in its SASS;
+GF(257) operands refused by the int8 kernels and flagged exactly on the
+exact route. Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -44,16 +47,33 @@ def test_gf_kernels_match_plain(dev, shape, p, rng):
         (n0[0] + 1, n0[1] + 1)
 
 
-@pytest.mark.parametrize("K,R,adc", [(100, 0, 0), (256, 64, 6), (90, 6, 1),
-                                     (128, 16, 4)])
-def test_pim_mac_kernel_matches_plain(dev, K, R, adc, rng):
-    x = torch.as_tensor(rng.integers(-7, 8, (70, K)), dtype=torch.int8,
+@pytest.mark.parametrize("M,K,N,R,adc,full", [
+    (70, 100, 90, 0, 0, False), (70, 256, 90, 64, 6, False),
+    (70, 90, 90, 6, 1, False), (70, 128, 90, 16, 4, False),
+    # the PIM shape (paper-pim-2b mlp_down over 256 rows, R 64)
+    (256, 8192, 2560, 64, 0, False), (256, 8192, 2560, 64, 6, False),
+    # groups that are not whole k32 steps, ragged M and N
+    (33, 300, 200, 6, 6, False), (65, 512, 129, 16, 2, False),
+    (130, 480, 257, 48, 6, False), (1, 96, 1, 48, 4, False),
+    # x and w over the whole int8 range at K near INT8_K_MAX
+    (80, pim_mac.INT8_K_MAX - 3, 40, 0, 0, True),
+    (20, 63 * 2048 - 5, 24, 2048, 200, True)])
+def test_pim_mac_kernel_matches_plain(dev, M, K, N, R, adc, full, rng):
+    """The s8 wgmma MAC equals its plain version exactly, with and
+    without the clip, at the PIM shape (where the wrapper splits K over
+    the grid), with groups padded to whole k32 steps, at ragged edges and
+    at the int32 accumulator's edge."""
+    lo, hi = (-128, 128) if full else (-7, 8)
+    x = torch.as_tensor(rng.integers(lo, hi, (M, K)), dtype=torch.int8,
                         device=dev)
-    w = torch.as_tensor(rng.integers(-1, 2, (K, 90)), dtype=torch.int8,
+    lo, hi = (-128, 128) if full else (-1, 2)
+    w = torch.as_tensor(rng.integers(lo, hi, (K, N)), dtype=torch.int8,
                         device=dev)
     kw = dict(row_parallelism=R, adc_levels=adc)
-    assert torch.equal(pim_mac.pim_mac(x, w, **kw),
-                       pim_mac.pim_mac_plain(x, w, **kw))
+    n0 = LAUNCHES["pim_mac"]
+    got = pim_mac.pim_mac(x, w, **kw)
+    assert LAUNCHES["pim_mac"] == n0 + 1
+    assert torch.equal(got, pim_mac.pim_mac_plain(x, w, **kw))
 
 
 @pytest.mark.parametrize("p", [2, 3, 5, 7])
@@ -77,6 +97,30 @@ def test_decode_on_card_matches_cpu(dev, rng):
     assert torch.equal(cpu[0], gpu[0].cpu())
     for a, b in zip(cpu[1], gpu[1], strict=True):
         assert torch.equal(a, b.cpu())
+
+
+def test_gf_kernels_refuse_fields_past_int8(dev, rng):
+    """GF(257) symbols on the card: the kernel wrappers raise instead of
+    wrapping them through int8, and the routed exact path (the controller's
+    scan, the encode) flags exactly the corrupted words."""
+    from repro_torch.core import build_code, encode_words
+    from repro_torch.memory import MemoryController
+    code = build_code(64, 48, p=257, dv=4)
+    u = torch.as_tensor(rng.integers(0, code.p, (8, code.k)), device=dev)
+    n0 = dict(LAUNCHES)
+    enc = encode_words(u, code)
+    with pytest.raises(ValueError, match="GF\\(257\\)"):
+        gf_matmul.gf_matmul(u, code.tensor("P", dev, torch.int16), code.p)
+    with pytest.raises(ValueError, match="GF\\(257\\)"):
+        gf_matmul.scan_syndromes(enc.to(torch.int16),
+                                 code.tensor("H.T", dev, torch.int16), code.p)
+    ctl = MemoryController(device=dev)
+    assert ctl._scan_route(code) == "exact"
+    assert not ctl._scan(code, enc).any()
+    enc[2:5, 7] = (enc[2:5, 7] + 1) % code.p
+    assert ctl._scan(code, enc).cpu().tolist() == [False] * 2 + [True] * 3 \
+        + [False] * 3
+    assert dict(LAUNCHES) == n0           # no kernel took a GF(257) operand
 
 
 def test_kernel_wrappers_refuse_wrong_inputs(dev):
@@ -382,16 +426,17 @@ def test_flash_kernels_single_key(dev, case):
 @pytest.mark.parametrize("case", [FLASH_SHAPES[1], FLASH_SHAPES[4],
                                   FLASH_EDGE_SHAPES[7]])
 def test_flash_kernels_are_bitwise_repeatable(dev, case):
-    """Two calls of flash_fwd and of flash_bwd_dkv (no atomics: each KV
-    tile sums its group in a fixed order) give the same bits."""
+    """Two calls of flash_fwd, flash_bwd_dq (one CTA per q tile) and
+    flash_bwd_dkv (no atomics: each KV tile sums its group in a fixed
+    order) give the same bits."""
     from repro_torch.kernels import flash_attention as fa
     (q, k, v, do), kw = _flash_operands(dev, case)
     runs = []
     for _ in range(2):
         o, lse = fa.flash_fwd(q, k, v, **kw)
         delta = fa.flash_delta(o, do)
-        runs.append((o, lse, *fa.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                               **kw)))
+        runs.append((o, lse, fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                     *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)))
     for a, b in zip(*runs, strict=True):
         assert torch.equal(a, b)
 
@@ -429,8 +474,9 @@ def test_flash_fwd_split_p_is_needed_and_present(dev):
 
 
 def test_flash_kernels_run_on_the_tensor_cores(dev):
-    """The built library's SASS has HGMMA (wgmma) instructions in both
-    instantiations of the forward and the dk/dv kernel."""
+    """The built library's SASS has bf16 HGMMA (wgmma) instructions in both
+    instantiations of the forward, dq and the dk/dv kernel, and s8 IGMMA
+    ones in both of the PIM MAC's (with and without the clip)."""
     import re
     import shutil
     import subprocess
@@ -443,10 +489,13 @@ def test_flash_kernels_run_on_the_tensor_cores(dev):
     sass = subprocess.run([str(tool), "-sass", lib._name], check=True,
                           capture_output=True, text=True).stdout
     bodies = re.split(r"\n\s*Function : ", sass)[1:]
-    for name in ("flash_fwd_kernel", "flash_bwd_dkv_kernel"):
+    for name, op in (("flash_fwd_kernel", "HGMMA.64x"),
+                     ("flash_bwd_dq_kernel", "HGMMA.64x"),
+                     ("flash_bwd_dkv_kernel", "HGMMA.64x"),
+                     ("pim_mac_kernel", "IGMMA.64x")):
         found = [b for b in bodies if name in b.split("\n", 1)[0]]
         assert len(found) == 2, (name, len(found))
-        assert all("HGMMA" in b for b in found), name
+        assert all(op in b for b in found), name
 
 
 def test_flash_attention_backward_matches_plain(dev):

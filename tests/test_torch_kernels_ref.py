@@ -104,6 +104,82 @@ def test_gf_wrappers_refuse_accumulator_overflow():
         gf_matmul._check_shapes("gf_matmul", big, big.T, 5)
 
 
+def test_gf257_encode_syndrome_and_scan_match_reference(rng):
+    """GF(257): symbols past int8. The port's encode gives codewords with
+    zero exact syndromes, equal to the JAX package's on the same numpy
+    words; its syndromes equal the reference's, and its scan flags exactly
+    the corrupted words, as the reference's exact host scan does. All go
+    through the exact route (no int8 operand)."""
+    from repro.core import build_code as jbuild
+    from repro.memory import MemoryController as JController
+    from repro.kernels.backend import policy_from_scan_backend
+    from repro_torch.core import build_code as tbuild
+    from repro_torch.memory import MemoryController
+    jc, tc = jbuild(64, 48, p=257, dv=4), tbuild(64, 48, p=257, dv=4)
+    assert np.array_equal(jc.H, tc.H) and np.array_equal(jc.P, tc.P)
+    assert gf_matmul.field_route(tc.k, tc.p) == "exact"
+    u = rng.integers(0, tc.p, (8, tc.k))
+    want = jencode.np_encode_words(u, jc)
+    assert want.max() > 127
+    for dtype in (torch.int16, torch.int64):
+        got = tencode.encode_words(T(u, dtype=dtype), tc)
+        assert got.dtype == dtype
+        assert np.array_equal(got.numpy(), want)
+    got = tencode.encode_words(T(u), tc)
+    assert not tencode.syndrome(got, tc).any()
+    y = want.copy()
+    y[2:7, 5] = (y[2:7, 5] + 1) % tc.p
+    assert np.array_equal(
+        tencode.syndrome(T(y), tc).numpy(),
+        np.asarray(jencode.syndrome(jnp.asarray(y), jc)))
+    host = JController(policy=policy_from_scan_backend("host"),
+                       use_sharded=False)
+    flags = MemoryController(device="cpu")._scan(tc, T(y)).numpy()
+    assert np.array_equal(flags, host._scan_syndromes(jc, y))
+    assert flags.tolist() == [False, False] + [True] * 5 + [False]
+
+
+def test_int8_operand_refuses_fields_past_int8():
+    """GF(257) symbols do not fit int8: the kernels' operand helper and
+    the code's int8 tensors raise instead of wrapping."""
+    x = torch.arange(300).reshape(3, 100)
+    with pytest.raises(ValueError, match="GF\\(257\\)"):
+        build.int8_operand(x, 257)
+    with pytest.raises(ValueError, match="GF\\(257\\)"):
+        build.int8_operand(x.to(torch.int8), 257)
+    assert build.int8_operand(x, 128).max() == 127
+    from repro_torch.core import build_code as tbuild
+    code = tbuild(64, 48, p=257, dv=4)
+    with pytest.raises(ValueError, match="outside torch.int8"):
+        code.tensor("H.T", "cpu", torch.int8)
+    assert code.tensor("H.T", "cpu", torch.int16).max() > 127
+
+
+@pytest.mark.parametrize("p,K,route", [(3, 1024, "kernel"),
+                                       (127, 4096, "kernel"),
+                                       (128, 131071, "kernel"),
+                                       (7, 131072, "exact"),
+                                       (131, 64, "exact"),
+                                       (257, 8, "exact"),
+                                       (65, 2 ** 21, "exact")])
+def test_field_route(p, K, route):
+    assert gf_matmul.field_route(K, p) == route
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_exact_matmul_keeps_the_tf32_setting(flag):
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        a = torch.arange(12).reshape(3, 4)
+        for bound in (10, 2 ** 30):
+            got = build.exact_matmul(a, a.T, bound)
+            assert torch.equal(got, a @ a.T)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
 # --------------------------------------------------------------------------
 # PIM MAC
 # --------------------------------------------------------------------------
@@ -130,18 +206,56 @@ def test_pim_mac_plain_matches_pallas_and_oracle(R, adc, rng):
     assert np.array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("K,R", [(48, 6), (50, 16), (45, 45), (64, 64)])
+@pytest.mark.parametrize("K,R", [(48, 6), (50, 16), (45, 45), (64, 64),
+                                 (144, 48), (96, 96)])
 def test_pim_group_layout_keeps_the_clipped_mac(K, R, rng):
-    """The kernel's operand layout (groups padded to a multiple of 4 rows)
-    leaves the clipped MAC unchanged."""
+    """The kernel's operand layout (groups padded to a multiple of 32 rows,
+    whole k32 steps of its s8 wgmma) leaves the clipped MAC unchanged."""
     x = T(rng.integers(-7, 8, (5, K)), dtype=torch.int8)
     w = T(rng.integers(-1, 2, (K, 7)), dtype=torch.int8)
-    xl, wl, R4 = pim_mac.group_layout(x, w, R)
-    assert R4 % 4 == 0 and xl.shape[1] % R4 == 0 and wl.shape[0] == xl.shape[1]
+    xl, wl, R32 = pim_mac.group_layout(x, w, R)
+    assert R32 % 32 == 0 and R <= R32 < R + 32
+    assert xl.shape[1] % R32 == 0 and wl.shape[0] == xl.shape[1]
     for adc in (0, 4):
         assert torch.equal(
-            pim_mac.pim_mac_plain(xl, wl, row_parallelism=R4, adc_levels=adc),
+            pim_mac.pim_mac_plain(xl, wl, row_parallelism=R32,
+                                  adc_levels=adc),
             pim_mac.pim_mac_plain(x, w, row_parallelism=R, adc_levels=adc))
+
+
+@pytest.mark.parametrize("K,N", [(100, 90), (128, 2560), (6, 1), (32, 17)])
+def test_pim_tma_layout_keeps_the_mac(K, N, rng):
+    """The kernel's tensor-copy layout (K and w's columns padded to
+    multiples of 16) leaves the MAC of the first N columns unchanged."""
+    x = T(rng.integers(-7, 8, (5, K)), dtype=torch.int8)
+    w = T(rng.integers(-1, 2, (K, N)), dtype=torch.int8)
+    xl, wl = pim_mac.tma_layout(x, w)
+    assert xl.shape[1] % 16 == 0 and wl.shape[1] % 16 == 0
+    assert wl.shape[0] == xl.shape[1] and wl.is_contiguous()
+    if K % 16 == 0 and N % 16 == 0:
+        assert xl.data_ptr() == x.data_ptr()      # aligned: no copy
+    for adc in (0, 4):
+        kw = dict(row_parallelism=0, adc_levels=adc)
+        assert torch.equal(pim_mac.pim_mac_plain(xl, wl, **kw)[:, :N],
+                           pim_mac.pim_mac_plain(x, w, **kw))
+
+
+@pytest.mark.parametrize("B,N,K,unit", [
+    (256, 2560, 8192, 128), (256, 2048, 2048, 128), (70, 90, 100, 128),
+    (1, 1, 0, 128), (4096, 4096, 8192, 128), (33, 200, 320, 384)])
+def test_pim_k_split_covers_k_in_whole_units(B, N, K, unit):
+    """The kernel's K ranges: whole units that cover K, in a split no
+    costlier than one range per output tile."""
+    slots = 132
+    kper = pim_mac.k_split(B, N, K, unit, slots)
+    assert kper % unit == 0 and kper > 0
+    ranges = max(1, -(-K // kper))
+    assert ranges * kper >= K and (ranges - 1) * kper < max(K, 1)
+    tiles = -(-B // pim_mac.TILE_M) * -(-N // pim_mac.TILE_N)
+    units = max(1, -(-K // unit))
+    cost = pim_mac._split_cost(tiles, units, -(-units // (kper // unit)),
+                               slots)
+    assert cost <= pim_mac._split_cost(tiles, units, 1, slots)
 
 
 # --------------------------------------------------------------------------

@@ -12,12 +12,16 @@ import torch
 from repro.core.codes import REGISTRY
 from repro.core.construction import build_code
 from repro.memory import ProtectedMemoryArray as JArray
+from repro.memory import MemoryController as JController
 from repro.memory import StoredTensor as JStored
 from repro.memory import packing as jpacking
+from repro.kernels.backend import policy_from_scan_backend
 from repro_torch.convert import (CODE_FIELDS, code_from_arrays,
                                  stored_from_arrays)
 from repro_torch.core import decode_integers, get_code, np_encode_words
-from repro_torch.memory import (Compose, ProtectedMemoryArray, ReadDisturb,
+from repro_torch.core import build_code as tbuild_code
+from repro_torch.memory import (Compose, MemoryController,
+                                ProtectedMemoryArray, ReadDisturb,
                                 RepairQueue, RetentionDrift, StuckAt,
                                 asymmetric_adjacent, packing, uniform_flip)
 
@@ -213,3 +217,67 @@ def test_stuck_cells_are_persistent_and_at_rate():
     b = ch.apply(torch.Generator().manual_seed(9), levels)
     assert torch.equal(a, b)
     assert abs((a == 1).float().mean().item() - 0.05) < 0.005
+
+
+# ---------------------------------------------------------------------------
+# fields past int8: the exact scan route (the JAX package's big-field tests)
+# ---------------------------------------------------------------------------
+
+def _host_controller():
+    return JController(policy=policy_from_scan_backend("host"),
+                       use_sharded=False)
+
+
+def test_big_field_scan_is_exact(rng):
+    """Mirror of the JAX package's GF(4099) test: n (p - 1)^2 >= 2^24, where
+    a float32 product misflags valid words. The port's scan routes to the
+    exact product, flags no clean codeword and every corrupted one, as the
+    reference's host scan does on the same words."""
+    code = tbuild_code(64, 48, p=4099, dv=4, seed=0)
+    assert code.n * (code.p - 1) ** 2 >= 2 ** 24
+    w = rng.integers(0, code.p, (32, code.k))
+    enc = np_encode_words(w, code)
+    ctl = MemoryController(device="cpu")
+    assert ctl._scan_route(code) == "exact"
+    host = _host_controller()
+    jcode = build_code(64, 48, p=4099, dv=4, seed=0)
+    for _ in range(2):
+        got = ctl._scan(code, torch.as_tensor(enc)).numpy()
+        assert np.array_equal(got, host._scan_syndromes(jcode, enc))
+        enc[:, 0] = (enc[:, 0] + 1) % code.p
+    assert got.all()
+
+
+def test_big_field_past_the_kernel_bound_routes_to_exact(rng):
+    """Mirror of the JAX package's GF(8191) test: n (p - 1)^2 >= 2^31, past
+    the int32 scan kernel, routes to the exact scan, and a sweep reports
+    that route. (GF(8191) is not decoded: its (p, p) tables are the
+    reference's limit too, so only clean pages are swept.)"""
+    code = tbuild_code(48, 40, p=8191, dv=4, seed=0)
+    assert code.n * (code.p - 1) ** 2 >= 2 ** 31
+    w = rng.integers(0, code.p, (16, code.k))
+    enc = torch.as_tensor(np_encode_words(w, code))
+    ctl = MemoryController(device="cpu")
+    assert ctl._scan_route(code) == "exact"
+    assert not ctl._scan(code, enc).any()
+    rep = ctl.scrub_pages(code, iter([enc]))
+    assert rep["scan_route"] == "exact" and rep["flagged"] == 0
+    enc[:, 3] = (enc[:, 3] + 1) % code.p
+    assert ctl._scan(code, enc).all()
+    assert MemoryController._scan_route(get_code("wl1024_r08")) == "kernel"
+
+
+def test_gf257_array_stores_wide_cells_and_reads_back(rng):
+    """A GF(257) array holds its cells in int16 (int8 would wrap symbols
+    past 127): a written tensor scans clean and reads back exactly, and
+    one changed cell is flagged by the scan the read runs."""
+    code = tbuild_code(64, 48, p=257, dv=4, seed=0)
+    mem = ProtectedMemoryArray(code, controller="basic", device="cpu")
+    t = rng.integers(0, 256, 500).astype(np.uint8)
+    st = mem.write("t", t)
+    assert st.enc.dtype == torch.int16 and int(st.enc.max()) > 127
+    assert not mem.controller._scan(code, st.enc).any()
+    assert np.array_equal(mem.read("t"), t)
+    st.enc[3, 5] = (st.enc[3, 5] + 1) % code.p
+    flags = mem.controller._scan(code, st.enc)
+    assert flags.nonzero().flatten().tolist() == [3]
