@@ -5,17 +5,27 @@
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from `src/repro_torch/kernels/csrc/` and log
-     the wgmma kernels' registers, spills and shared memory (the three
-     flash kernels and the PIM MAC);
+     the registers, spills and shared memory of the wgmma kernels (the
+     three flash kernels, the PIM MAC and the syndrome scan at each check
+     tile) and of attend_protected's two kernels;
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes, and time both: the integer kernels and FBP
-     with exact equality, `attend_protected` to a few bf16 ulps (rtol
-     2^-7, atol 2^-10) at the serving shape (paper-pim-2b heads, wl160_r08
-     pages, NP 32, hot page), hot-only (NP 0), with softcaps of 50 and of
-     2 (one that bites on logits of about N(0, 1)), and with per-slot
-     sub-pages (S = B); the PIM MAC also beside torch._int_mm (cuBLASLt
-     s8 x s8 -> s32, its adc-0 function) and the W transpose a K-major
-     operand would cost in the wrapper;
+     with exact equality (the scan also at the decoder's 256-word check
+     and a ragged tail of it, a paged-store page, n = 40, C = 343 and p =
+     5 and 7), `attend_protected` to a few bf16 ulps (rtol 2^-7, atol
+     2^-10) and bitwise repeatable at the serving shape (paper-pim-2b heads,
+     wl160_r08 pages, NP 32, hot page), hot-only (NP 0), with softcaps of
+     50 and of 2 (one that bites on logits of about N(0, 1)), with
+     per-slot sub-pages (S = B), at NP 1, at NP 40 (page ranges of
+     unequal length), with rows that have no valid token in some ranges
+     or in all (with and without the hot page), and at NP 256 (4,096
+     tokens); the PIM MAC also beside torch._int_mm (cuBLASLt s8 x s8 ->
+     s32, its adc-0 function) and the W transpose a K-major operand would
+     cost in the wrapper. The scan, the MAC and `attend_protected` also log
+     their device time from torch.profiler (from CUDA events around calls
+     queued behind a sleep kernel where three profiled windows in a row
+     recorded none), and the scan and `attend_protected` their wrappers'
+     host time a call;
   3. memory mode: a 64 MiB float32 tensor in a `ProtectedMemoryArray` on
      wl1024_r08 (writeback policy): write, inject uniform flips, read back
      exactly, inject again, scrub, re-scrub clean;
@@ -130,6 +140,7 @@ TRAIN_ARCH = "granite_3_2b"    # the training phases' model
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096   # global batch (cut from 256), seq_len
 TRAIN_STEPS = 6                # optimizer steps of the full-size run
 SMALL_TRAIN_STEPS = 5          # phase 10's card-vs-CPU steps
+PROFILE_ATTEMPTS = 3           # profiler windows tried before giving up
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -174,24 +185,136 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def profiled(fn, seen, *, cpu: bool = False, setup=None):
+    """(profiler, wall us) of one `fn()` under torch.profiler (device
+    activity, and host ops when `cpu`), after `setup()` where the call
+    needs fresh state. On the card the profiler has at times recorded no
+    device activity for a window (CUPTI's records lost): a window in
+    which `seen(profiler)` is false is run again, setup included, up to
+    PROFILE_ATTEMPTS times. None when every window came back empty."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        if setup is not None:
+            setup()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        if seen(prof):
+            return prof, wall_us
+        log(f"  profiler: window {attempt} of {PROFILE_ATTEMPTS} recorded "
+            f"none of the expected device activity")
+    return None
+
+
+def device_events(prof) -> list:
+    """The profiler's device events (kernels, copies, sets)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def profiled_device(fn, *, cpu: bool = False, setup=None):
+    """`profiled` for a window that must hold device events (None when
+    none of its windows did)."""
+    return profiled(fn, lambda prof: bool(device_events(prof)), cpu=cpu,
+                    setup=setup)
+
+
+def busy_report(got, wall_key: str, top: int) -> tuple[dict, dict]:
+    """`profiled_device`'s window as report fields: its wall ms under
+    `wall_key`, its device events, their sum and their union (busy) in
+    ms, the idle share and the `top` kernels by device ms; and the device
+    us by kernel name. Where no window held device events, the fields
+    say so and hold no number."""
+    if got is None:
+        return {wall_key: None, "device_busy_ms": None,
+                "profiler": "no device events in any window: not "
+                            "measured"}, {}
+    prof, wall_us = got
+    events, by_kernel, busy_us = _device_busy(prof)
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
+    fields = {wall_key: wall_us / 1e3, "device_events": events,
+              "device_event_sum_ms": sum(by_kernel.values()) / 1e3,
+              "device_busy_ms": busy_us / 1e3,
+              "device_idle_share": 1.0 - busy_us / wall_us,
+              "top_kernels_ms": {k[:60]: us / 1e3 for k, us in ranked}}
+    return fields, by_kernel
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device time of one call of `fn` from CUDA events around `reps`
+    calls queued behind a sleep kernel, so that the device runs them
+    back to back and never waits for the host: every kernel of the call,
+    and the device's gaps between launches (a microsecond or two each).
+    The sleep grows until the start event is still pending when the last
+    call has been queued."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24                   # about 9 ms at 1.98 GHz
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise AssertionError("the calls could not be queued ahead of the "
+                         "device")
+
+
 def device_ms(fn, match: str, reps: int) -> float:
     """Device time of one call of `fn` in the kernels whose name holds
     `match`, from torch.profiler over `reps` calls after a warm-up call:
     the kernel alone, without the host time of its wrapper that
-    `cuda_ms` includes when the kernel is shorter than the launch."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    `cuda_ms` includes when the kernel is shorter than the launch. Where
+    every profiled window lacked the kernel (see `profiled`), the call's
+    device time from `queued_ms`, logged as such."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
+
+    def us_of(prof) -> float:
+        return sum(e.device_time_total for e in prof.key_averages()
+                   if match in e.key)
+
+    got = profiled(calls, us_of)
+    if got is not None:
+        return us_of(got[0]) / reps / 1e3
+    ms = queued_ms(fn, reps)
+    log(f"  device_ms: the profiler saw no {match} kernel; the call's "
+        f"device time from queued CUDA events instead: {ms} ms")
+    return ms
+
+
+def host_ms(fn, calls: int) -> float:
+    """Host time of one call of `fn`: the least, over five runs, of the
+    wall time of `calls` back-to-back calls (launched, not waited for)
+    over `calls`. The wrapper's Python and its launch; `cuda_ms` of a
+    short kernel holds that, the launch's latency and the kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if match in e.key)
-    if not us:
-        raise AssertionError(f"the profiler saw no {match} kernel")
-    return us / reps / 1e3
+    return best * 1e3
 
 
 def launches_of(fn, per_call: dict, name: str):
@@ -206,36 +329,53 @@ def launches_of(fn, per_call: dict, name: str):
     return out
 
 
+def _scan_smem(bn: int) -> int:
+    """The scan kernel's dynamic shared memory at check tile bn (ScanCfg
+    in csrc/gf_matmul.cu): a 1024-byte margin and NS stages of a 128 x
+    128-byte word tile and a bn x 128-byte H tile, an mbarrier each."""
+    stage = 128 * 128 + bn * 128
+    ns = min(8, 220 * 1024 // stage)
+    return 1024 + ns * stage + 8 * ns
+
+
 # dynamic shared memory of the wgmma kernels by template argument: a
 # 1024-byte alignment margin and 64-row bf16 tiles of DM columns (fwd_smem,
 # dq_smem and dkv_smem in csrc/flash_attention.cu; dq adds 3 mbarriers);
 # for the PIM MAC (CLIP 0 or 1) six stages of a 128 x 128-byte X tile and
 # W tile, two transposed W tiles and six mbarriers (SMEM in
-# csrc/pim_mac.cu)
-WGMMA_SMEM = {
+# csrc/pim_mac.cu); for the scan by check tile (_scan_smem); the
+# attend_protected kernels' depends on the call's shape (None here)
+KERNEL_SMEM = {
     "flash_fwd": lambda dm: 1024 + 5 * 64 * dm * 2,
     "flash_bwd_dq": lambda dm: 1024 + 6 * 64 * dm * 2 + 3 * 8,
     "flash_bwd_dkv": lambda dm: 1024 + 6 * 64 * dm * 2 + 1024,
-    "pim_mac": lambda clip: 1024 + 6 * 2 * 128 * 128 + 2 * 128 * 128 + 6 * 8}
-WGMMA_ENTRIES = {
+    "pim_mac": lambda clip: 1024 + 6 * 2 * 128 * 128 + 2 * 128 * 128 + 6 * 8,
+    "scan_syndromes": _scan_smem,
+    "attend_split": None, "attend_combine": None}
+KERNEL_ENTRIES = {
     "flash_attention.cu": r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv)"
                           r"_kernelILi(\d+)E",
-    "pim_mac.cu": r"(pim_mac)_kernelILb(\d)E"}
+    "pim_mac.cu": r"(pim_mac)_kernelILb(\d)E",
+    "gf_matmul.cu": r"(scan_syndromes)_kernelILi(\d+)E",
+    "paged_attention.cu": r"(attend_split|attend_combine)_kernel()E"}
 
 
 def ptxas_report(logs: dict) -> dict:
     """Registers, spill bytes and shared memory of each instantiation of
-    the wgmma kernels, from nvcc's -Xptxas -v output (`logs`, empty when
-    the library was not rebuilt by this process)."""
+    the wgmma kernels, the scan and the attend_protected kernels, from
+    nvcc's -Xptxas -v output (`logs`, empty when the library was not
+    rebuilt by this process)."""
     out = {}
-    for source, pattern in WGMMA_ENTRIES.items():
+    for source, pattern in KERNEL_ENTRIES.items():
         entry = None
         for line in logs.get(source, "").splitlines():
             m = re.search(r"Compiling entry function '\S*?" + pattern, line)
             if m:
-                entry = f"{m.group(1)}<{m.group(2)}>"
-                out[entry] = {"dynamic_smem_bytes": WGMMA_SMEM[m.group(1)](
-                    int(m.group(2)))}
+                name, arg = m.group(1), m.group(2)
+                entry = f"{name}<{arg}>" if arg else name
+                smem = KERNEL_SMEM[name]
+                out[entry] = {"dynamic_smem_bytes": smem(int(arg))
+                              if smem else None}
                 continue
             if "Compiling entry function" in line:
                 entry = None
@@ -274,12 +414,19 @@ def fbp_inputs(code, words: int, gen, device):
     return m.reshape(words * c, dc, p).contiguous()
 
 
+# code, words, share of words with one corrupted cell: phase 2's scans
+SCAN_CASES = [("wl1024_r08", 4096, 0.1), ("wl1024_r08", 256, 0.1),
+              ("wl1024_r08", 67, 0.1), ("wl160_r08", 1536, 0.01),
+              ("wl40_r08", 4096, 0.1), ("wl512_r033", 1024, 0.1),
+              ("wl160_r08_gf5", 1024, 0.1), ("wl160_r08_gf7", 1024, 0.1)]
+
+
 def phase_kernels(device) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     import numpy as np
     import torch
     from repro_torch.core import get_code, np_encode_words
-    from repro_torch.kernels import fbp, gf_matmul, pim_mac
+    from repro_torch.kernels import build, fbp, gf_matmul, pim_mac
     gen = torch.Generator(device=device).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     rows = {}
@@ -300,27 +447,55 @@ def phase_kernels(device) -> dict:
         rows.setdefault(name, []).append(row)
         log(f"  {name} {list(out.shape)}: exact, {json.dumps(row)}")
 
-    code = get_code("wl1024_r08")
-    # scan: a page of 4096 stored words, about 10% of them corrupted
-    u = rng.integers(0, code.p, (4096, code.k))
-    words = np_encode_words(u, code)
-    bad = rng.random(4096) < 0.1
-    cols = rng.integers(0, code.n, 4096)
-    words[bad, cols[bad]] = (words[bad, cols[bad]] + 1) % code.p
-    y = torch.as_tensor(words, dtype=torch.int8, device=device)
-    ht = code.tensor("H.T", device, torch.int8)
-    flags = gf_matmul.scan_syndromes(y, ht, code.p)
-    if not torch.equal(flags.cpu(), torch.as_tensor(bad)):
-        raise AssertionError("scan_syndromes: flags differ from the "
-                             "corrupted rows")
-    M, K = y.shape
-    C = ht.shape[1]
-    record("scan_syndromes", flags,
-           gf_matmul.scan_syndromes_plain(y, ht, code.p),
-           lambda: gf_matmul.scan_syndromes(y, ht, code.p),
-           lambda: gf_matmul.scan_syndromes_plain(y, ht, code.p), None,
-           M * K + K * C + M, 2 * M * K * C, INT8_OPS_PER_S)
+    # scan: stored words of each code the paths scan, some corrupted in one
+    # cell, through the code's cached Hᵀ: a page of 4096 words of
+    # wl1024_r08 (the first row), the decoder's check (256 words of hard
+    # decisions) and a ragged 67-word tail of it, a paged-store page
+    # (wl160_r08 at the serving page size), n = 40, C = 343, p = 5 and 7
+    for name, words, share in SCAN_CASES:
+        c = get_code(name)
+        u = rng.integers(0, c.p, (words, c.k))
+        cw = np_encode_words(u, c)
+        bad = rng.random(words) < share
+        cols = rng.integers(0, c.n, words)
+        cw[bad, cols[bad]] = (cw[bad, cols[bad]] + 1) % c.p
+        y = torch.as_tensor(cw, dtype=torch.int8, device=device)
+        ht = c.tensor("H.T", device, torch.int8)
+        n0 = build.LAUNCHES["scan_syndromes"]
+        flags = gf_matmul.scan_syndromes(y, ht, c.p)
+        launches = build.LAUNCHES["scan_syndromes"] - n0
+        if not torch.equal(flags.cpu(), torch.as_tensor(bad)):
+            raise AssertionError(f"scan_syndromes {name} x {words}: flags "
+                                 f"differ from the corrupted rows")
+        M, K = y.shape
+        C = ht.shape[1]
+        tile, grid = gf_matmul.scan_plan(M, C, build.sm_count(device))
+        extra = {}
+        if name == "wl1024_r08" and words == 256:
+            # each check tile at the decoder's check (C past a tile splits
+            # over CTAs and zeroes the flags first)
+            h8 = gf_matmul.kmajor_h(ht, c.p)
+            extra["tile_device_ms"] = {t: device_ms(
+                lambda t=t: gf_matmul.scan_launch(
+                    y, h8, c.p, t, build.sm_count(device)),
+                "scan_syndromes_kernel", 20) for t in gf_matmul.SCAN_TILES}
+        record("scan_syndromes", flags,
+               gf_matmul.scan_syndromes_plain(y, ht, c.p),
+               lambda y=y, ht=ht, p=c.p: gf_matmul.scan_syndromes(y, ht, p),
+               lambda y=y, ht=ht, p=c.p: gf_matmul.scan_syndromes_plain(
+                   y, ht, p), None,
+               M * K + K * C + M, 2 * M * K * C, INT8_OPS_PER_S, code=name,
+               shape=[M, K, C], tile=tile, ctas=grid,
+               launches_per_call=launches,
+               device_ms=device_ms(
+                   lambda y=y, ht=ht, p=c.p: gf_matmul.scan_syndromes(
+                       y, ht, p), "scan_syndromes_kernel", 20),
+               host_ms=host_ms(
+                   lambda y=y, ht=ht, p=c.p: gf_matmul.scan_syndromes(
+                       y, ht, p), 200), **extra)
 
+    code = get_code("wl1024_r08")
+    u = rng.integers(0, code.p, (4096, code.k))
     # encode: (4096, 819) x (819, 205)
     a = torch.as_tensor(u, dtype=torch.int8, device=device)
     P = code.tensor("P", device, torch.int8)
@@ -433,25 +608,53 @@ def attend_cost(args, kw) -> tuple[float, float]:
     return nbytes, flops
 
 
+def empty_rows(args, NP):
+    """attend_protected operands whose row 0 has no valid token in its
+    first half of pages, rows 1 and 2 none in any page, and row 2 none in
+    the hot page either."""
+    valid, hot_valid = args[5].clone(), args[8].clone()
+    valid[:NP // 2, 0] = 0
+    valid[:, 1:3] = 0
+    hot_valid[2] = 0
+    return (*args[:5], valid, *args[6:8], hot_valid)
+
+
 def phase_attend(device) -> list:
     """attend_protected against its plain version at the serving shape,
-    hot-only, with a softcap, and with per-slot sub-pages."""
+    hot-only, with a softcap, with per-slot sub-pages, at one page, at a
+    page count its ranges do not divide evenly, at a long context, and
+    with rows that have no valid token in some ranges or in all; and two
+    calls on the same inputs bitwise equal."""
     import torch
     from repro_torch.core import get_code
+    from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=device).manual_seed(SEED)
     code = get_code("wl160_r08")
     serving = dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, NP=32, S=1)
-    cases = [("serving", serving, 0.0),
-             ("hot_only", {**serving, "NP": 0}, 0.0),
-             ("softcap50", serving, 50.0),
-             ("softcap2", serving, 2.0),
-             ("per_slot", {**serving, "S": 4, "ragged": True}, 0.0)]
+    uneven = {**serving, "NP": 40, "ragged": True}
+    # label, shape, softcap, with_hot, rows without valid tokens
+    cases = [("serving", serving, 0.0, True, False),
+             ("hot_only", {**serving, "NP": 0}, 0.0, True, False),
+             ("softcap50", serving, 50.0, True, False),
+             ("softcap2", serving, 2.0, True, False),
+             ("per_slot", {**serving, "S": 4, "ragged": True}, 0.0, True,
+              False),
+             ("np1", {**serving, "NP": 1}, 0.0, True, False),
+             ("uneven_np40", uneven, 0.0, True, False),
+             ("empty_rows", uneven, 0.0, True, True),
+             ("empty_rows_no_hot", uneven, 0.0, False, True),
+             ("long_np256", {**serving, "NP": 256}, 0.0, True, False)]
     rows = []
-    for label, shape, softcap in cases:
+    for label, shape, softcap, with_hot, empty in cases:
         args, kw = attend_operands(device, gen, code=code, **shape)
-        kw.update(softcap=softcap, with_hot=True)
+        if empty:
+            args = empty_rows(args, shape["NP"])
+        kw.update(softcap=softcap, with_hot=with_hot)
+        n0 = build.LAUNCHES["attend_protected"]
         got = pa.attend_protected(*args, **kw)
+        again = pa.attend_protected(*args, **kw)
+        launches = (build.LAUNCHES["attend_protected"] - n0) // 2
         torch.cuda.synchronize()
         want = pa.attend_protected_plain(*args, **kw)
         diff = (got.float() - want.float()).abs()
@@ -460,12 +663,24 @@ def phase_attend(device) -> list:
                 (diff > ULP_ATOL + ULP_RTOL * want.float().abs()).any()):
             raise AssertionError(f"attend_protected {label}: differs from "
                                  f"its plain version (max abs err {err})")
+        if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+            raise AssertionError(f"attend_protected {label}: two calls "
+                                 f"differ")
         nbytes, flops = attend_cost(args, kw)
         b_ms, b_by = bound(nbytes, flops, FP32_OPS_PER_S)
+        B, Hkv = shape["B"], shape["Hkv"]
         row = {"name": "attend_protected", "case": label,
                "shape": {k: v for k, v in shape.items() if k != "ragged"},
-               "softcap": softcap, "max_abs_err": err,
+               "softcap": softcap, "with_hot": with_hot,
+               "pages_a_step_and_ranges": pa.attend_plan(
+                   shape["NP"], B * Hkv, shape["T"], build.sm_count(device)),
+               "max_abs_err": err, "bitwise_repeatable": True,
+               "launches_per_call": launches,
                "ms": cuda_ms(lambda: pa.attend_protected(*args, **kw), 20),
+               "device_ms": device_ms(
+                   lambda: pa.attend_protected(*args, **kw), "attend_", 20),
+               "host_ms": host_ms(
+                   lambda: pa.attend_protected(*args, **kw), 200),
                "plain_ms": cuda_ms(
                    lambda: pa.attend_protected_plain(*args, **kw), 5),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
@@ -527,17 +742,12 @@ def phase_memory(device, per_call: dict) -> dict:
 def _device_busy(prof) -> tuple[int, dict, float]:
     """(device events, device time by kernel name in us, busy us: the
     union of the device events' intervals)."""
-    from torch.autograd import DeviceType
     by_kernel: dict[str, float] = {}
     spans = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_events(prof):
         spans.append((e.time_range.start, e.time_range.end))
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start)
-    if not spans:
-        raise AssertionError("the profiler recorded no device events")
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > reach:
@@ -556,19 +766,12 @@ def phase_profile(mem) -> dict:
     (kernels, copies, sets): the profiler also charges each kernel's time
     to the host op that launched it, so the host ops are left out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import gf_matmul
     from repro_torch.memory import uniform_flip
-    mem.inject(uniform_flip(3, 1e-4))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mem.read("t")
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events, by_kernel, busy_us = _device_busy(prof)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+    res, _ = busy_report(profiled_device(
+        lambda: mem.read("t"), cpu=True,
+        setup=lambda: mem.inject(uniform_flip(3, 1e-4))),
+        "read_wall_ms_profiled", 10)
     enc = mem.stored("t").enc
     code = mem.code
     ht = code.tensor("H.T", enc.device, torch.int8)
@@ -576,17 +779,18 @@ def phase_profile(mem) -> dict:
                        gf_matmul.scan_syndromes_plain(enc, ht, code.p)):
         raise AssertionError("scan_syndromes over the whole store differs "
                              "from its plain version")
-    res = {"read_wall_ms_profiled": wall_us / 1e3,
-           "device_events": events,
-           "device_event_sum_ms": sum(by_kernel.values()) / 1e3,
-           "device_busy_ms": busy_us / 1e3,
-           "device_idle_share": 1.0 - busy_us / wall_us,
-           "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top},
-           "full_scan_words": enc.shape[0],
-           "full_scan_ms": cuda_ms(
-               lambda: gf_matmul.scan_syndromes(enc, ht, code.p), 5),
-           "full_scan_plain_ms": cuda_ms(
-               lambda: gf_matmul.scan_syndromes_plain(enc, ht, code.p), 3)}
+    res.update({
+        "full_scan_words": enc.shape[0],
+        "full_scan_ms": cuda_ms(
+            lambda: gf_matmul.scan_syndromes(enc, ht, code.p), 5),
+        "full_scan_device_ms": device_ms(
+            lambda: gf_matmul.scan_syndromes(enc, ht, code.p),
+            "scan_syndromes_kernel", 20),
+        "full_scan_bound_ms": bound(
+            enc.numel() + ht.numel() + enc.shape[0],
+            2 * enc.numel() * ht.shape[1], INT8_OPS_PER_S)[0],
+        "full_scan_plain_ms": cuda_ms(
+            lambda: gf_matmul.scan_syndromes_plain(enc, ht, code.p), 3)})
     log(f"  profile: {json.dumps(res)}")
     return res
 
@@ -855,32 +1059,27 @@ def profile_decode_step(params, cfg, prompts, pkv) -> dict:
     torch.profiler: wall time, device busy time (the union of the device
     events' intervals), the top device kernels, and the host ops with the
     most self time (with their call counts)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step, prefill
     S = prompts.shape[1]
-    logits, caches = prefill(params, cfg, prompts, protected_kv=pkv)
-    tok = logits[:, -1:].argmax(dim=-1)
-    lg, caches = decode_step(params, cfg, caches, tok, S)
-    tok = lg[:, -1:].argmax(dim=-1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        decode_step(params, cfg, caches, tok, S + 1)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events, by_kernel, busy_us = _device_busy(prof)
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    host = sorted(((e.key, e.self_cpu_time_total, e.count)
-                   for e in prof.key_averages()), key=lambda r: -r[1])[:10]
-    return {"step_wall_ms_profiled": wall_us / 1e3,
-            "device_events": events,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / wall_us,
-            "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top},
-            "top_host_ops_self_ms_calls": {
-                k[:60]: [us / 1e3, n] for k, us, n in host}}
+    state = {}
+
+    def setup():
+        logits, caches = prefill(params, cfg, prompts, protected_kv=pkv)
+        tok = logits[:, -1:].argmax(dim=-1)
+        lg, state["caches"] = decode_step(params, cfg, caches, tok, S)
+        state["tok"] = lg[:, -1:].argmax(dim=-1)
+
+    got = profiled_device(
+        lambda: decode_step(params, cfg, state["caches"], state["tok"],
+                            S + 1), cpu=True, setup=setup)
+    res, _ = busy_report(got, "step_wall_ms_profiled", 8)
+    if got is not None:
+        host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                       for e in got[0].key_averages()),
+                      key=lambda r: -r[1])[:10]
+        res["top_host_ops_self_ms_calls"] = {
+            k[:60]: [us / 1e3, n] for k, us, n in host}
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1315,7 +1514,6 @@ def phase_full_training(device) -> dict:
     import dataclasses
     import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.launch.steps import build_train
@@ -1381,35 +1579,30 @@ def phase_full_training(device) -> dict:
                                  total_steps=TRAIN_STEPS)
     opt = tx.init(model.leaves())
     extra = next(TokenPipeline(dcfg, step=TRAIN_STEPS))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, metrics = train_step(model, opt, extra)
-        float(metrics["loss"])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof_step, by_kernel = busy_report(profiled_device(
+        lambda: float(train_step(model, opt, extra)[1]["loss"]), cpu=True),
+        "step_wall_ms_profiled", 10)
     del opt
-    events, by_kernel, busy_us = _device_busy(prof)
-    flash_us = {name: sum(us for k, us in by_kernel.items()
-                          if f"{name}_kernel" in k) for name in want}
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-    report["profile_step"] = {
-        "step_wall_ms_profiled": wall_us / 1e3, "device_events": events,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "flash_kernels_ms": sum(flash_us.values()) / 1e3,
-        "flash_share_of_busy": sum(flash_us.values()) / busy_us,
-        "flash_ms_by_kernel": {k: us / 1e3 for k, us in flash_us.items()},
-        "flash_share_of_busy_by_kernel": {k: us / busy_us
-                                          for k, us in flash_us.items()},
-        "top_kernels_ms": {k[:60]: us / 1e3 for k, us in top}}
+    busy_ms = prof_step["device_busy_ms"]
+    if busy_ms is not None:
+        flash_ms = {name: sum(us for k, us in by_kernel.items()
+                              if f"{name}_kernel" in k) / 1e3
+                    for name in want}
+        prof_step.update(
+            device_busy_share=busy_ms / prof_step["step_wall_ms_profiled"],
+            flash_kernels_ms=sum(flash_ms.values()),
+            flash_share_of_busy=sum(flash_ms.values()) / busy_ms,
+            flash_ms_by_kernel=flash_ms,
+            flash_share_of_busy_by_kernel={k: ms / busy_ms
+                                           for k, ms in flash_ms.items()})
+    report["profile_step"] = prof_step
     step_ms = [r["ms"] for r in report["steps"][1:]] or \
         [r["ms"] for r in report["steps"]]
-    shares = report["profile_step"]["flash_share_of_busy_by_kernel"]
     log(f"  step ms {statistics.median(step_ms):.1f} (median after the "
-        f"first), busy {busy_us / wall_us:.3f}, flash share of busy "
-        f"{json.dumps(shares)}")
+        f"first), busy share "
+        f"{prof_step.get('device_busy_share', 'not measured')}, flash "
+        f"share of busy "
+        f"{json.dumps(prof_step.get('flash_share_of_busy_by_kernel'))}")
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"  full training: {json.dumps(report)}")
     del model
@@ -1447,7 +1640,8 @@ def main() -> int:
     log("phase 1: build")
     build.library(verbose=True)
     log(f"  built in {build.build_seconds:.2f} s")
-    log(f"  wgmma kernels: {json.dumps(ptxas_report(build.build_logs))}")
+    log(f"  kernels' registers and spills: "
+        f"{json.dumps(ptxas_report(build.build_logs))}")
 
     log("phase 2: kernels against their plain versions")
     rows = phase_kernels(device)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,10 +45,10 @@ _F = ctypes.c_float
 # never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
     "rt_gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "rt_scan_syndromes": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rt_scan_syndromes": [_P, _P, _P] + [_I] * 6 + [_P],
     "rt_pim_mac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fbp_cn": [_P, _P, _I, _I, _I, _P],
-    "rt_attend_protected": [_P] * 10 + [_I] * 14 + [_F, _P],
+    "rt_attend_protected": [_P] * 11 + [_I] * 16 + [_F, _P],
     "rt_flash_fwd": [_P] * 5 + [_I] * 7 + [_F, _F, _P],
     "rt_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _F, _P],
@@ -123,6 +124,8 @@ def _compile(out: Path, verbose: bool) -> None:
 def library(verbose: bool = False) -> ctypes.CDLL:
     """The kernels' shared library, built from the sources on first use."""
     global _lib, build_seconds
+    if _lib is not None:               # every launch asks: skip the lock
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -151,19 +154,30 @@ def check(err: int, name: str) -> None:
 
 
 def stream_handle(device) -> int:
-    """PyTorch's current `cudaStream_t` on `device`, as an int. The raw
-    query (as Triton's launcher makes it) costs about a microsecond, where
-    building a `torch.cuda.Stream` object costs about ten, a quarter of a
-    small kernel's host time."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    """PyTorch's current `cudaStream_t` on `device` (a device or a CUDA
+    device index), as an int. The raw query (as Triton's launcher makes
+    it) costs about a microsecond, where building a `torch.cuda.Stream`
+    object costs about ten, a quarter of a small kernel's host time."""
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """The SMs of a CUDA device: the grid a persistent kernel fills."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def route(name: str, *tensors) -> str:
     """"cpu" when every operand lies on the CPU (the plain version runs),
     "cuda" when every operand lies on one CUDA device (the kernel runs);
     anything else raises, so nothing falls back from kernel to plain."""
+    index = tensors[0].get_device()
+    if tensors[0].is_cuda and all(t.is_cuda and t.get_device() == index
+                                  for t in tensors):
+        return "cuda"                  # the launches' path, kept short
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands on several devices {devices}")

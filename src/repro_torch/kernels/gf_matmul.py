@@ -3,14 +3,20 @@ plain versions.
 
 Replaces the TPU kernels of `src/repro/kernels/gf_matmul.py`:
 `gf_matmul_pallas` ((a @ b) mod p, the encode) and `scan_syndromes_pallas`
-(any((y @ Ht) mod p != 0) per row, the detect step of every read, scrub
-and PIM output). Both CUDA kernels (`csrc/gf_matmul.cu`) share one int8
-dp4a tile skeleton with an int32 accumulator; the scan folds mod p and the
-any-reduce into the tile epilogue, so it writes only the (M,) flags.
+(any((y @ Ht) mod p != 0) per row, the detect step of every read, scrub,
+PIM output and decoder iteration). `gf_matmul` runs an int8 dp4a tile on
+the CUDA cores. `scan_syndromes` runs on the int8 tensor cores (wgmma
+s32.s8.s8, TMA copies, persistent CTAs; `csrc/gf_matmul.cu`): it
+multiplies the words by H, which is K-major as the code stores it, folds
+mod p and the any-reduce into the epilogue, and writes only the (M,)
+flags. Callers pass Hᵀ (K, C), as the JAX kernel takes it; the wrapper
+keeps one K-major copy of H per Hᵀ tensor (`kmajor_h`), so the codes'
+cached `code.tensor("H.T", ...)` costs no copy after its first scan.
+`scan_plan` picks the kernel's check tile (the narrowest that covers
+every check) and its persistent grid.
 
-Bound on the card: bytes at the int8 tensor cores' rate; these dp4a
-kernels run on the CUDA cores and are limited by their multiply-adds
-instead, see the note in `csrc/gf_matmul.cu`.
+Bound on the card: bytes (each word read once); see the note in
+`csrc/gf_matmul.cu`.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. The plain versions are the reference the
@@ -28,13 +34,20 @@ depends on a kernel failing.
 """
 from __future__ import annotations
 
+import functools
+import weakref
+
 import torch
+import torch.nn.functional as F
 
 from . import build
 
 # int8 operands: |a|, |b| <= 128, so the int32 accumulator is exact while
 # K * 128 * 128 < 2^31
 INT8_K_MAX = (2 ** 31 - 1) // (128 * 128)
+# the scan kernel's check tiles (its wgmma widths) and words per tile
+SCAN_TILES = (32, 64, 128, 208, 256)
+SCAN_ROWS = 128
 
 
 def _reduce(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -115,19 +128,68 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def scan_plan(M: int, C: int, slots: int) -> tuple[int, int]:
+    """(check tile, CTAs) of the scan kernel for M words and C checks on
+    `slots` SMs: the narrowest tile that covers every check (C past 256
+    in chunks of 256), and a persistent CTA per tile up to one an SM.
+    Narrower tiles spread a few words' checks over more CTAs and shorten
+    the kernel, but need the flags zeroed first: another launch, which on
+    an H100 costs about what it saves (`chip_smoke.py` phase 2 logs each
+    tile's device time at the decoder's 256-word check)."""
+    tile = next((t for t in SCAN_TILES if t >= C), SCAN_TILES[-1])
+    return tile, min(-(-M // SCAN_ROWS) * -(-C // tile), slots)
+
+
+_KMAJOR_H: dict[int, tuple[int, torch.Tensor]] = {}
+
+
+def kmajor_h(ht: torch.Tensor, p: int) -> torch.Tensor:
+    """H (C, K16) int8, K zero-padded to a multiple of 16 (at least 16),
+    from Hᵀ (K, C): the scan kernel's B operand. Kept per `ht` tensor
+    while it lives and is not written in place, so a code's cached Hᵀ
+    pays the transpose once."""
+    hit = _KMAJOR_H.get(id(ht))
+    if hit is not None and hit[0] == ht._version:
+        return hit[1]
+    h = build.int8_operand(ht, p).t()
+    K = h.shape[1]
+    h = F.pad(h, (0, max(16, -(-K // 16) * 16) - K)).contiguous()
+    if hit is None:                    # forget it with the tensor
+        weakref.finalize(ht, _KMAJOR_H.pop, id(ht), None)
+    _KMAJOR_H[id(ht)] = (ht._version, h)
+    return h
+
+
 def scan_syndromes(y: torch.Tensor, ht: torch.Tensor, p: int) -> torch.Tensor:
     """Fused syndrome scan: (M, n) words x (n, c) Hᵀ -> (M,) bool flags,
     flags[i] = any((y[i] @ ht) mod p != 0)."""
     if build.route("scan_syndromes", y, ht) == "cpu":
         return scan_syndromes_plain(y, ht, p)
     _check_shapes("scan_syndromes", y, ht, p)
-    y8, h8 = build.int8_operand(y, p), build.int8_operand(ht, p)
-    M, K = y8.shape
-    C = h8.shape[1]
-    flags = torch.empty(M, dtype=torch.bool, device=y.device)
+    h8 = kmajor_h(ht, p)
+    tile, grid = scan_plan(y.shape[0], h8.shape[0],
+                           build.sm_count(y.get_device()))
+    return scan_launch(build.int8_operand(y, p), h8, p, tile, grid)
+
+
+def scan_launch(y8: torch.Tensor, h8: torch.Tensor, p: int, tile: int,
+                grid: int) -> torch.Tensor:
+    """The scan kernel on int8 words y8 (M, n) and `kmajor_h`'s H (C, K16)
+    with check tile `tile` (one of SCAN_TILES) over `grid` persistent
+    CTAs; `scan_syndromes` takes both from `scan_plan`."""
+    M = y8.shape[0]
+    C, K = h8.shape
+    flags = y8.new_empty(M, dtype=torch.bool)
+    if M == 0:
+        return flags
+    if y8.shape[1] != K:                   # zero columns add 0 to a sum
+        y8 = F.pad(y8, (0, K - y8.shape[1]))
+    if y8.data_ptr() % 16:
+        y8 = y8.clone()
     err = build.library().rt_scan_syndromes(
-        y8.data_ptr(), h8.data_ptr(), flags.data_ptr(), M, C, K, p,
-        build.stream_handle(y.device))
+        y8.data_ptr(), h8.data_ptr(), flags.data_ptr(), M, C, K, p, tile,
+        grid, build.stream_handle(y8.get_device()))
     build.check(err, "scan_syndromes")
     build.LAUNCHES["scan_syndromes"] += 1
     return flags

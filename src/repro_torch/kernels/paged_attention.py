@@ -26,9 +26,23 @@ The plain functions here mirror the JAX package's oracle
 dtype (bf16) and the QKᵀ product on bf16 operands rounds to bf16, as the
 unfused streaming read does. The CUDA kernel (`csrc/paged_attention.cu`)
 rounds at the same places and sums in fp32 in its own order, so it agrees
-with the plain version to bf16 tolerance (held to atol = rtol = 2e-2, the
-JAX package's tolerance for its TPU kernel), not bitwise. The TPU kernel
-keeps K/V and the logits in fp32 instead.
+with the plain version to a few bf16 ulps (the card tests hold it to
+rtol 2^-7, atol 2^-10), not bitwise. The TPU kernel keeps K/V and the
+logits in fp32 instead.
+
+The CUDA kernel splits the page walk over the grid (flash-decoding): a
+CTA per (batch row, KV head, range of pages) runs the online softmax over
+its range and writes the partial (m, l, acc); a second small kernel
+merges the ranges in order, applies the hot page last and finalizes. The
+ranges' count and the pages a softmax step takes come from `attend_plan`
+(NP, B·Hkv, the page's tokens and the SMs), so the serving shape's 32
+(row, head) pairs fill the card. No atomics: a call is
+bitwise repeatable. Each CTA copies the info columns of the words its
+(row, head) slice covers into shared memory (16-byte copies, the next
+page's in flight) and assembles each element's digits from there.
+
+Bound on the card: bytes (the info digits of K and V once); see the note
+in `csrc/paged_attention.cu`.
 
 The JAX wrapper pads the page axis to a power of two (`ops.np_bucket`) to
 bound retraces; the port passes the page count as a runtime argument and
@@ -39,6 +53,7 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -46,6 +61,12 @@ import torch
 from . import build
 
 NEG_INF = -1e30
+# (row, head, page range) CTAs the split kernel aims at per SM (each is
+# 256 threads and about 75 KB of shared memory at the serving shape, so
+# three fit), and tokens a softmax step aims at (a lane each)
+CTAS_PER_SM = 3
+STEP_TOKENS = 32
+MAX_SPLITS = 32
 
 
 def _packing():
@@ -155,6 +176,22 @@ def attend_protected_plain(q, kpages, vpages, kscales, vscales, valid,
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=256)
+def attend_plan(NP: int, BH: int, T: int, slots: int) -> tuple[int, int]:
+    """(pages a softmax step, page ranges) of the split kernel for NP
+    pages of T tokens and BH (row, KV head) pairs on `slots` SMs: steps
+    of about STEP_TOKENS tokens (at most 8 pages; the kernel takes fewer
+    where shared memory is short), and as many ranges of whole steps as
+    CTAS_PER_SM CTAs an SM hold in one wave, at most one a step and
+    MAX_SPLITS (the merge reads each range's partials); no ranges without
+    pages."""
+    pg = max(1, min(8, STEP_TOKENS // T))
+    if NP == 0:
+        return pg, 0
+    want = CTAS_PER_SM * slots // max(BH, 1)     # one wave
+    return pg, max(1, min(-(-NP // pg), MAX_SPLITS, want))
+
+
 def _check_pages(kpages, vpages, with_hot):
     if kpages.dim() != 4 or kpages.shape != vpages.shape:
         raise ValueError(f"attend_protected: K/V pages must both be "
@@ -225,12 +262,17 @@ def attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
     _expect("hot_v", hot_v, (B, T, Hkv, D), torch.bfloat16)
     _expect("hot_valid", hot_valid, (B,), torch.int32)
     out = torch.empty_like(q)
+    pg, nsplit = attend_plan(NP, B * Hkv, T, build.sm_count(q.device))
+    # each range's partial acc (R x D), m and l (R each), R = G·Sq
+    part = torch.empty((B * Hkv, nsplit, (Hq // Hkv) * Sq, D + 2),
+                       dtype=torch.float32, device=q.device)
     err = build.library().rt_attend_protected(
         q.data_ptr(), kpages.data_ptr(), vpages.data_ptr(),
         kscales.data_ptr(), vscales.data_ptr(), valid.data_ptr(),
         hot_k.data_ptr(), hot_v.data_ptr(), hot_valid.data_ptr(),
-        out.data_ptr(), B, Sq, Hq, Hkv, D, T, Bsub, S, NP, W, n, k_info, p,
-        int(bool(with_hot)), float(softcap or 0.0),
+        out.data_ptr(), part.data_ptr(), B, Sq, Hq, Hkv, D, T, Bsub, S, NP,
+        W, n, k_info, p, int(bool(with_hot)), nsplit, pg,
+        float(softcap or 0.0),
         build.stream_handle(q.device))
     build.check(err, "attend_protected")
     build.LAUNCHES["attend_protected"] += 1

@@ -115,11 +115,6 @@ def tma_layout(x: torch.Tensor, w: torch.Tensor):
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, w))
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def pim_mac(x: torch.Tensor, w: torch.Tensor, *, row_parallelism: int = 0,
             adc_levels: int = 0) -> torch.Tensor:
     """(B, K) x (K, N) -> (B, N) int32 group-clipped MAC. On the card both
@@ -142,7 +137,7 @@ def pim_mac(x: torch.Tensor, w: torch.Tensor, *, row_parallelism: int = 0,
     K = x8.shape[1]
     clip = adc_levels > 0
     unit = math.lcm(R, STAGE) if clip and K else STAGE
-    kper = k_split(B, N, K, unit, _sm_count(x.device))
+    kper = k_split(B, N, K, unit, build.sm_count(x.device))
     out = torch.empty((B, N), dtype=torch.int32, device=x.device)
     err = build.library().rt_pim_mac(
         x8.data_ptr(), w8.data_ptr(), out.data_ptr(), B, N, K, w8.shape[1],

@@ -30,8 +30,14 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (67, 130, 5), (300, 1024, 205)])
-@pytest.mark.parametrize("p", [3, 7])
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1), (67, 130, 5), (300, 1024, 205),
+    # the decoder's check (at most 256 words) and a ragged tail of it; a
+    # page of the paged store (wl160_r08, 1,536 words); n = 40 (K not a
+    # multiple of 16); C = 343 (wl512_r033, past one 256-check tile)
+    (256, 1024, 205), (67, 1024, 205), (1536, 160, 32), (300, 40, 8),
+    (300, 512, 343)])
+@pytest.mark.parametrize("p", [2, 3, 5, 7])
 def test_gf_kernels_match_plain(dev, shape, p, rng):
     M, K, N = shape
     a = torch.as_tensor(rng.integers(-3, p + 3, (M, K)), dtype=torch.int8,
@@ -45,6 +51,70 @@ def test_gf_kernels_match_plain(dev, shape, p, rng):
                        gf_matmul.scan_syndromes_plain(a, b, p))
     assert (LAUNCHES["gf_matmul"], LAUNCHES["scan_syndromes"]) == \
         (n0[0] + 1, n0[1] + 1)
+
+
+SCAN_CODES = [
+    # code, words, share of words with one corrupted cell
+    ("wl1024_r08", 256, 0.1), ("wl1024_r08", 67, 0.1),
+    ("wl1024_r08", 4096, 0.1), ("wl160_r08", 1536, 0.01),
+    ("wl40_r08", 300, 0.2), ("wl512_r033", 300, 0.2),
+    ("wl160_r08_gf5", 500, 0.2), ("wl160_r08_gf7", 500, 0.2),
+    ("wl32_r08", 1, 1.0)]
+
+
+@pytest.mark.parametrize("name,words,share", SCAN_CODES)
+def test_scan_flags_exactly_the_corrupted_words(dev, name, words, share,
+                                                rng):
+    """Stored codewords of each code shape the paths scan, some corrupted
+    in one cell, through the code's own cached Hᵀ: the kernel flags
+    exactly the corrupted words and equals its plain version."""
+    code = get_code(name)
+    y = np_encode_words(rng.integers(0, code.p, (words, code.k)), code)
+    bad = rng.random(words) < share
+    cols = rng.integers(0, code.n, words)
+    y[bad, cols[bad]] = (y[bad, cols[bad]] + 1) % code.p
+    y = torch.as_tensor(y, dtype=torch.int8, device=dev)
+    ht = code.tensor("H.T", dev, torch.int8)
+    n0 = LAUNCHES["scan_syndromes"]
+    got = gf_matmul.scan_syndromes(y, ht, code.p)
+    assert LAUNCHES["scan_syndromes"] == n0 + 1
+    assert got.cpu().tolist() == bad.tolist()
+    assert torch.equal(got, gf_matmul.scan_syndromes_plain(y, ht, code.p))
+    # the K-major H is built once per Hᵀ tensor
+    assert gf_matmul.kmajor_h(ht, code.p) is gf_matmul.kmajor_h(ht, code.p)
+
+
+@pytest.mark.parametrize("tile", gf_matmul.SCAN_TILES)
+@pytest.mark.parametrize("grid", [1, 3, 1000])
+@pytest.mark.parametrize("p", [2, 127])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_scan_tiles_and_grids_match_plain(dev, tile, grid, p, chunked, rng):
+    """Every check tile of the scan kernel, with one persistent CTA
+    walking every tile, a few, or one a tile: ragged words, checks within
+    one tile (each CTA stores its flags) or past it (the flags are zeroed
+    and each chunk stores its ones), K not a whole stage, words over the
+    whole int8 range."""
+    M, K, C = 390, 300, 261 if chunked else tile - 3
+    y = torch.as_tensor(rng.integers(-128, 128, (M, K)), dtype=torch.int8,
+                        device=dev)
+    ht = torch.as_tensor(rng.integers(0, p, (K, C)), dtype=torch.int8,
+                         device=dev)
+    y[::3] = 0                                   # some rows divisible
+    got = gf_matmul.scan_launch(y, gf_matmul.kmajor_h(ht, p), p, tile, grid)
+    assert torch.equal(got, gf_matmul.scan_syndromes_plain(y, ht, p))
+
+
+def test_scan_at_the_int32_edge(dev, rng):
+    """K near INT8_K_MAX with every word -128 and every check entry
+    p - 1 = 126: sums near -2^31, divisibility still exact."""
+    p, K = 127, gf_matmul.INT8_K_MAX - 5
+    y = torch.full((20, K), -128, dtype=torch.int8, device=dev)
+    y[1::2, :7] = torch.as_tensor(rng.integers(-128, 128, (10, 7)),
+                                  dtype=torch.int8, device=dev)
+    ht = torch.full((K, 10), p - 1, dtype=torch.int8, device=dev)
+    ht[:, 3] = 0
+    got = gf_matmul.scan_syndromes(y, ht, p)
+    assert torch.equal(got, gf_matmul.scan_syndromes_plain(y, ht, p))
 
 
 @pytest.mark.parametrize("M,K,N,R,adc,full", [
@@ -208,6 +278,53 @@ def test_attend_protected_kernel_matches_plain(dev, shape, softcap,
     want = pa.attend_protected_plain(*args, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
     torch.testing.assert_close(got.float(), want.float(), **ULP)
+
+
+def _split_operands(dev, NP, *, empty_rows=False, seed=4):
+    """The serving shape with NP pages; with `empty_rows`, row 0 has no
+    valid token in its first half of pages, row 1 in none of them, and
+    row 2 in none of them nor in the hot page."""
+    from repro_torch.kernels import paged_attention as pa
+    shape = dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, NP=NP, S=1)
+    args, kw = _attend_operands(dev, code_name="wl160_r08", seed=seed,
+                                ragged=True, **shape)
+    if empty_rows:
+        valid, hot_valid = args[5].clone(), args[8].clone()
+        valid[:NP // 2, 0] = 0
+        valid[:, 1:3] = 0
+        hot_valid[2] = 0
+        args = (*args[:5], valid, *args[6:8], hot_valid)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return args, kw, pa.attend_plan(NP, 4 * 8, 16, sms)
+
+
+@pytest.mark.parametrize("NP,empty_rows,with_hot", [
+    (1, False, True), (40, False, True), (40, True, True),
+    (40, True, False), (256, False, True)])
+def test_attend_protected_page_splits(dev, NP, empty_rows, with_hot):
+    """The split-page kernel at one page, at a page count its ranges do
+    not divide evenly, at a long context (256 pages, 4,096 tokens), and
+    with rows that have no valid token in some ranges or in all of them
+    (and, without the hot page, none at all)."""
+    from repro_torch.kernels import paged_attention as pa
+    args, kw, (pg, nsplit) = _split_operands(dev, NP, empty_rows=empty_rows)
+    if NP == 40:                         # ranges of unequal page counts
+        assert 1 < nsplit and -(-NP // pg) % nsplit
+    kw.update(with_hot=with_hot)
+    got = pa.attend_protected(*args, **kw)
+    want = pa.attend_protected_plain(*args, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **ULP)
+
+
+def test_attend_protected_is_bitwise_repeatable(dev):
+    """Two calls on the same inputs give the same bits: the page ranges
+    merge in a fixed order, without atomics."""
+    from repro_torch.kernels import paged_attention as pa
+    args, kw, _ = _split_operands(dev, 40, empty_rows=True)
+    a = pa.attend_protected(*args, **kw)
+    b = pa.attend_protected(*args, **kw)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 def test_attend_protected_degrades_on_uncorrected_cells(dev):
@@ -476,7 +593,8 @@ def test_flash_fwd_split_p_is_needed_and_present(dev):
 def test_flash_kernels_run_on_the_tensor_cores(dev):
     """The built library's SASS has bf16 HGMMA (wgmma) instructions in both
     instantiations of the forward, dq and the dk/dv kernel, and s8 IGMMA
-    ones in both of the PIM MAC's (with and without the clip)."""
+    ones in both of the PIM MAC's (with and without the clip) and in every
+    check tile of the syndrome scan."""
     import re
     import shutil
     import subprocess
@@ -489,12 +607,14 @@ def test_flash_kernels_run_on_the_tensor_cores(dev):
     sass = subprocess.run([str(tool), "-sass", lib._name], check=True,
                           capture_output=True, text=True).stdout
     bodies = re.split(r"\n\s*Function : ", sass)[1:]
-    for name, op in (("flash_fwd_kernel", "HGMMA.64x"),
-                     ("flash_bwd_dq_kernel", "HGMMA.64x"),
-                     ("flash_bwd_dkv_kernel", "HGMMA.64x"),
-                     ("pim_mac_kernel", "IGMMA.64x")):
+    for name, op, count in (("flash_fwd_kernel", "HGMMA.64x", 2),
+                            ("flash_bwd_dq_kernel", "HGMMA.64x", 2),
+                            ("flash_bwd_dkv_kernel", "HGMMA.64x", 2),
+                            ("pim_mac_kernel", "IGMMA.64x", 2),
+                            ("scan_syndromes_kernel", "IGMMA.64x",
+                             len(gf_matmul.SCAN_TILES))):
         found = [b for b in bodies if name in b.split("\n", 1)[0]]
-        assert len(found) == 2, (name, len(found))
+        assert len(found) == count, (name, len(found))
         assert all(op in b for b in found), name
 
 

@@ -1,0 +1,76 @@
+"""The host-side plans of the port's scan and attend_protected kernels,
+which run on the CPU: the scan's check tile and persistent grid, its
+K-major H kept per Hᵀ tensor, the split attention's pages a step and page
+ranges, and the wrappers' device routing."""
+import pytest
+import torch
+
+from repro_torch.core import get_code
+from repro_torch.kernels import build, gf_matmul, paged_attention as pa
+
+
+@pytest.mark.parametrize("C", [1, 6, 8, 32, 33, 64, 100, 205, 256, 257, 343])
+@pytest.mark.parametrize("M", [1, 67, 256, 4096, 491_641])
+def test_scan_plan_covers_every_check(M, C):
+    """The narrowest tile at least C (chunks of 256 past it), and a CTA
+    per (row tile, chunk) up to one an SM."""
+    tile, ctas = gf_matmul.scan_plan(M, C, 132)
+    assert tile in gf_matmul.SCAN_TILES
+    if C <= 256:
+        assert tile >= C
+        assert all(t < C for t in gf_matmul.SCAN_TILES if t < tile)
+    else:
+        assert tile == 256
+    tiles = -(-M // gf_matmul.SCAN_ROWS) * -(-C // tile)
+    assert ctas == min(tiles, 132)
+
+
+@pytest.mark.parametrize("name", ["wl40_r08", "wl160_r08", "wl1024_r08"])
+def test_kmajor_h_is_h_padded_and_kept(name):
+    """H (C, K16) from the code's cached Hᵀ: H itself, K zero-padded to a
+    multiple of 16; the same tensor again while Hᵀ is unchanged, rebuilt
+    after an in-place write, forgotten with Hᵀ."""
+    code = get_code(name)
+    ht = code.tensor("H.T", "cpu", torch.int8)
+    h = gf_matmul.kmajor_h(ht, code.p)
+    K16 = -(-code.n // 16) * 16
+    assert h.shape == (code.c, K16) and h.dtype == torch.int8
+    assert h.is_contiguous()
+    assert torch.equal(h[:, :code.n], ht.t())
+    assert not h[:, code.n:].any()
+    assert gf_matmul.kmajor_h(ht, code.p) is h
+    other = ht.clone()
+    other[0, 0] = (int(other[0, 0]) + 1) % code.p
+    h2 = gf_matmul.kmajor_h(other, code.p)
+    assert torch.equal(h2[:, :code.n], other.t())
+    other[0, 0] = ht[0, 0]                  # written in place: rebuilt
+    h3 = gf_matmul.kmajor_h(other, code.p)
+    assert h3 is not h2 and torch.equal(h3, h)
+    key = id(other)
+    del other, h2, h3
+    assert key not in gf_matmul._KMAJOR_H
+
+
+@pytest.mark.parametrize("NP", [0, 1, 2, 5, 32, 40, 256, 1000])
+@pytest.mark.parametrize("BH,T", [(32, 16), (1, 16), (6, 4), (512, 16),
+                                  (8, 64)])
+def test_attend_plan_ranges(NP, BH, T):
+    """Steps of about 32 tokens; no ranges without pages; otherwise at
+    least one range, at most one a step and MAX_SPLITS, and no more CTAs
+    than one wave holds unless one range a pair already passes it."""
+    pg, nsplit = pa.attend_plan(NP, BH, T, 132)
+    assert 1 <= pg <= 8 and (pg == 1 or pg * T <= pa.STEP_TOKENS)
+    if NP == 0:
+        assert nsplit == 0
+        return
+    assert 1 <= nsplit <= min(-(-NP // pg), pa.MAX_SPLITS)
+    assert nsplit == 1 or nsplit * BH <= pa.CTAS_PER_SM * 132
+
+
+def test_route_names_the_device():
+    x = torch.zeros(3)
+    assert build.route("k", x, x) == "cpu"
+    with pytest.raises(ValueError, match="no kernel for device type"):
+        build.route("k", torch.zeros(3, device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        build.route("k", x, torch.zeros(3, device="meta"))
