@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from `src/repro_torch/kernels/csrc/` and log
-     the registers, spills and shared memory of the wgmma kernels (the
-     three flash kernels, the PIM MAC and the syndrome scan at each check
-     tile) and of attend_protected's two kernels;
+     the registers, spills and shared memory of every instantiation of the
+     kernels (the three flash kernels, the PIM MAC, the syndrome scan at
+     each check tile, gf_matmul, fbp_cn at each field, and
+     attend_protected's two kernels);
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes, and time both: the integer kernels and FBP
      with exact equality (the scan also at the decoder's 256-word check
@@ -21,11 +22,13 @@ Phases (any failure exits non-zero):
      or in all (with and without the hot page), and at NP 256 (4,096
      tokens); the PIM MAC also beside torch._int_mm (cuBLASLt s8 x s8 ->
      s32, its adc-0 function) and the W transpose a K-major operand would
-     cost in the wrapper. The scan, the MAC and `attend_protected` also log
-     their device time from torch.profiler (from CUDA events around calls
-     queued behind a sleep kernel where three profiled windows in a row
-     recorded none), and the scan and `attend_protected` their wrappers'
-     host time a call;
+     cost in the wrapper; gf_matmul at a 4096-word wl1024_r08 page and a
+     wl160_r08 page freeze, beside torch.matmul fp32 and torch._int_mm;
+     fbp_cn at dc 16 (p 3), p 5 and dc 26. Every kernel but the flash
+     kernels also logs its device time from torch.profiler (from CUDA
+     events around calls queued behind a sleep kernel where three
+     profiled windows in a row recorded none), and all but the MAC their
+     wrappers' host time a call;
   3. memory mode: a 64 MiB float32 tensor in a `ProtectedMemoryArray` on
      wl1024_r08 (writeback policy): write, inject uniform flips, read back
      exactly, inject again, scrub, re-scrub clean;
@@ -38,7 +41,9 @@ Phases (any failure exits non-zero):
      CPU run on a small input, exactly;
   6. one more corrected read of the memory-mode array under
      torch.profiler (device time by kernel, device idle share), and the
-     scan over the whole store against its plain version, exactly;
+     scan over the whole store and the encode of its info words
+     (491,641 x 819 x 205) against their plain versions, exactly, with
+     their device times and bounds;
   7. a small protected-KV decode (reduced paper-pim-2b) on the card
      against the same model's plain CPU run, to a few bf16 ulps;
   8. protected KV-cache serving of `paper-pim-2b` at full width and full
@@ -350,19 +355,21 @@ KERNEL_SMEM = {
     "flash_bwd_dq": lambda dm: 1024 + 6 * 64 * dm * 2 + 3 * 8,
     "flash_bwd_dkv": lambda dm: 1024 + 6 * 64 * dm * 2 + 1024,
     "pim_mac": lambda clip: 1024 + 6 * 2 * 128 * 128 + 2 * 128 * 128 + 6 * 8,
-    "scan_syndromes": _scan_smem,
+    "scan_syndromes": _scan_smem, "gf_matmul": None, "fbp_cn": None,
     "attend_split": None, "attend_combine": None}
+# each source's kernels: the name, then its template arguments
 KERNEL_ENTRIES = {
     "flash_attention.cu": r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv)"
                           r"_kernelILi(\d+)E",
     "pim_mac.cu": r"(pim_mac)_kernelILb(\d)E",
-    "gf_matmul.cu": r"(scan_syndromes)_kernelILi(\d+)E",
+    "gf_matmul.cu": r"(scan_syndromes|gf_matmul)_kernel(?:ILi(\d+)E)?",
+    "fbp.cu": r"(fbp_cn)_kernelILi(\d+)E(?:Li(\d+)E)?",
     "paged_attention.cu": r"(attend_split|attend_combine)_kernel()E"}
 
 
 def ptxas_report(logs: dict) -> dict:
     """Registers, spill bytes and shared memory of each instantiation of
-    the wgmma kernels, the scan and the attend_protected kernels, from
+    the port's kernels (all but the flash kernels' plain helpers), from
     nvcc's -Xptxas -v output (`logs`, empty when the library was not
     rebuilt by this process)."""
     out = {}
@@ -371,10 +378,12 @@ def ptxas_report(logs: dict) -> dict:
         for line in logs.get(source, "").splitlines():
             m = re.search(r"Compiling entry function '\S*?" + pattern, line)
             if m:
-                name, arg = m.group(1), m.group(2)
-                entry = f"{name}<{arg}>" if arg else name
+                name = m.group(1)
+                args = [int(a) for a in m.groups()[1:] if a]
+                entry = f"{name}<{','.join(map(str, args))}>" if args \
+                    else name
                 smem = KERNEL_SMEM[name]
-                out[entry] = {"dynamic_smem_bytes": smem(int(arg))
+                out[entry] = {"dynamic_smem_bytes": smem(*args)
                               if smem else None}
                 continue
             if "Compiling entry function" in line:
@@ -393,6 +402,9 @@ def _ptxas_counts(rec: dict, line: str) -> None:
     m = re.search(r"Used (\d+) registers", line)
     if m:
         rec["registers"] = int(m.group(1))
+    m = re.search(r"(\d+) bytes smem", line)
+    if m:
+        rec["static_smem_bytes"] = int(m.group(1))
 
 
 def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
@@ -414,6 +426,8 @@ def fbp_inputs(code, words: int, gen, device):
     return m.reshape(words * c, dc, p).contiguous()
 
 
+# code, words: phase 2's encodes (gf_matmul)
+GF_CASES = [("wl1024_r08", 4096), ("wl160_r08", 1536)]
 # code, words, share of words with one corrupted cell: phase 2's scans
 SCAN_CASES = [("wl1024_r08", 4096, 0.1), ("wl1024_r08", 256, 0.1),
               ("wl1024_r08", 67, 0.1), ("wl160_r08", 1536, 0.01),
@@ -494,31 +508,50 @@ def phase_kernels(device) -> dict:
                    lambda y=y, ht=ht, p=c.p: gf_matmul.scan_syndromes(
                        y, ht, p), 200), **extra)
 
-    code = get_code("wl1024_r08")
-    u = rng.integers(0, code.p, (4096, code.k))
-    # encode: (4096, 819) x (819, 205)
-    a = torch.as_tensor(u, dtype=torch.int8, device=device)
-    P = code.tensor("P", device, torch.int8)
-    af, Pf = a.float(), P.float()
-    M, K = a.shape
-    N = P.shape[1]
-    record("gf_matmul", gf_matmul.gf_matmul(a, P, code.p),
-           gf_matmul.gf_matmul_plain(a, P, code.p),
-           lambda: gf_matmul.gf_matmul(a, P, code.p),
-           lambda: gf_matmul.gf_matmul_plain(a, P, code.p),
-           lambda: af @ Pf, M * K + K * N + 4 * M * N, 2 * M * K * N,
-           INT8_OPS_PER_S)
+    # encode: a page of 4096 words of wl1024_r08, (4096, 819) x (819, 205)
+    # (the first row), and a paged-store page freeze of wl160_r08 at the
+    # serving page size, (1536, 128) x (128, 32), through the code's cached
+    # P; torch.matmul in fp32 is the yardstick, and torch._int_mm on the
+    # operands zero-padded to K and N multiples of 8 is logged beside it
+    for name, words in GF_CASES:
+        c = get_code(name)
+        a = torch.as_tensor(rng.integers(0, c.p, (words, c.k)),
+                            dtype=torch.int8, device=device)
+        P = c.tensor("P", device, torch.int8)
+        af, Pf = a.float(), P.float()
+        M, K = a.shape
+        N = P.shape[1]
+        K8, N8 = -(-K // 8) * 8, -(-N // 8) * 8
+        a8 = torch.nn.functional.pad(a, (0, K8 - K))
+        P8 = torch.nn.functional.pad(P, (0, N8 - N, 0, K8 - K))
+        if not torch.equal(torch._int_mm(a8, P8)[:, :N] % c.p,
+                           gf_matmul.gf_matmul_plain(a, P, c.p)):
+            raise AssertionError("torch._int_mm differs from the exact "
+                                 "product")
+        fn = lambda a=a, P=P, p=c.p: gf_matmul.gf_matmul(a, P, p)  # noqa: E731
+        record("gf_matmul", gf_matmul.gf_matmul(a, P, c.p),
+               gf_matmul.gf_matmul_plain(a, P, c.p), fn,
+               lambda a=a, P=P, p=c.p: gf_matmul.gf_matmul_plain(a, P, p),
+               lambda af=af, Pf=Pf: af @ Pf, M * K + K * N + 4 * M * N,
+               2 * M * K * N, INT8_OPS_PER_S, code=name, shape=[M, K, N],
+               int_mm_ms=cuda_ms(lambda a8=a8, P8=P8: torch._int_mm(a8, P8),
+                                 20),
+               device_ms=device_ms(fn, "gf_matmul_kernel", 20),
+               host_ms=host_ms(fn, 200))
 
-    # FBP: one 256-word chunk of wl1024_r08 (p=3), and of wl160_r08_gf5
-    for name in ("wl1024_r08", "wl160_r08_gf5"):
+    # FBP: one 256-word chunk of wl1024_r08 (p=3, dc 16; the first row),
+    # of wl160_r08_gf5, and of wl1024_r088 (dc 26)
+    for name in ("wl1024_r08", "wl160_r08_gf5", "wl1024_r088"):
         c = get_code(name)
         m = fbp_inputs(c, 256, gen, device)
         N, dc, p = m.shape
         ops = N * (3 * dc - 4) * 2 * p * p
-        record("fbp_cn", fbp.fbp_cn(m, p), fbp.fbp_cn_plain(m, p),
-               lambda m=m, p=p: fbp.fbp_cn(m, p),
+        fn = lambda m=m, p=p: fbp.fbp_cn(m, p)  # noqa: E731
+        record("fbp_cn", fbp.fbp_cn(m, p), fbp.fbp_cn_plain(m, p), fn,
                lambda m=m, p=p: fbp.fbp_cn_plain(m, p), None,
-               2 * m.numel() * 4, ops, FP32_OPS_PER_S)
+               2 * m.numel() * 4, ops, FP32_OPS_PER_S, code=name,
+               shape=[N, dc, p], device_ms=device_ms(fn, "fbp_cn_kernel", 20),
+               host_ms=host_ms(fn, 200))
 
     # PIM MAC: (256, 8192) x (8192, 2560), R=64, ideal and 6-level ADC
     x = torch.randint(-7, 8, (256, 8192), generator=gen, device=device,
@@ -760,7 +793,8 @@ def phase_profile(mem) -> dict:
     """Where a corrected read of the memory-mode array spends its time:
     a fresh injection, then one read under torch.profiler (device time by
     kernel, and the share of the read's wall time the device was busy),
-    and the scan kernel against its plain version over the whole store.
+    and the scan and encode kernels against their plain versions over the
+    whole store.
 
     Busy time is the union of the intervals of the device's own events
     (kernels, copies, sets): the profiler also charges each kernel's time
@@ -791,6 +825,27 @@ def phase_profile(mem) -> dict:
             2 * enc.numel() * ht.shape[1], INT8_OPS_PER_S)[0],
         "full_scan_plain_ms": cuda_ms(
             lambda: gf_matmul.scan_syndromes_plain(enc, ht, code.p), 3)})
+    # the whole store's encode: its info words (M, k) times P
+    info = enc[:, :code.k].contiguous()
+    P = code.tensor("P", enc.device, torch.int8)
+    if not torch.equal(gf_matmul.gf_matmul(info, P, code.p),
+                       gf_matmul.gf_matmul_plain(info, P, code.p)):
+        raise AssertionError("gf_matmul over the whole store differs from "
+                             "its plain version")
+    M, K = info.shape
+    N = P.shape[1]
+    res.update({
+        "full_encode_shape": [M, K, N],
+        "full_encode_ms": cuda_ms(
+            lambda: gf_matmul.gf_matmul(info, P, code.p), 5),
+        "full_encode_device_ms": device_ms(
+            lambda: gf_matmul.gf_matmul(info, P, code.p),
+            "gf_matmul_kernel", 20),
+        "full_encode_bound_ms": bound(M * K + K * N + 4 * M * N,
+                                      2 * M * K * N, INT8_OPS_PER_S)[0],
+        "full_encode_plain_ms": cuda_ms(
+            lambda: gf_matmul.gf_matmul_plain(info, P, code.p), 3)})
+    del info
     log(f"  profile: {json.dumps(res)}")
     return res
 
