@@ -343,19 +343,28 @@ def _scan_smem(bn: int) -> int:
     return 1024 + ns * stage + 8 * ns
 
 
+def _gf_smem(bn: int) -> int:
+    """The encode kernel's dynamic shared memory at column tile bn (GfOp
+    in csrc/gf_matmul.cu): a 1024-byte margin, four 64 x 128-byte A
+    tiles, and NS stages of a bn x 128-byte B tile and an mbarrier."""
+    fixed, stage = 1024 + 4 * 64 * 128, bn * 128 + 8
+    return fixed + min(8, (227 * 1024 - fixed) // stage) * stage
+
+
 # dynamic shared memory of the wgmma kernels by template argument: a
 # 1024-byte alignment margin and 64-row bf16 tiles of DM columns (fwd_smem,
 # dq_smem and dkv_smem in csrc/flash_attention.cu; dq adds 3 mbarriers);
 # for the PIM MAC (CLIP 0 or 1) six stages of a 128 x 128-byte X tile and
 # W tile, two transposed W tiles and six mbarriers (SMEM in
-# csrc/pim_mac.cu); for the scan by check tile (_scan_smem); the
-# attend_protected kernels' depends on the call's shape (None here)
+# csrc/pim_mac.cu); for the scan by check tile (_scan_smem) and the
+# encode by column tile (_gf_smem); fbp_cn's and the attend_protected
+# kernels' depends on the call's shape (None here)
 KERNEL_SMEM = {
     "flash_fwd": lambda dm: 1024 + 5 * 64 * dm * 2,
     "flash_bwd_dq": lambda dm: 1024 + 6 * 64 * dm * 2 + 3 * 8,
     "flash_bwd_dkv": lambda dm: 1024 + 6 * 64 * dm * 2 + 1024,
     "pim_mac": lambda clip: 1024 + 6 * 2 * 128 * 128 + 2 * 128 * 128 + 6 * 8,
-    "scan_syndromes": _scan_smem, "gf_matmul": None, "fbp_cn": None,
+    "scan_syndromes": _scan_smem, "gf_matmul": _gf_smem, "fbp_cn": None,
     "attend_split": None, "attend_combine": None}
 # each source's kernels: the name, then its template arguments
 KERNEL_ENTRIES = {
@@ -529,28 +538,48 @@ def phase_kernels(device) -> dict:
             raise AssertionError("torch._int_mm differs from the exact "
                                  "product")
         fn = lambda a=a, P=P, p=c.p: gf_matmul.gf_matmul(a, P, p)  # noqa: E731
+        tile, grid = gf_matmul.gf_plan(M, N, build.sm_count(device))
+        extra = {}
+        if words == 4096:
+            # each column tile at a 4096-word page (narrower tiles spread
+            # its 32 row tiles over more CTAs)
+            bk = gf_matmul.kmajor_h(P, c.p)
+            extra["tile_device_ms"] = {t: device_ms(
+                lambda t=t, a=a, bk=bk, p=c.p: gf_matmul.gf_launch(
+                    a, bk, p, t, build.sm_count(device)),
+                "gf_matmul_kernel", 20) for t in gf_matmul.GF_TILES}
         record("gf_matmul", gf_matmul.gf_matmul(a, P, c.p),
                gf_matmul.gf_matmul_plain(a, P, c.p), fn,
                lambda a=a, P=P, p=c.p: gf_matmul.gf_matmul_plain(a, P, p),
                lambda af=af, Pf=Pf: af @ Pf, M * K + K * N + 4 * M * N,
                2 * M * K * N, INT8_OPS_PER_S, code=name, shape=[M, K, N],
+               tile=tile, ctas=grid,
                int_mm_ms=cuda_ms(lambda a8=a8, P8=P8: torch._int_mm(a8, P8),
                                  20),
                device_ms=device_ms(fn, "gf_matmul_kernel", 20),
-               host_ms=host_ms(fn, 200))
+               host_ms=host_ms(fn, 200), **extra)
 
     # FBP: one 256-word chunk of wl1024_r08 (p=3, dc 16; the first row),
-    # of wl160_r08_gf5, and of wl1024_r088 (dc 26)
+    # of wl160_r08_gf5, and of wl1024_r088 (dc 26); beside each, the
+    # kernel's device time at the bulk copy's own row stride in shared
+    # memory (the bank conflicts its odd stride avoids)
     for name in ("wl1024_r08", "wl160_r08_gf5", "wl1024_r088"):
         c = get_code(name)
         m = fbp_inputs(c, 256, gen, device)
         N, dc, p = m.shape
         ops = N * (3 * dc - 4) * 2 * p * p
         fn = lambda m=m, p=p: fbp.fbp_cn(m, p)  # noqa: E731
+        unpadded = fbp.fbp_launch(m, p, padded=False)
+        if not torch.equal(unpadded, fbp.fbp_cn_plain(m, p)):
+            raise AssertionError("fbp_cn at the copy's stride differs from "
+                                 "its plain version")
         record("fbp_cn", fbp.fbp_cn(m, p), fbp.fbp_cn_plain(m, p), fn,
                lambda m=m, p=p: fbp.fbp_cn_plain(m, p), None,
                2 * m.numel() * 4, ops, FP32_OPS_PER_S, code=name,
                shape=[N, dc, p], device_ms=device_ms(fn, "fbp_cn_kernel", 20),
+               copy_stride_device_ms=device_ms(
+                   lambda m=m, p=p: fbp.fbp_launch(m, p, padded=False),
+                   "fbp_cn_kernel", 20),
                host_ms=host_ms(fn, 200))
 
     # PIM MAC: (256, 8192) x (8192, 2560), R=64, ideal and 6-level ADC

@@ -44,10 +44,10 @@ _F = ctypes.c_float
 # C entry point -> argtypes (pointers and the stream as c_void_p, so ctypes
 # never cuts a 64-bit address to a 32-bit int)
 SIGNATURES = {
-    "rt_gf_matmul": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rt_gf_matmul": [_P, _P, _P] + [_I] * 7 + [_P],
     "rt_scan_syndromes": [_P, _P, _P] + [_I] * 6 + [_P],
     "rt_pim_mac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rt_fbp_cn": [_P, _P, _I, _I, _I, _P],
+    "rt_fbp_cn": [_P, _P, _I, _I, _I, _I, _P],
     "rt_attend_protected": [_P] * 11 + [_I] * 16 + [_F, _P],
     "rt_flash_fwd": [_P] * 5 + [_I] * 7 + [_F, _F, _P],
     "rt_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _F, _P],

@@ -7,25 +7,55 @@
 // the forward/backward chains of cyclic max-plus convolutions
 // conv(a, b)[k] = max_j a[(k - j) mod p] + b[j].
 //
-// One thread runs one row. The backward chain is kept in registers
-// (template MAXDC, with P a template constant so every index is static
-// after unrolling); the forward chain is a running (p,) vector. Every term
-// is one float add and the max is exact, and the chains run in the same
-// order and with the same argument order as the plain version, so the
-// output is bitwise equal to it and to the JAX oracle.
-//
 // Bound on the card: bytes. Each row moves 2 * dc * p * 4 bytes and does
-// about 3 * dc * p^2 adds and maxes, a few operations per byte. A thread's
-// row is 192 contiguous bytes (dc = 16, p = 3), so direct loads from a warp
-// would touch 32 rows at once; the block instead stages its rows through
-// shared memory with coalesced copies in and out (row stride padded to an
-// odd number of words, so the per-thread reads do not collide on banks).
-#include <cstdint>
-#include <cuda_runtime.h>
+// about 3 * dc * p^2 adds and maxes, a few operations per byte.
+//
+// Design (Hopper, sm_90a). Persistent CTAs of 128 threads walk blocks of
+// RB rows. A block is one contiguous range of RB * dc * p floats: seen as
+// rows of 32 floats, it arrives by one TMA tensor copy (from the 128-byte
+// row at or below its first word, so any RB will do) on its mbarrier, in
+// a ring of two slots, a block ahead. The threads then repack it to
+// an odd row stride S (dc p or dc p + 1 words), so that a warp's 32 rows,
+// one a thread, fall on 32 different banks (at the copy's own stride of
+// dc p = 48 words a warp's reads collide 16 ways); the words past the
+// tensor map's last whole 128-byte row (fewer than 32) come straight from
+// device memory. One thread runs one row, with its chains in the plain
+// version's order: the backward pass writes bm[t] (the conv of slots
+// t..dc-1) into slot t of the row's output, the forward pass reads
+// bm[t+1] from slot t+1 before it overwrites slot t with the extrinsic,
+// so a thread holds O(p) registers whatever dc is, and one instantiation
+// per p serves every dc. Every term is one float add and the max is exact,
+// so the output is bitwise equal to the plain version and to the JAX
+// oracle. The output lives in the block's own slot, free once repacked,
+// and leaves by coalesced stores while the next blocks land. Shared
+// memory is sized so that three CTAs fit an SM. The copies between shared buffers and out to device memory take
+// UNROLL rows a warp at once, loads first: a load after a store waits for
+// it, as the compiler cannot tell the buffers apart.
+//
+// Why three CTAs an SM and the unrolled copies: at 8 warps an SM these
+// copy loops and the chains, each load waiting behind a store, ran slower
+// than the kernel this one replaced (PERF.md).
+#include "sm90.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e9f;
+constexpr int THREADS = 128;               // a thread a row
+constexpr int NBUF = 2;                    // row blocks in flight
+constexpr int SMEM_BUDGET = 75 * 1024;     // a CTA's share: three an SM
+constexpr int UNROLL = 4;                  // rows a warp copies at once
+
+template <int P>
+__device__ __forceinline__ void load(float (&v)[P], const float* src) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) v[k] = src[k];
+}
+
+template <int P>
+__device__ __forceinline__ void store(float* dst, const float (&v)[P]) {
+#pragma unroll
+  for (int k = 0; k < P; ++k) dst[k] = v[k];
+}
 
 template <int P>
 __device__ __forceinline__ void conv(const float (&a)[P], const float (&b)[P],
@@ -47,104 +77,221 @@ __device__ __forceinline__ void store_reflected(float* dst,
   for (int k = 0; k < P; ++k) dst[k] = ext[(P - k) % P];
 }
 
-template <int P, int MAXDC>
-__global__ void fbp_cn_kernel(const float* __restrict__ m,
-                              float* __restrict__ out, int N, int dc) {
-  extern __shared__ float sm[];
-  const int W = dc * P;
-  const int S = W | 1;                       // odd row stride in shared
-  const long base = (long)blockIdx.x * blockDim.x;
-  const long left = N - base;
-  const int rows = left < (long)blockDim.x ? (int)left : (int)blockDim.x;
-  for (int i = threadIdx.x; i < rows * W; i += blockDim.x)
-    sm[(i / W) * S + i % W] = m[base * W + i];
-  __syncthreads();
-
-  if (threadIdx.x < rows) {
-    float* row = sm + threadIdx.x * S;
-    float bm[MAXDC][P];                      // bm[t] = conv of slots t..dc-1
+// one row: `in` its dc slot messages, `o` its extrinsics (both P words a
+// slot, in shared memory). Each slot's words are loaded a step before they
+// are used, so no load waits behind the step's stores.
+template <int P>
+__device__ __forceinline__ void row_fbp(const float* in, float* o, int dc) {
+  if (dc == 1) {                             // the identity, reflected
 #pragma unroll
-    for (int t = MAXDC - 1; t >= 0; --t) {
-      if (t < dc) {
-        float a[P];
+    for (int k = 0; k < P; ++k) o[k] = k == 0 ? 0.0f : NEG_INF;
+    return;
+  }
+  float b[P], a[P];                          // bm[t + 1], slot t
+  load<P>(b, in + (dc - 1) * P);
+  store<P>(o + (dc - 1) * P, b);
+  if (dc > 2) load<P>(a, in + (dc - 2) * P);
+  for (int t = dc - 2; t >= 1; --t) {        // bm[t] = conv of slots t..dc-1
+    float an[P], nb[P];
+    if (t > 1) load<P>(an, in + (t - 1) * P);
+    conv<P>(a, b, nb);
+    store<P>(o + t * P, nb);
 #pragma unroll
-        for (int k = 0; k < P; ++k) a[k] = row[t * P + k];
-        if (t == dc - 1) {
-#pragma unroll
-          for (int k = 0; k < P; ++k) bm[t][k] = a[k];
-        } else if (t + 1 < MAXDC) {
-          conv<P>(a, bm[t + 1], bm[t]);
-        }
-      }
-    }
-    if (dc == 1) {
-      float ident[P];
-#pragma unroll
-      for (int k = 0; k < P; ++k) ident[k] = k == 0 ? 0.0f : NEG_INF;
-      store_reflected<P>(row, ident);
-    } else {
-      float fm[P];                           // conv of slots 0..t-1
-#pragma unroll
-      for (int k = 0; k < P; ++k) fm[k] = row[k];
-      store_reflected<P>(row, bm[1]);        // slot 0
-#pragma unroll
-      for (int t = 1; t < MAXDC; ++t) {
-        if (t < dc - 1) {
-          float ext[P], a[P], nxt[P];
-          conv<P>(fm, bm[t + 1 < MAXDC ? t + 1 : MAXDC - 1], ext);
-#pragma unroll
-          for (int k = 0; k < P; ++k) a[k] = row[t * P + k];
-          conv<P>(fm, a, nxt);
-          store_reflected<P>(row + t * P, ext);
-#pragma unroll
-          for (int k = 0; k < P; ++k) fm[k] = nxt[k];
-        } else if (t == dc - 1) {
-          store_reflected<P>(row + t * P, fm);   // slot dc-1: fm[dc-2]
-        }
-      }
+    for (int k = 0; k < P; ++k) {
+      b[k] = nb[k];
+      a[k] = an[k];
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * W; i += blockDim.x)
-    out[base * W + i] = sm[(i / W) * S + i % W];
+  store_reflected<P>(o, b);                  // slot 0: bm[1]
+  float fm[P], bn[P];                        // conv of slots 0..t-1, bm[t+1]
+  load<P>(fm, in);
+  if (dc > 2) {
+    load<P>(bn, o + 2 * P);
+    load<P>(a, in + P);
+  }
+  for (int t = 1; t < dc - 1; ++t) {
+    float bn2[P], a2[P], ext[P], nxt[P];
+    if (t + 1 < dc - 1) {                    // bm[t+2] is not yet overwritten
+      load<P>(bn2, o + (t + 2) * P);
+      load<P>(a2, in + (t + 1) * P);
+    }
+    conv<P>(fm, bn, ext);
+    conv<P>(fm, a, nxt);
+    store_reflected<P>(o + t * P, ext);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      fm[k] = nxt[k];
+      bn[k] = bn2[k];
+      a[k] = a2[k];
+    }
+  }
+  store_reflected<P>(o + (dc - 1) * P, fm);  // slot dc-1: fm[dc-2]
 }
 
-template <int P, int MAXDC>
-int launch(const float* m, float* out, int N, int dc, cudaStream_t stream) {
-  const int S = (dc * P) | 1;
-  // rows per block: as many as fit 48 KB of shared memory, a multiple of 32,
-  // at most 128
-  int rows = (48 * 1024) / (S * (int)sizeof(float));
-  rows = rows >= 128 ? 128 : (rows / 32) * 32;
-  if (rows < 32) return (int)cudaErrorInvalidValue;
-  const int blocks = (int)((N + rows - 1) / rows);
-  fbp_cn_kernel<P, MAXDC><<<blocks, rows, rows * S * sizeof(float), stream>>>(
-      m, out, N, dc);
-  return (int)cudaGetLastError();
+// rows r, r + 4, ..., r + 4 (UNROLL - 1) of a block from `src` (stride
+// sw, the first `limit` words of it) to `dst` (stride dw), by one warp:
+// all loads, then all stores
+__device__ __forceinline__ void copy_rows(const float* src, int sw,
+                                          float* dst, int dw, int r, int rows,
+                                          int W, int limit) {
+  for (int c = threadIdx.x % 32; c < W; c += 32) {
+    float v[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const int rj = r + 4 * j;
+      v[j] = rj < rows && rj * sw + c < limit ? src[rj * sw + c] : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      const int rj = r + 4 * j;
+      if (rj < rows && rj * sw + c < limit) dst[rj * dw + c] = v[j];
+    }
+  }
+}
+
+// Shared memory: NBUF slots of `slot` floats (a multiple of 32, at least
+// 32 BR and RB S), each a block's box as copied and then, once repacked,
+// its output at stride S; the repacked input (RB x S); an mbarrier a slot.
+// Block b of the grid's walk holds rows [b RB, b RB + RB). `map` is m as
+// (N W / 32) rows of 32 floats, boxes of BR rows; its rows end at word
+// `mapped`.
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+fbp_cn_kernel(const __grid_constant__ CUtensorMap map,
+              const float* __restrict__ m, float* __restrict__ out, int N,
+              int dc, int S, int RB, int slot, int BR, int nblocks,
+              long mapped) {
+  using namespace sm90;
+  extern __shared__ __align__(128) float sm[];
+  const int W = dc * P;
+  float* raw = sm;
+  float* pin = raw + NBUF * slot;
+  const uint32_t bars = smem_u32(pin + (RB * S + 1) / 2 * 2);
+  const int warp = threadIdx.x / 32;
+  const int nb = (nblocks - (int)blockIdx.x + (int)gridDim.x - 1) /
+                 (int)gridDim.x;             // this CTA's blocks
+  // block i of this CTA into slot i % NBUF, by thread 0: the box of BR
+  // rows of 32 floats from the one that holds its first word (no copy for
+  // a block wholly past the map's rows)
+  auto issue = [&](int i) {
+    const long row0 = (blockIdx.x + (long)i * gridDim.x) * RB;
+    const uint32_t bar = bars + 8 * (i % NBUF);
+    const bool copy = row0 * W / 32 * 32 < mapped;
+    mbar_expect(bar, copy ? BR * 128 : 0);
+    if (copy)
+      tma_load(smem_u32(raw + (i % NBUF) * slot), &map, bar, 0,
+               (int)(row0 * W / 32));
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NBUF; ++s) mbar_init(bars + 8 * s);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < NBUF - 1 && i < nb; ++i) issue(i);
+
+  for (int i = 0; i < nb; ++i) {
+    const long row0 = (blockIdx.x + (long)i * gridDim.x) * RB;
+    const int rows = (int)(N - row0 < RB ? N - row0 : RB);
+    // the box starts `lead` words before the block; of the block's words
+    // it holds the first `copied`
+    const long box0 = row0 * W / 32 * 32;
+    const int lead = (int)(row0 * W - box0);
+    const long held = mapped - box0 < 32L * BR ? mapped - box0 : 32L * BR;
+    const int copied = (int)(held - lead < 0 ? 0 : held - lead);
+    float* src = raw + (i % NBUF) * slot;
+    mbar_wait(bars + 8 * (i % NBUF), (i / NBUF) & 1);
+    for (int r = warp; r < rows; r += 4 * UNROLL)
+      copy_rows(src + lead, W, pin, S, r, rows, W, copied);
+    // the block's words past the map's last row, from device memory
+    for (int w = copied + threadIdx.x; w < rows * W; w += THREADS)
+      pin[w / W * S + w % W] = m[row0 * W + w];
+    // every thread is past its repack of block i (so its slot takes the
+    // output) and past its stores of block i - 1 (whose slot, free now,
+    // the next copy takes)
+    __syncthreads();
+    if (threadIdx.x == 0 && i + NBUF - 1 < nb) {
+      fence_async_smem();
+      issue(i + NBUF - 1);
+    }
+    if ((int)threadIdx.x < rows)
+      row_fbp<P>(pin + threadIdx.x * S, src + threadIdx.x * S, dc);
+    __syncthreads();
+    for (int r = warp; r < rows; r += 4 * UNROLL)
+      copy_rows(src, S, out + row0 * W, W, r, rows, W, RB * S);
+  }
+}
+
+// rows a block: as many as SMEM_BUDGET holds (slots of RB S floats and
+// up to 64 more), at most one a thread and as many as one box of 256 rows
+// of 32 floats holds after a lead of up to 31 words
+int block_rows(int S, int W) {
+  int rows = (SMEM_BUDGET - 8 * NBUF - 8 - 4 * 64 * NBUF) /
+             (4 * (NBUF + 1) * S);
+  rows = rows < THREADS ? rows : THREADS;
+  return rows < (256 * 32 - 31) / W ? rows : (256 * 32 - 31) / W;
+}
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (count[dev & 63] == 0)
+    cudaDeviceGetAttribute(&count[dev & 63], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return count[dev & 63];
 }
 
 template <int P>
-int launch_p(const float* m, float* out, int N, int dc, cudaStream_t stream) {
-  if (dc <= 16) return launch<P, 16>(m, out, N, dc, stream);
-  if (dc <= 32) return launch<P, 32>(m, out, N, dc, stream);
-  return (int)cudaErrorInvalidValue;
+int launch(const float* m, float* out, int N, int dc, bool padded,
+           cudaStream_t stream) {
+  const int W = dc * P, S = padded ? (W | 1) : W;
+  const int RB = block_rows(S, W);
+  if (RB < 1) return (int)cudaErrorInvalidValue;
+  const int BR = (RB * W + 31 + 31) / 32;    // the box: a lead and the block
+  // m as rows of 32 floats (128 bytes), as many as it fills (at least one
+  // for the map, though none is copied when it fills none)
+  const long mapped = (long)N * W / 32 * 32;
+  const cuuint64_t dims[2] = {32, (cuuint64_t)(mapped > 0 ? mapped / 32 : 1)};
+  const cuuint64_t strides[1] = {128};
+  const cuuint32_t box[2] = {32, (cuuint32_t)BR};
+  CUtensorMap map;
+  if (!sm90::tensor_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, m, dims,
+                        strides, box, false))
+    return (int)cudaErrorInvalidValue;
+  const int slot = (RB * S > 32 * BR ? (RB * S + 31) / 32 : BR) * 32;
+  const size_t smem =
+      (size_t)4 * (NBUF * slot + (RB * S + 1) / 2 * 2) + 8 * NBUF;
+  cudaError_t e = sm90::smem_attr_once<fbp_cn_kernel<P>>(SMEM_BUDGET);
+  if (e != cudaSuccess) return (int)e;
+  const int nblocks = (N + RB - 1) / RB, slots = 3 * sm_count();
+  const int grid = nblocks < slots ? nblocks : slots;
+  fbp_cn_kernel<P><<<grid, THREADS, smem, stream>>>(map, m, out, N, dc, S,
+                                                     RB, slot, BR, nblocks,
+                                                     mapped);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int rt_fbp_cn(const void* m, void* out, int N, int dc, int p, void* stream) {
+// m and out (N, dc, p) float32, contiguous, 16-byte aligned; padded 0
+// keeps the copy's own row stride in shared memory (for measuring the
+// bank conflicts the odd stride avoids)
+int rt_fbp_cn(const void* m, void* out, int N, int dc, int p, int padded,
+              void* stream) {
   if (N == 0) return 0;
-  if (dc < 1) return (int)cudaErrorInvalidValue;
+  if (dc < 1 || (uintptr_t)m % 16 || (uintptr_t)out % 16)
+    return (int)cudaErrorInvalidValue;
   const float* mi = (const float*)m;
   float* mo = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (p) {
-    case 2: return launch_p<2>(mi, mo, N, dc, s);
-    case 3: return launch_p<3>(mi, mo, N, dc, s);
-    case 5: return launch_p<5>(mi, mo, N, dc, s);
-    case 7: return launch_p<7>(mi, mo, N, dc, s);
+    case 2: return launch<2>(mi, mo, N, dc, padded, s);
+    case 3: return launch<3>(mi, mo, N, dc, padded, s);
+    case 5: return launch<5>(mi, mo, N, dc, padded, s);
+    case 7: return launch<7>(mi, mo, N, dc, padded, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

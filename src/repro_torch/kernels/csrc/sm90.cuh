@@ -23,6 +23,7 @@
 // desc_k serves it unchanged. 8-bit wgmma takes only K-major operands.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -227,6 +228,23 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                         : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Host: allow `Kernel` `bytes` of dynamic shared memory on the current
+// device, once per kernel and device (the attribute is the device's, so
+// later launches skip the attribute call).
+template <auto Kernel>
+cudaError_t smem_attr_once(int bytes) {
+  static std::atomic<uint64_t> done{0};       // a bit a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 // ---------------------------------------------------------------------------

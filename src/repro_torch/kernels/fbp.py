@@ -6,12 +6,13 @@ check node (a row of (N, dc, p) float32 contribution-space messages) it
 runs the forward and backward chains of cyclic max-plus convolutions over
 the dc slots, and returns every slot's extrinsic conv(fm[t-1], bm[t+1])
 reflected k -> -k. The CUDA kernel (`csrc/fbp.cu`) runs one row per
-thread with the chains in registers, in the plain version's order, so the
-two are bitwise equal.
+thread, in the plain version's order, so the two are bitwise equal: its
+persistent CTAs take blocks of rows by bulk copies, repack them to an odd
+row stride in shared memory, and keep the backward chain in each row's
+output slots, so a thread's registers do not grow with dc.
 
-Bound on the card: bytes (a few operations per byte); the kernel stages
-its rows through shared memory so its loads and stores coalesce, see the
-note in `csrc/fbp.cu`.
+Bound on the card: bytes (a few operations per byte); see the note in
+`csrc/fbp.cu`.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. In the port the kernel is the decoder's CN
@@ -95,9 +96,22 @@ def fbp_cn(m_hat: torch.Tensor, p: int) -> torch.Tensor:
         raise ValueError(f"fbp_cn kernel: p={p} dc={dc} outside p in "
                          f"{PRIMES}, dc <= {MAX_DC}")
     m = m_hat.contiguous()
+    if m.data_ptr() % 16:              # the bulk copies' alignment
+        m = m.clone()
+    return fbp_launch(m, p)
+
+
+def fbp_launch(m: torch.Tensor, p: int, padded: bool = True) -> torch.Tensor:
+    """The kernel on contiguous, 16-byte-aligned (N, dc, p) float32 `m`.
+    `padded=False` keeps the bulk copy's own row stride in shared memory,
+    whose bank conflicts the odd stride avoids (a measurement, not a
+    path)."""
+    N, dc, _ = m.shape
     out = torch.empty_like(m)
+    if N == 0:
+        return out
     err = build.library().rt_fbp_cn(m.data_ptr(), out.data_ptr(), N, dc, p,
-                                    build.stream_handle(m.device))
+                                    int(padded), build.stream_handle(m.device))
     build.check(err, "fbp_cn")
     build.LAUNCHES["fbp_cn"] += 1
     return out

@@ -4,19 +4,23 @@ plain versions.
 Replaces the TPU kernels of `src/repro/kernels/gf_matmul.py`:
 `gf_matmul_pallas` ((a @ b) mod p, the encode) and `scan_syndromes_pallas`
 (any((y @ Ht) mod p != 0) per row, the detect step of every read, scrub,
-PIM output and decoder iteration). `gf_matmul` runs an int8 dp4a tile on
-the CUDA cores. `scan_syndromes` runs on the int8 tensor cores (wgmma
-s32.s8.s8, TMA copies, persistent CTAs; `csrc/gf_matmul.cu`): it
-multiplies the words by H, which is K-major as the code stores it, folds
-mod p and the any-reduce into the epilogue, and writes only the (M,)
-flags. Callers pass Hᵀ (K, C), as the JAX kernel takes it; the wrapper
-keeps one K-major copy of H per Hᵀ tensor (`kmajor_h`), so the codes'
-cached `code.tensor("H.T", ...)` costs no copy after its first scan.
-`scan_plan` picks the kernel's check tile (the narrowest that covers
-every check) and its persistent grid.
+PIM output and decoder iteration). Both run on the int8 tensor cores
+(wgmma s32.s8.s8, persistent CTAs, one pipelined main loop;
+`csrc/gf_matmul.cu`): they multiply the words by the right operand's
+transpose, which 8-bit wgmma needs K-major. Callers pass Hᵀ (K, C) and
+P (k, c), as the JAX kernels take them; the wrapper keeps one K-major
+copy per such tensor (`kmajor_h`), so the codes' cached
+`code.tensor("H.T", ...)` and `code.tensor("P", ...)` cost no copy
+after their first product. The scan folds mod p and the any-reduce into
+its epilogue and writes only the (M,) flags; the encode takes its words
+at any alignment (its threads load the aligned words that cover them
+and realign them in shared memory, so the wrapper pads and copies
+nothing) and writes each residue as int32. `scan_plan` and
+`gf_plan` pick each kernel's column tile and persistent grid;
+`scan_launch` and `gf_launch` take them as given.
 
-Bound on the card: bytes (each word read once); see the note in
-`csrc/gf_matmul.cu`.
+Bound on the card: bytes (each word read once, each output written
+once); see the note in `csrc/gf_matmul.cu`.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. The plain versions are the reference the
@@ -45,9 +49,9 @@ from . import build
 # int8 operands: |a|, |b| <= 128, so the int32 accumulator is exact while
 # K * 128 * 128 < 2^31
 INT8_K_MAX = (2 ** 31 - 1) // (128 * 128)
-# the scan kernel's check tiles (its wgmma widths) and words per tile
-SCAN_TILES = (32, 64, 128, 208, 256)
-SCAN_ROWS = 128
+# the kernels' column tiles (their wgmma widths) and words per tile
+SCAN_TILES = GF_TILES = (32, 64, 128, 208, 256)
+SCAN_ROWS = GF_ROWS = 128
 
 
 def _reduce(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -116,16 +120,47 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     if build.route("gf_matmul", a, b) == "cpu":
         return gf_matmul_plain(a, b, p)
     _check_shapes("gf_matmul", a, b, p)
-    a8, b8 = build.int8_operand(a, p), build.int8_operand(b, p)
+    bk = kmajor_h(b, p)
+    tile, grid = gf_plan(a.shape[0], bk.shape[0],
+                         build.sm_count(a.get_device()))
+    return gf_launch(build.int8_operand(a, p), bk, p, tile, grid)
+
+
+def gf_launch(a8: torch.Tensor, bk: torch.Tensor, p: int, tile: int,
+              grid: int) -> torch.Tensor:
+    """The encode kernel on contiguous int8 words a8 (M, K) at any
+    alignment and `kmajor_h`'s B (N, K16) with column tile `tile` (one of
+    GF_TILES) over `grid` persistent CTAs; `gf_matmul` takes both from
+    `gf_plan`."""
     M, K = a8.shape
-    N = b8.shape[1]
-    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
+    N, K16 = bk.shape
+    out = a8.new_empty((M, N), dtype=torch.int32)
+    if M == 0 or N == 0:
+        return out
     err = build.library().rt_gf_matmul(
-        a8.data_ptr(), b8.data_ptr(), out.data_ptr(), M, N, K, p,
-        build.stream_handle(a.device))
+        a8.data_ptr(), bk.data_ptr(), out.data_ptr(), M, N, K, K16, p, tile,
+        grid, build.stream_handle(a8.get_device()))
     build.check(err, "gf_matmul")
     build.LAUNCHES["gf_matmul"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def gf_plan(M: int, N: int, slots: int) -> tuple[int, int]:
+    """(column tile, CTAs) of the encode kernel for M words and N columns
+    on `slots` SMs: the narrowest tile that takes the fewest column chunks
+    (N past 256 in two chunks of 208 rather than 256 and 87), and a
+    persistent CTA per tile up to one an SM. With fewer tiles than SMs,
+    the narrowest tile whose chunks still fit one CTA an SM: few words
+    then spread over more CTAs (the chunks' residues are disjoint, so
+    nothing is zeroed first; `chip_smoke.py` phase 2 logs each tile's
+    device time at a 4096-word page)."""
+    fewest = -(-N // GF_TILES[-1])
+    tile = next(t for t in GF_TILES if -(-N // t) == fewest)
+    rows = -(-M // GF_ROWS)
+    tile = next((t for t in GF_TILES
+                 if t < tile and rows * -(-N // t) <= slots), tile)
+    return tile, min(rows * -(-N // tile), slots)
 
 
 @functools.lru_cache(maxsize=256)
@@ -145,10 +180,11 @@ _KMAJOR_H: dict[int, tuple[int, torch.Tensor]] = {}
 
 
 def kmajor_h(ht: torch.Tensor, p: int) -> torch.Tensor:
-    """H (C, K16) int8, K zero-padded to a multiple of 16 (at least 16),
-    from Hᵀ (K, C): the scan kernel's B operand. Kept per `ht` tensor
-    while it lives and is not written in place, so a code's cached Hᵀ
-    pays the transpose once."""
+    """B (C, K16) int8, K zero-padded to a multiple of 16 (at least 16),
+    from a right operand (K, C): H from Hᵀ for the scan, Pᵀ from P for the
+    encode, the kernels' K-major B operand. Kept per `ht` tensor while it
+    lives and is not written in place, so a code's cached Hᵀ or P pays the
+    transpose once."""
     hit = _KMAJOR_H.get(id(ht))
     if hit is not None and hit[0] == ht._version:
         return hit[1]

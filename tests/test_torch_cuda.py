@@ -7,8 +7,11 @@ on the card against their CPU runs. The wgmma flash kernels also at the
 edges of their tiles, bitwise repeatable, with HGMMA in their SASS, and
 beside a bf16-P control that shows their split P is needed; the s8 wgmma
 PIM MAC exactly at the PIM shape and at its edges, with IGMMA in its SASS;
-GF(257) operands refused by the int8 kernels and flagged exactly on the
-exact route. Marked
+the s8 wgmma encode exactly at ragged shapes, every field, the int32 edge,
+unaligned words and every tile and grid, with IGMMA in its SASS; FBP at
+every field and dc, ragged row blocks, both strides and bitwise
+repeatable; GF(257) operands refused by the int8 kernels and flagged
+exactly on the exact route. Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -104,6 +107,76 @@ def test_scan_tiles_and_grids_match_plain(dev, tile, grid, p, chunked, rng):
     assert torch.equal(got, gf_matmul.scan_syndromes_plain(y, ht, p))
 
 
+@pytest.mark.parametrize("N", [1, 32, 205, 343])
+@pytest.mark.parametrize("K", [1, 40, 130, 819])
+@pytest.mark.parametrize("M", [1, 67, 4096])
+def test_gf_matmul_matches_plain_at_ragged_shapes(dev, M, K, N, rng):
+    """The encode kernel at one word, a ragged tile and a 4096-word page,
+    K from one byte to wl1024_r08's k (rows 819 bytes apart, no multiple
+    of 16), N from one column to past one tile (wl512_r033's 343):
+    exactly the plain version, one launch."""
+    p = 7
+    a = torch.as_tensor(rng.integers(-3, p + 3, (M, K)), dtype=torch.int8,
+                        device=dev)
+    b = torch.as_tensor(rng.integers(0, p, (K, N)), dtype=torch.int8,
+                        device=dev)
+    n0 = LAUNCHES["gf_matmul"]
+    got = gf_matmul.gf_matmul(a, b, p)
+    assert LAUNCHES["gf_matmul"] == n0 + 1
+    assert torch.equal(got, gf_matmul.gf_matmul_plain(a, b, p))
+
+
+@pytest.mark.parametrize("p", [2, 3, 5, 7, 127])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_gf_matmul_fields_and_unaligned_words(dev, p, offset, rng):
+    """Operands in [-3, p + 3) (the floored mod of negative sums) at each
+    field, with the words an offset view whose rows start at no 16-byte
+    boundary."""
+    M, K, N = 300, 819, 205
+    flat = torch.as_tensor(rng.integers(-3, p + 3, M * K + offset),
+                           dtype=torch.int8, device=dev)
+    a = flat[offset:].view(M, K)
+    assert a.is_contiguous() and a.data_ptr() % 16 == offset % 16
+    b = torch.as_tensor(rng.integers(-3, p + 3, (K, N)), dtype=torch.int8,
+                        device=dev)
+    assert torch.equal(gf_matmul.gf_matmul(a, b, p),
+                       gf_matmul.gf_matmul_plain(a, b, p))
+
+
+def test_gf_matmul_at_the_int32_edge(dev, rng):
+    """K near INT8_K_MAX with every word -128 and every entry p - 1 = 126
+    (sums near -2^31) and some rows over the whole int8 range: the floored
+    residues stay exact."""
+    p, K = 127, gf_matmul.INT8_K_MAX - 5
+    a = torch.full((20, K), -128, dtype=torch.int8, device=dev)
+    a[1::2, :7] = torch.as_tensor(rng.integers(-128, 128, (10, 7)),
+                                  dtype=torch.int8, device=dev)
+    b = torch.full((K, 10), p - 1, dtype=torch.int8, device=dev)
+    b[:, 3] = 0
+    b[:5, 4] = -128
+    assert torch.equal(gf_matmul.gf_matmul(a, b, p),
+                       gf_matmul.gf_matmul_plain(a, b, p))
+
+
+@pytest.mark.parametrize("tile", gf_matmul.GF_TILES)
+@pytest.mark.parametrize("grid", [1, 3, 1000])
+@pytest.mark.parametrize("chunked", [False, True])
+def test_gf_matmul_tiles_and_grids_match_plain(dev, tile, grid, chunked,
+                                               rng):
+    """Every column tile of the encode kernel, with one persistent CTA
+    walking every tile, a few, or one a tile: ragged words, columns within
+    one tile (stored through shared memory) or past it (stored directly),
+    K not a whole stage, words over the whole int8 range."""
+    p = 127
+    M, K, N = 390, 300, 261 if chunked else tile - 3
+    a = torch.as_tensor(rng.integers(-128, 128, (M, K)), dtype=torch.int8,
+                        device=dev)
+    b = torch.as_tensor(rng.integers(0, p, (K, N)), dtype=torch.int8,
+                        device=dev)
+    got = gf_matmul.gf_launch(a, gf_matmul.kmajor_h(b, p), p, tile, grid)
+    assert torch.equal(got, gf_matmul.gf_matmul_plain(a, b, p))
+
+
 def test_scan_at_the_int32_edge(dev, rng):
     """K near INT8_K_MAX with every word -128 and every check entry
     p - 1 = 126: sums near -2^31, divisibility still exact."""
@@ -147,13 +220,35 @@ def test_pim_mac_kernel_matches_plain(dev, M, K, N, R, adc, full, rng):
 
 
 @pytest.mark.parametrize("p", [2, 3, 5, 7])
-@pytest.mark.parametrize("dc", [1, 2, 5, 16, 26])
+@pytest.mark.parametrize("dc", [1, 2, 5, 16, 26, 32])
 def test_fbp_kernel_is_bitwise_plain(dev, p, dc, rng):
     m = (rng.standard_normal((1000, dc, p)) * 4).astype(np.float32)
     m -= m.max(axis=-1, keepdims=True)
     m = torch.as_tensor(m, device=dev)
     got, want = fbp.fbp_cn(m, p), fbp.fbp_cn_plain(m, p)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("p,dc", [(2, 1), (3, 5), (3, 16), (5, 26),
+                                  (7, 31), (7, 32)])
+@pytest.mark.parametrize("N", [1, 3, 117, 52_481])
+def test_fbp_kernel_ragged_blocks_and_repeatable(dev, p, dc, N, rng):
+    """One row, rows under one 128-byte word, a block and one row more
+    (the ragged last block's words past the last whole 128 bytes), and
+    many blocks a CTA, at even and odd row widths (blocks whose copy starts
+    before their first word): bitwise the plain version at the odd stride
+    and at the copy's own one, and two calls bitwise equal."""
+    m = (rng.standard_normal((N, dc, p)) * 4).astype(np.float32)
+    m -= m.max(axis=-1, keepdims=True)
+    m = torch.as_tensor(m, device=dev)
+    n0 = LAUNCHES["fbp_cn"]
+    got, again = fbp.fbp_cn(m, p), fbp.fbp_cn(m, p)
+    assert LAUNCHES["fbp_cn"] == n0 + 2
+    want = fbp.fbp_cn_plain(m, p).view(torch.int32)
+    assert torch.equal(got.view(torch.int32), want)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    assert torch.equal(fbp.fbp_launch(m, p, padded=False).view(torch.int32),
+                       want)
 
 
 def test_decode_on_card_matches_cpu(dev, rng):
@@ -593,8 +688,9 @@ def test_flash_fwd_split_p_is_needed_and_present(dev):
 def test_flash_kernels_run_on_the_tensor_cores(dev):
     """The built library's SASS has bf16 HGMMA (wgmma) instructions in both
     instantiations of the forward, dq and the dk/dv kernel, and s8 IGMMA
-    ones in both of the PIM MAC's (with and without the clip) and in every
-    check tile of the syndrome scan."""
+    ones in both of the PIM MAC's (with and without the clip), in every
+    check tile of the syndrome scan and in every column tile of the
+    encode."""
     import re
     import shutil
     import subprocess
@@ -612,7 +708,9 @@ def test_flash_kernels_run_on_the_tensor_cores(dev):
                             ("flash_bwd_dkv_kernel", "HGMMA.64x", 2),
                             ("pim_mac_kernel", "IGMMA.64x", 2),
                             ("scan_syndromes_kernel", "IGMMA.64x",
-                             len(gf_matmul.SCAN_TILES))):
+                             len(gf_matmul.SCAN_TILES)),
+                            ("gf_matmul_kernel", "IGMMA.64x",
+                             len(gf_matmul.GF_TILES))):
         found = [b for b in bodies if name in b.split("\n", 1)[0]]
         assert len(found) == count, (name, len(found))
         assert all(op in b for b in found), name

@@ -1,7 +1,8 @@
-"""The host-side plans of the port's scan and attend_protected kernels,
-which run on the CPU: the scan's check tile and persistent grid, its
-K-major H kept per Hᵀ tensor, the split attention's pages a step and page
-ranges, and the wrappers' device routing."""
+"""The host-side plans of the port's scan, encode and attend_protected
+kernels, which run on the CPU: the scan's check tile and the encode's
+column tile and their persistent grids, the K-major H and Pᵀ kept per Hᵀ
+and P tensor, the split attention's pages a step and page ranges, and
+the wrappers' device routing."""
 import pytest
 import torch
 
@@ -23,6 +24,48 @@ def test_scan_plan_covers_every_check(M, C):
         assert tile == 256
     tiles = -(-M // gf_matmul.SCAN_ROWS) * -(-C // tile)
     assert ctas == min(tiles, 132)
+
+
+@pytest.mark.parametrize("N", [1, 8, 32, 33, 64, 100, 205, 256, 257, 343,
+                               600])
+@pytest.mark.parametrize("M", [1, 67, 256, 1536, 4096, 491_641])
+@pytest.mark.parametrize("slots", [132, 16])
+def test_gf_plan_covers_every_column(M, N, slots):
+    """The encode's column tiles cover every column in the fewest chunks
+    the widest tile allows, or, when the rows leave SMs idle, in more
+    chunks that still fit one CTA an SM; never more CTAs than tiles or
+    SMs."""
+    tile, ctas = gf_matmul.gf_plan(M, N, slots)
+    assert tile in gf_matmul.GF_TILES
+    chunks = -(-N // tile)
+    assert tile * chunks >= N
+    rows = -(-M // gf_matmul.GF_ROWS)
+    fewest = -(-N // gf_matmul.GF_TILES[-1])
+    if chunks > fewest:                    # split for few words
+        assert rows * chunks <= slots
+    else:
+        assert all(-(-N // t) > fewest for t in gf_matmul.GF_TILES
+                   if t < tile)
+    assert ctas == min(rows * chunks, slots)
+    assert 1 <= ctas <= min(rows * chunks, slots)
+
+
+def test_kmajor_h_keeps_one_pt_per_p():
+    """The encode's B: Pᵀ (c, k16) from a code's cached P, zero past k,
+    one copy while P lives, forgotten with it."""
+    code = get_code("wl1024_r08")
+    P = code.tensor("P", "cpu", torch.int8)
+    bk = gf_matmul.kmajor_h(P, code.p)
+    assert bk.shape == (code.c, -(-code.k // 16) * 16)
+    assert torch.equal(bk[:, :code.k], P.t()) and not bk[:, code.k:].any()
+    assert gf_matmul.kmajor_h(code.tensor("P", "cpu", torch.int8),
+                              code.p) is bk
+    fresh = P.clone()
+    n0 = len(gf_matmul._KMAJOR_H)
+    assert torch.equal(gf_matmul.kmajor_h(fresh, code.p), bk)
+    assert len(gf_matmul._KMAJOR_H) == n0 + 1
+    del fresh
+    assert len(gf_matmul._KMAJOR_H) == n0
 
 
 @pytest.mark.parametrize("name", ["wl40_r08", "wl160_r08", "wl1024_r08"])

@@ -27,7 +27,8 @@ T = torch.as_tensor
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("p", [3, 5, 7])
-@pytest.mark.parametrize("shape", [(1, 5, 1), (37, 40, 8), (64, 160, 32)])
+@pytest.mark.parametrize("shape", [(1, 5, 1), (37, 40, 8), (64, 160, 32),
+                                   (37, 819, 205)])       # wl1024_r08's k
 def test_gf_matmul_plain_matches_pallas_and_oracle(p, shape, rng):
     M, K, N = shape
     assert K * (p - 1) ** 2 < 2 ** 31
