@@ -560,26 +560,17 @@ def phase_kernels(device) -> dict:
                host_ms=host_ms(fn, 200), **extra)
 
     # FBP: one 256-word chunk of wl1024_r08 (p=3, dc 16; the first row),
-    # of wl160_r08_gf5, and of wl1024_r088 (dc 26); beside each, the
-    # kernel's device time at the bulk copy's own row stride in shared
-    # memory (the bank conflicts its odd stride avoids)
+    # of wl160_r08_gf5, and of wl1024_r088 (dc 26)
     for name in ("wl1024_r08", "wl160_r08_gf5", "wl1024_r088"):
         c = get_code(name)
         m = fbp_inputs(c, 256, gen, device)
         N, dc, p = m.shape
         ops = N * (3 * dc - 4) * 2 * p * p
         fn = lambda m=m, p=p: fbp.fbp_cn(m, p)  # noqa: E731
-        unpadded = fbp.fbp_launch(m, p, padded=False)
-        if not torch.equal(unpadded, fbp.fbp_cn_plain(m, p)):
-            raise AssertionError("fbp_cn at the copy's stride differs from "
-                                 "its plain version")
         record("fbp_cn", fbp.fbp_cn(m, p), fbp.fbp_cn_plain(m, p), fn,
                lambda m=m, p=p: fbp.fbp_cn_plain(m, p), None,
                2 * m.numel() * 4, ops, FP32_OPS_PER_S, code=name,
                shape=[N, dc, p], device_ms=device_ms(fn, "fbp_cn_kernel", 20),
-               copy_stride_device_ms=device_ms(
-                   lambda m=m, p=p: fbp.fbp_launch(m, p, padded=False),
-                   "fbp_cn_kernel", 20),
                host_ms=host_ms(fn, 200))
 
     # PIM MAC: (256, 8192) x (8192, 2560), R=64, ideal and 6-level ADC

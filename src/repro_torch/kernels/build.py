@@ -166,8 +166,18 @@ def stream_handle(device) -> int:
 
 @functools.cache
 def sm_count(device) -> int:
-    """The SMs of a CUDA device: the grid a persistent kernel fills."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The SMs of a CUDA device (a device or a CUDA device index): the grid
+    a persistent kernel fills, asked of each device once (every launch of
+    a persistent kernel reads it)."""
+    index = device if isinstance(device, int) else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _sm_count(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def route(name: str, *tensors) -> str:

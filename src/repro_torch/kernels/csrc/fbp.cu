@@ -11,26 +11,26 @@
 // about 3 * dc * p^2 adds and maxes, a few operations per byte.
 //
 // Design (Hopper, sm_90a). Persistent CTAs of 128 threads walk blocks of
-// RB rows. A block is one contiguous range of RB * dc * p floats: seen as
-// rows of 32 floats, it arrives by one TMA tensor copy (from the 128-byte
-// row at or below its first word, so any RB will do) on its mbarrier, in
-// a ring of two slots, a block ahead. The threads then repack it to
-// an odd row stride S (dc p or dc p + 1 words), so that a warp's 32 rows,
-// one a thread, fall on 32 different banks (at the copy's own stride of
-// dc p = 48 words a warp's reads collide 16 ways); the words past the
-// tensor map's last whole 128-byte row (fewer than 32) come straight from
-// device memory. One thread runs one row, with its chains in the plain
-// version's order: the backward pass writes bm[t] (the conv of slots
-// t..dc-1) into slot t of the row's output, the forward pass reads
-// bm[t+1] from slot t+1 before it overwrites slot t with the extrinsic,
-// so a thread holds O(p) registers whatever dc is, and one instantiation
-// per p serves every dc. Every term is one float add and the max is exact,
-// so the output is bitwise equal to the plain version and to the JAX
-// oracle. The output lives in the block's own slot, free once repacked,
-// and leaves by coalesced stores while the next blocks land. Shared
-// memory is sized so that three CTAs fit an SM. The copies between shared buffers and out to device memory take
-// UNROLL rows a warp at once, loads first: a load after a store waits for
-// it, as the compiler cannot tell the buffers apart.
+// RB rows, RB a multiple of 4. A block is one contiguous range of
+// RB * dc * p floats, 16-byte aligned, so it arrives by one 1-D bulk copy
+// (cp.async.bulk, no tensor map to encode on the host) on its mbarrier, in
+// a ring of two slots, a block ahead; the ragged last block's words past
+// its last whole 16 bytes (fewer than 4) come straight from device memory.
+// The threads then repack the block to the odd row stride S = dc p | 1,
+// so that a warp's 32 rows, one a thread, fall on 32 different banks (at
+// the copy's own stride of dc p = 48 words a warp's reads collide 16
+// ways). One thread runs one row, with its chains in the plain version's
+// order: the backward pass writes bm[t] (the conv of slots t..dc-1) into
+// slot t of the row's output, the forward pass reads bm[t+1] from slot
+// t+1 before it overwrites slot t with the extrinsic, so a thread holds
+// O(p) registers whatever dc is, and one instantiation per p serves every
+// dc. Every term is one float add and the max is exact, so the output is
+// bitwise equal to the plain version and to the JAX oracle. The output
+// lives in the block's own slot, free once repacked, and leaves by
+// coalesced stores while the next blocks land. Shared memory is sized so
+// that three CTAs fit an SM. The copies between shared buffers and out to
+// device memory take UNROLL rows a warp at once, loads first: a load after
+// a store waits for it, as the compiler cannot tell the buffers apart.
 //
 // Why three CTAs an SM and the unrolled copies: at 8 warps an SM these
 // copy loops and the chains, each load waiting behind a store, ran slower
@@ -150,17 +150,13 @@ __device__ __forceinline__ void copy_rows(const float* src, int sw,
 }
 
 // Shared memory: NBUF slots of `slot` floats (a multiple of 32, at least
-// 32 BR and RB S), each a block's box as copied and then, once repacked,
-// its output at stride S; the repacked input (RB x S); an mbarrier a slot.
-// Block b of the grid's walk holds rows [b RB, b RB + RB). `map` is m as
-// (N W / 32) rows of 32 floats, boxes of BR rows; its rows end at word
-// `mapped`.
+// RB S), each a block as copied (stride dc p) and then, once repacked, its
+// output at stride S; the repacked input (RB x S); an mbarrier a slot.
+// Block b of the grid's walk holds rows [b RB, b RB + RB).
 template <int P>
 __global__ void __launch_bounds__(THREADS)
-fbp_cn_kernel(const __grid_constant__ CUtensorMap map,
-              const float* __restrict__ m, float* __restrict__ out, int N,
-              int dc, int S, int RB, int slot, int BR, int nblocks,
-              long mapped) {
+fbp_cn_kernel(const float* __restrict__ m, float* __restrict__ out, int N,
+              int dc, int S, int RB, int slot, int nblocks) {
   using namespace sm90;
   extern __shared__ __align__(128) float sm[];
   const int W = dc * P;
@@ -170,17 +166,20 @@ fbp_cn_kernel(const __grid_constant__ CUtensorMap map,
   const int warp = threadIdx.x / 32;
   const int nb = (nblocks - (int)blockIdx.x + (int)gridDim.x - 1) /
                  (int)gridDim.x;             // this CTA's blocks
-  // block i of this CTA into slot i % NBUF, by thread 0: the box of BR
-  // rows of 32 floats from the one that holds its first word (no copy for
-  // a block wholly past the map's rows)
+  // the whole 16-byte words of block i of this CTA, as floats
+  auto copied = [&](int i) {
+    const long row0 = (blockIdx.x + (long)i * gridDim.x) * RB;
+    const int rows = (int)(N - row0 < RB ? N - row0 : RB);
+    return rows * W / 4 * 4;
+  };
+  // block i of this CTA into slot i % NBUF, by thread 0
   auto issue = [&](int i) {
     const long row0 = (blockIdx.x + (long)i * gridDim.x) * RB;
     const uint32_t bar = bars + 8 * (i % NBUF);
-    const bool copy = row0 * W / 32 * 32 < mapped;
-    mbar_expect(bar, copy ? BR * 128 : 0);
-    if (copy)
-      tma_load(smem_u32(raw + (i % NBUF) * slot), &map, bar, 0,
-               (int)(row0 * W / 32));
+    const uint32_t bytes = 4u * copied(i);
+    mbar_expect(bar, bytes);
+    if (bytes)
+      bulk_load(smem_u32(raw + (i % NBUF) * slot), m + row0 * W, bytes, bar);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < NBUF; ++s) mbar_init(bars + 8 * s);
@@ -193,18 +192,13 @@ fbp_cn_kernel(const __grid_constant__ CUtensorMap map,
   for (int i = 0; i < nb; ++i) {
     const long row0 = (blockIdx.x + (long)i * gridDim.x) * RB;
     const int rows = (int)(N - row0 < RB ? N - row0 : RB);
-    // the box starts `lead` words before the block; of the block's words
-    // it holds the first `copied`
-    const long box0 = row0 * W / 32 * 32;
-    const int lead = (int)(row0 * W - box0);
-    const long held = mapped - box0 < 32L * BR ? mapped - box0 : 32L * BR;
-    const int copied = (int)(held - lead < 0 ? 0 : held - lead);
+    const int held = copied(i);
     float* src = raw + (i % NBUF) * slot;
     mbar_wait(bars + 8 * (i % NBUF), (i / NBUF) & 1);
     for (int r = warp; r < rows; r += 4 * UNROLL)
-      copy_rows(src + lead, W, pin, S, r, rows, W, copied);
-    // the block's words past the map's last row, from device memory
-    for (int w = copied + threadIdx.x; w < rows * W; w += THREADS)
+      copy_rows(src, W, pin, S, r, rows, W, held);
+    // the block's words past its last whole 16 bytes, from device memory
+    for (int w = held + threadIdx.x; w < rows * W; w += THREADS)
       pin[w / W * S + w % W] = m[row0 * W + w];
     // every thread is past its repack of block i (so its slot takes the
     // output) and past its stores of block i - 1 (whose slot, free now,
@@ -222,53 +216,31 @@ fbp_cn_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-// rows a block: as many as SMEM_BUDGET holds (slots of RB S floats and
-// up to 64 more), at most one a thread and as many as one box of 256 rows
-// of 32 floats holds after a lead of up to 31 words
-int block_rows(int S, int W) {
-  int rows = (SMEM_BUDGET - 8 * NBUF - 8 - 4 * 64 * NBUF) /
+// rows a block: as many as SMEM_BUDGET holds (NBUF + 1 buffers of RB S
+// floats, each slot rounded up by up to 31 floats), at most one a thread,
+// a multiple of 4 so that every block starts 16-byte aligned
+int block_rows(int S) {
+  int rows = (SMEM_BUDGET - 8 * NBUF - 8 - 4 * 32 * NBUF) /
              (4 * (NBUF + 1) * S);
   rows = rows < THREADS ? rows : THREADS;
-  return rows < (256 * 32 - 31) / W ? rows : (256 * 32 - 31) / W;
-}
-
-int sm_count() {
-  static int count[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (count[dev & 63] == 0)
-    cudaDeviceGetAttribute(&count[dev & 63], cudaDevAttrMultiProcessorCount,
-                           dev);
-  return count[dev & 63];
+  return rows / 4 * 4;
 }
 
 template <int P>
-int launch(const float* m, float* out, int N, int dc, bool padded,
+int launch(const float* m, float* out, int N, int dc, int sms,
            cudaStream_t stream) {
-  const int W = dc * P, S = padded ? (W | 1) : W;
-  const int RB = block_rows(S, W);
-  if (RB < 1) return (int)cudaErrorInvalidValue;
-  const int BR = (RB * W + 31 + 31) / 32;    // the box: a lead and the block
-  // m as rows of 32 floats (128 bytes), as many as it fills (at least one
-  // for the map, though none is copied when it fills none)
-  const long mapped = (long)N * W / 32 * 32;
-  const cuuint64_t dims[2] = {32, (cuuint64_t)(mapped > 0 ? mapped / 32 : 1)};
-  const cuuint64_t strides[1] = {128};
-  const cuuint32_t box[2] = {32, (cuuint32_t)BR};
-  CUtensorMap map;
-  if (!sm90::tensor_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, m, dims,
-                        strides, box, false))
-    return (int)cudaErrorInvalidValue;
-  const int slot = (RB * S > 32 * BR ? (RB * S + 31) / 32 : BR) * 32;
+  const int W = dc * P, S = W | 1;
+  const int RB = block_rows(S);
+  if (RB < 4 || sms < 1) return (int)cudaErrorInvalidValue;
+  const int slot = (RB * S + 31) / 32 * 32;
   const size_t smem =
       (size_t)4 * (NBUF * slot + (RB * S + 1) / 2 * 2) + 8 * NBUF;
   cudaError_t e = sm90::smem_attr_once<fbp_cn_kernel<P>>(SMEM_BUDGET);
   if (e != cudaSuccess) return (int)e;
-  const int nblocks = (N + RB - 1) / RB, slots = 3 * sm_count();
+  const int nblocks = (N + RB - 1) / RB, slots = 3 * sms;
   const int grid = nblocks < slots ? nblocks : slots;
-  fbp_cn_kernel<P><<<grid, THREADS, smem, stream>>>(map, m, out, N, dc, S,
-                                                     RB, slot, BR, nblocks,
-                                                     mapped);
+  fbp_cn_kernel<P><<<grid, THREADS, smem, stream>>>(m, out, N, dc, S, RB,
+                                                     slot, nblocks);
   return (int)cudaGetLastError();
 }
 
@@ -276,10 +248,9 @@ int launch(const float* m, float* out, int N, int dc, bool padded,
 
 extern "C" {
 
-// m and out (N, dc, p) float32, contiguous, 16-byte aligned; padded 0
-// keeps the copy's own row stride in shared memory (for measuring the
-// bank conflicts the odd stride avoids)
-int rt_fbp_cn(const void* m, void* out, int N, int dc, int p, int padded,
+// m and out (N, dc, p) float32, contiguous, 16-byte aligned; sms the
+// device's SMs (three CTAs an SM at most)
+int rt_fbp_cn(const void* m, void* out, int N, int dc, int p, int sms,
               void* stream) {
   if (N == 0) return 0;
   if (dc < 1 || (uintptr_t)m % 16 || (uintptr_t)out % 16)
@@ -288,10 +259,10 @@ int rt_fbp_cn(const void* m, void* out, int N, int dc, int p, int padded,
   float* mo = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (p) {
-    case 2: return launch<2>(mi, mo, N, dc, padded, s);
-    case 3: return launch<3>(mi, mo, N, dc, padded, s);
-    case 5: return launch<5>(mi, mo, N, dc, padded, s);
-    case 7: return launch<7>(mi, mo, N, dc, padded, s);
+    case 2: return launch<2>(mi, mo, N, dc, sms, s);
+    case 3: return launch<3>(mi, mo, N, dc, sms, s);
+    case 5: return launch<5>(mi, mo, N, dc, sms, s);
+    case 7: return launch<7>(mi, mo, N, dc, sms, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

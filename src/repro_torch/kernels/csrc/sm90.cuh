@@ -191,6 +191,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from `src` in device memory to `dst` in
+// shared memory, both 16-byte aligned, by one 1-D bulk copy
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // make this thread's mbarrier inits visible to the copies that complete on
 // them (a barrier then publishes them to the CTA)
 __device__ __forceinline__ void fence_mbar_init() {

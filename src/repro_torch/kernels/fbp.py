@@ -7,9 +7,10 @@ runs the forward and backward chains of cyclic max-plus convolutions over
 the dc slots, and returns every slot's extrinsic conv(fm[t-1], bm[t+1])
 reflected k -> -k. The CUDA kernel (`csrc/fbp.cu`) runs one row per
 thread, in the plain version's order, so the two are bitwise equal: its
-persistent CTAs take blocks of rows by bulk copies, repack them to an odd
-row stride in shared memory, and keep the backward chain in each row's
-output slots, so a thread's registers do not grow with dc.
+persistent CTAs (at most three an SM) take blocks of rows by 1-D bulk
+copies, repack them to an odd row stride in shared memory, and keep the
+backward chain in each row's output slots, so a thread's registers do not
+grow with dc.
 
 Bound on the card: bytes (a few operations per byte); see the note in
 `csrc/fbp.cu`.
@@ -98,20 +99,12 @@ def fbp_cn(m_hat: torch.Tensor, p: int) -> torch.Tensor:
     m = m_hat.contiguous()
     if m.data_ptr() % 16:              # the bulk copies' alignment
         m = m.clone()
-    return fbp_launch(m, p)
-
-
-def fbp_launch(m: torch.Tensor, p: int, padded: bool = True) -> torch.Tensor:
-    """The kernel on contiguous, 16-byte-aligned (N, dc, p) float32 `m`.
-    `padded=False` keeps the bulk copy's own row stride in shared memory,
-    whose bank conflicts the odd stride avoids (a measurement, not a
-    path)."""
-    N, dc, _ = m.shape
     out = torch.empty_like(m)
     if N == 0:
         return out
     err = build.library().rt_fbp_cn(m.data_ptr(), out.data_ptr(), N, dc, p,
-                                    int(padded), build.stream_handle(m.device))
+                                    build.sm_count(m.device),
+                                    build.stream_handle(m.device))
     build.check(err, "fbp_cn")
     build.LAUNCHES["fbp_cn"] += 1
     return out
