@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
      the main path's shapes, and time both: the integer kernels and FBP
      with exact equality (the scan also at the decoder's 256-word check
      and a ragged tail of it, a paged-store page, n = 40, C = 343 and p =
-     5 and 7), `attend_protected` to a few bf16 ulps (rtol 2^-7, atol
+     5 and 7, and with FBP at a PIM serving projection's words at the
+     prefill and at a decode step), `attend_protected` to a few bf16 ulps (rtol 2^-7, atol
      2^-10) and bitwise repeatable at the serving shape (paper-pim-2b heads,
      wl160_r08 pages, NP 32, hot page), hot-only (NP 0), with softcaps of
      50 and of 2 (one that bites on logits of about N(0, 1)), with
@@ -75,9 +76,30 @@ Phases (any failure exits non-zero):
      flash, 6 training steps (flash_fwd 80, flash_bwd_dq 40 and
      flash_bwd_dkv 40 launches per step), peak memory, one more step
      under torch.profiler (step time, busy share, each flash kernel's
-     share of the busy time).
+     share of the busy time);
+ 12. PIM-protected serving, right after phase 9 on its model and prompts:
+     for mlp_down and attn_o at the prefill's and a decode step's shapes,
+     the MAC against its plain version and the whole protected matmul
+     against the plain CPU run under the same output noise (exactly),
+     then `encode_params_for_pim` on the card (layer 0's
+     int8 cells exactly against the plain CPU encode of the same ternary
+     weights) and prefill plus 16 greedy `decode_step`s with
+     `pim_ctx=PIMContext(cfg.pim)` (mlp_down and attn_o on wl320_r08) and
+     phase 8's protected KV cache, three times: fault-free; with PIM
+     output errors at 2e-5 in mode "correct", which must give the
+     fault-free tokens and logits bit for bit with no uncorrected word;
+     and the same errors with protection off, whose logits must differ.
+     Then one clean step under torch.profiler;
+ 13. the paper's BER campaign, `run_campaign(paper_schemes(wl1024_r08))`
+     over nine raw BERs at the JAX bench's settings (NB-LDPC decoding on
+     the card; first two draws' decode and residuals held against the
+     CPU's exactly): the acceptance row must exist with NB-LDPC >= 10x,
+     Hamming SECDED must improve > 50x at 1e-4 and < 3x at 1e-2, the
+     modulo checksum 1x at 1e-3; wl1024_r088's conditional residuals for
+     m = 1..12 are logged.
 
-Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
+The phases run in the order 1-9, 12, 13, 10, 11 (phase 12 needs phase
+8's model, which is freed before training). Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
 their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
 logged) at the training and prefill shapes, a ragged
@@ -87,9 +109,10 @@ memory-efficient and cuDNN backends that takes the case (the fastest is
 the yardstick; the port never calls SDPA).
 
 Kernel launch counts are reset just before each main path, memory and
-PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9) and
-training (phases 10-11), and read just after it: every kernel must have
-run on its path. Each entry-point call of phases
+PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9),
+PIM-protected serving (phase 12, from the precode to the third run),
+the campaign (phase 13) and training (phases 10-11), and read just after
+it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
 decode step. The last lines are the card's name and power limit, one JSON
@@ -119,6 +142,18 @@ SERVE_BATCH = 4                    # requests served together
 SERVE_PROMPT = 512                 # prompt tokens per request
 SERVE_STEPS = 32                   # greedy decode steps
 SERVE_FLIP = 2e-5                  # uniform_flip rate injected after prefill
+PIM_STEPS = 16                     # greedy decode steps of each PIM run
+PIM_FAULT_RATE = 2e-5              # PIM output errors of runs (b) and (c)
+# wl320_r08 words of one protected projection of the PIM serving phase
+# (2048 outputs a row: 8 words of 256 info and 64 check cells), at the
+# prefill (4 x 512 rows) and at a decode step (4 rows)
+PIM_PREFILL_WORDS = SERVE_BATCH * SERVE_PROMPT * 8
+PIM_DECODE_WORDS = SERVE_BATCH * 8
+PIM_CHECK_NOISE = 1e-3             # out_noise of the card-vs-CPU check
+# the BER campaign: the JAX package's bench settings
+# (benchmarks/bench_memory_mode.py)
+CAMPAIGN_BERS = [3e-2, 2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 3e-4, 1e-4, 1e-5]
+CAMPAIGN_TRIALS, CAMPAIGN_HAMMING_TRIALS = 64, 4096
 # attend_protected vs its plain version, and the card's small decode vs
 # the CPU's: a few bf16 ulps (both round K/V and the logits to bf16 at the
 # same places and sum in fp32 in their own orders)
@@ -441,7 +476,13 @@ GF_CASES = [("wl1024_r08", 4096), ("wl160_r08", 1536)]
 SCAN_CASES = [("wl1024_r08", 4096, 0.1), ("wl1024_r08", 256, 0.1),
               ("wl1024_r08", 67, 0.1), ("wl160_r08", 1536, 0.01),
               ("wl40_r08", 4096, 0.1), ("wl512_r033", 1024, 0.1),
-              ("wl160_r08_gf5", 1024, 0.1), ("wl160_r08_gf7", 1024, 0.1)]
+              ("wl160_r08_gf5", 1024, 0.1), ("wl160_r08_gf7", 1024, 0.1),
+              ("wl320_r08", PIM_PREFILL_WORDS, 0.1),
+              ("wl320_r08", PIM_DECODE_WORDS, 0.1)]
+# code, words: phase 2's FBP updates (words x checks rows)
+FBP_CASES = [("wl1024_r08", 256), ("wl160_r08_gf5", 256),
+             ("wl1024_r088", 256), ("wl320_r08", PIM_PREFILL_WORDS),
+             ("wl320_r08", PIM_DECODE_WORDS)]
 
 
 def phase_kernels(device) -> dict:
@@ -474,7 +515,8 @@ def phase_kernels(device) -> dict:
     # cell, through the code's cached Hᵀ: a page of 4096 words of
     # wl1024_r08 (the first row), the decoder's check (256 words of hard
     # decisions) and a ragged 67-word tail of it, a paged-store page
-    # (wl160_r08 at the serving page size), n = 40, C = 343, p = 5 and 7
+    # (wl160_r08 at the serving page size), n = 40, C = 343, p = 5 and 7,
+    # and a PIM serving projection's words at the prefill and at a step
     for name, words, share in SCAN_CASES:
         c = get_code(name)
         u = rng.integers(0, c.p, (words, c.k))
@@ -560,10 +602,11 @@ def phase_kernels(device) -> dict:
                host_ms=host_ms(fn, 200), **extra)
 
     # FBP: one 256-word chunk of wl1024_r08 (p=3, dc 16; the first row),
-    # of wl160_r08_gf5, and of wl1024_r088 (dc 26)
-    for name in ("wl1024_r08", "wl160_r08_gf5", "wl1024_r088"):
+    # of wl160_r08_gf5, and of wl1024_r088 (dc 26); a PIM serving
+    # projection's words (wl320_r08, dc 15) at the prefill and at a step
+    for name, words in FBP_CASES:
         c = get_code(name)
-        m = fbp_inputs(c, 256, gen, device)
+        m = fbp_inputs(c, words, gen, device)
         N, dc, p = m.shape
         ops = N * (3 * dc - 4) * 2 * p * p
         fn = lambda m=m, p=p: fbp.fbp_cn(m, p)  # noqa: E731
@@ -1006,9 +1049,11 @@ def _layer_corrections(caches) -> dict:
     return out
 
 
-def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
-    """prefill, optionally inject, then SERVE_STEPS greedy decode steps.
-    Returns tokens, every step's logits, times and per-step launches."""
+def serve_once(params, cfg, prompts, pkv, *, inject: bool, pim_ctx=None,
+               steps: int = SERVE_STEPS) -> dict:
+    """prefill, optionally inject, then `steps` greedy decode steps, with
+    `pim_ctx` protecting its projections where given. Returns tokens,
+    every step's logits, times and per-step launches."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.memory import uniform_flip
@@ -1017,7 +1062,7 @@ def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches = prefill(params, cfg, prompts, protected_kv=pkv,
-                             max_seq=S + SERVE_STEPS)
+                             max_seq=S + steps, pim_ctx=pim_ctx)
     tok = logits[:, -1:].argmax(dim=-1)
     tok.cpu()                                  # the first token is out
     ttft = time.perf_counter() - t0
@@ -1027,9 +1072,10 @@ def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
     torch.cuda.synchronize()
     toks, step_logits, per_step = [tok], [], []
     t1 = time.perf_counter()
-    for i in range(SERVE_STEPS):
+    for i in range(steps):
         before = dict(build.LAUNCHES)
-        lg, caches = decode_step(params, cfg, caches, tok, S + i)
+        lg, caches = decode_step(params, cfg, caches, tok, S + i,
+                                 pim_ctx=pim_ctx)
         per_step.append({k: v - before.get(k, 0)
                          for k, v in build.LAUNCHES.items()
                          if v - before.get(k, 0)})
@@ -1039,7 +1085,7 @@ def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t1
     logits_all = torch.cat(step_logits, dim=1)          # (B, steps, V)
-    if logits_all.shape != (B, SERVE_STEPS, cfg.vocab_size) or not bool(
+    if logits_all.shape != (B, steps, cfg.vocab_size) or not bool(
             torch.isfinite(logits_all).all()):
         raise AssertionError(f"serving logits: shape "
                              f"{tuple(logits_all.shape)} or not finite")
@@ -1047,8 +1093,8 @@ def serve_once(params, cfg, prompts, pkv, *, inject: bool) -> dict:
             "logits": logits_all, "ttft_s": ttft, "decode_s": decode_s,
             "cells_changed": changed, "per_step": per_step,
             "prefill_tokens_per_s": B * S / ttft,
-            "decode_tokens_per_s": B * SERVE_STEPS / decode_s,
-            "ms_per_decode_step": decode_s / SERVE_STEPS * 1e3}
+            "decode_tokens_per_s": B * steps / decode_s,
+            "ms_per_decode_step": decode_s / steps * 1e3}
 
 
 def phase_serving(device) -> tuple[dict, dict, tuple]:
@@ -1129,7 +1175,7 @@ def phase_serving(device) -> tuple[dict, dict, tuple]:
     return report, launches, (cfg, params, prompts)
 
 
-def profile_decode_step(params, cfg, prompts, pkv) -> dict:
+def profile_decode_step(params, cfg, prompts, pkv, pim_ctx=None) -> dict:
     """One clean decode step (after a prefill and one warm step) under
     torch.profiler: wall time, device busy time (the union of the device
     events' intervals), the top device kernels, and the host ops with the
@@ -1139,14 +1185,16 @@ def profile_decode_step(params, cfg, prompts, pkv) -> dict:
     state = {}
 
     def setup():
-        logits, caches = prefill(params, cfg, prompts, protected_kv=pkv)
+        logits, caches = prefill(params, cfg, prompts, protected_kv=pkv,
+                                 pim_ctx=pim_ctx)
         tok = logits[:, -1:].argmax(dim=-1)
-        lg, state["caches"] = decode_step(params, cfg, caches, tok, S)
+        lg, state["caches"] = decode_step(params, cfg, caches, tok, S,
+                                          pim_ctx=pim_ctx)
         state["tok"] = lg[:, -1:].argmax(dim=-1)
 
     got = profiled_device(
         lambda: decode_step(params, cfg, state["caches"], state["tok"],
-                            S + 1), cpu=True, setup=setup)
+                            S + 1, pim_ctx=pim_ctx), cpu=True, setup=setup)
     res, _ = busy_report(got, "step_wall_ms_profiled", 8)
     if got is not None:
         host = sorted(((e.key, e.self_cpu_time_total, e.count)
@@ -1155,6 +1203,277 @@ def profile_decode_step(params, cfg, prompts, pkv) -> dict:
         res["top_host_ops_self_ms_calls"] = {
             k[:60]: [us / 1e3, n] for k, us, n in host}
     return res
+
+
+# ---------------------------------------------------------------------------
+# PIM-protected serving and the BER campaign
+# ---------------------------------------------------------------------------
+
+
+def phase_pim_serving(device, cfg, params, prompts) -> tuple[dict, dict]:
+    """paper-pim-2b served with its mlp_down and attn_o projections on the
+    protected PIM path (`PIMContext(cfg.pim)`: wl320_r08, n_iters 4,
+    damping 0.3, row parallelism 64) and the protected KV cache of phase
+    8, on phase 8's model and prompts. First, for each target at the
+    path's prefill and decode-step shapes: the MAC against its plain
+    version, and the whole protected matmul on the card against the plain
+    CPU run under the same output noise (PIM_CHECK_NOISE), exactly. Then,
+    launch counts reset: `encode_params_for_pim` on the card, layer 0's cells
+    against the plain CPU encode of the same ternary weights, and
+    prefill plus PIM_STEPS greedy decode steps three times: (a)
+    fault-free, (b) PIM output errors at PIM_FAULT_RATE corrected, (c)
+    the same errors with protection off. (b) must give (a)'s tokens and
+    logits bit for bit with no uncorrected word, (c)'s logits must
+    differ. Returns (report, the launches of the precode and the three
+    runs); one clean step is profiled after the count is read."""
+    import dataclasses
+    import torch
+    from repro_torch.core import (PIMConfig, PIMContext, ProtectionConfig,
+                                  prepare_weights, protected_pim_matmul,
+                                  strip_padding)
+    from repro_torch.kernels import build, pim_mac as mac
+    from repro_torch.models import ProtectedKVConfig, encode_params_for_pim
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    B, S = prompts.shape
+    n_layers = cfg.n_groups * len(cfg.group_spec)
+    spec = cfg.pim
+    code = PIMContext(spec).code
+    n_enc = -(-cfg.d_model // code.k) * code.n     # output columns + checks
+
+    # each protected projection at the path's prefill and decode-step
+    # shapes, on seeded ternary weights: the MAC against its plain
+    # version, then the whole protected matmul (MAC, check, decode) on the
+    # card against the plain CPU run under the same output noise, exactly
+    mac_checks, card_vs_cpu = {}, {}
+    prot = ProtectionConfig(code_name=spec.code_name, mode="correct",
+                            n_iters=spec.n_iters, damping=spec.damping)
+    pim_cfg = PIMConfig(row_parallelism=spec.row_parallelism,
+                        adc_levels=spec.adc_levels, p=code.p)
+    kw = dict(row_parallelism=spec.row_parallelism,
+              adc_levels=spec.adc_levels)
+
+    def info(y):                          # the data cells of each word
+        return y.reshape(y.shape[0], -1, code.n)[..., :code.k].reshape(
+            y.shape[0], -1)[:, :cfg.d_model]
+
+    blk = params.block(0, 0)
+    for target, n_in in (("mlp_down", blk.mlp.w_down.shape[0]),
+                         ("attn_o", blk.attn.wo.shape[0])):
+        W = torch.randint(-1, 2, (n_in, cfg.d_model), generator=gen,
+                          device=device, dtype=torch.int8)
+        w = prepare_weights(W, code)
+        x = torch.randint(-7, 8, (B * S, n_in), generator=gen,
+                          device=device, dtype=torch.int8)
+        hit = torch.rand((B * S, n_enc), generator=gen,
+                         device=device) < PIM_CHECK_NOISE
+        sign = torch.randint(0, 2, hit.shape, generator=gen, device=device)
+        noise = (hit * (2 * sign - 1)).to(torch.int32)
+        for rows in (B * S, B):           # the prefill's and a decode step's
+            shape = f"{rows}x{n_in}x{n_enc}"
+            got = mac.pim_mac(x[:rows], w, **kw)
+            want = mac.pim_mac_plain(x[:rows], w, **kw)
+            if not torch.equal(got, want):
+                raise AssertionError(f"pim_mac at {shape} differs from its "
+                                     f"plain version")
+            mac_checks[shape] = {
+                "max_abs_err": float((got - want).abs().max()),
+                "device_ms": device_ms(
+                    lambda r=rows, x=x, w=w: mac.pim_mac(x[:r], w, **kw),
+                    "pim_mac", 20)}
+            args = (code, prot, pim_cfg)
+            res = protected_pim_matmul(x[:rows], w, *args,
+                                       out_noise=noise[:rows])
+            ref = protected_pim_matmul(x[:rows].cpu(), w.cpu(), *args,
+                                       out_noise=noise[:rows].cpu())
+            for part, a, b in zip(res._fields, res, ref, strict=True):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{target} protected matmul at "
+                                         f"{shape}: {part} on the card "
+                                         f"differs from the CPU")
+            clean = info(want)            # the systematic code: x @ W
+            card_vs_cpu[f"{target} {shape}"] = {
+                "words": res.detected.numel(),
+                "detected_words": int(res.detected.sum()),
+                "uncorrected_words": int(res.uncorrected.sum()),
+                "outputs_wrong_before": float(
+                    (info(want + noise[:rows]) != clean).float().mean()),
+                "outputs_wrong_after": float(
+                    (strip_padding(res.y, cfg.d_model) != clean)
+                    .float().mean())}
+            if card_vs_cpu[f"{target} {shape}"]["detected_words"] == 0:
+                raise AssertionError(f"{target} at {shape}: the check noise "
+                                     f"flagged no word")
+        del W, w, x, noise, hit, sign
+    log(f"  pim_mac at the serving shapes (exact): {json.dumps(mac_checks)}")
+    log(f"  protected matmul at the serving shapes, card == CPU under "
+        f"{PIM_CHECK_NOISE} output noise: {json.dumps(card_vs_cpu)}")
+
+    pkv = ProtectedKVConfig(code_name="wl160_r08", page_tokens=16)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encode_params_for_pim(params, cfg)
+    torch.cuda.synchronize()
+    precode_s = time.perf_counter() - t0
+    precode_launches = dict(build.LAUNCHES)
+    for module, name in ((blk.mlp, "w_down"), (blk.attn, "wo")):
+        Wq, _ = PIMContext.ternarize(getattr(module, name))
+        want = prepare_weights(Wq.to(torch.int8).cpu(), code)
+        if not torch.equal(getattr(module, f"{name}_enc").cpu(), want):
+            raise AssertionError(f"layer 0 {name}_enc differs from the "
+                                 f"plain CPU encode")
+    leaves = params.pim_leaves()
+    enc_bytes = sum(t.numel() for k, ts in leaves.items()
+                    if k.endswith("_enc") for t in ts)
+
+    ctxs = {"clean": PIMContext(spec),
+            "faulted": PIMContext(spec).with_faults(SEED, PIM_FAULT_RATE),
+            "unprotected": PIMContext(dataclasses.replace(
+                spec, mode="off")).with_faults(SEED, PIM_FAULT_RATE)}
+    runs = {name: serve_once(params, cfg, prompts, pkv, inject=False,
+                             pim_ctx=ctx, steps=PIM_STEPS)
+            for name, ctx in ctxs.items()}
+    launches = dict(build.LAUNCHES)
+
+    report = {"arch": cfg.name, "layers": n_layers, "batch": B,
+              "prompt_tokens": S, "decode_steps": PIM_STEPS,
+              "pim_code": spec.code_name, "targets": list(spec.targets),
+              "n_iters": spec.n_iters, "row_parallelism":
+                  spec.row_parallelism, "kv_code": pkv.code_name,
+              "fault_rate": PIM_FAULT_RATE, "precode_s": precode_s,
+              "precode_launches": precode_launches,
+              "encoded_int8_bytes": enc_bytes,
+              "enc_shapes": {k: [len(ts), *ts[0].shape]
+                             for k, ts in leaves.items()},
+              "mac_checks": mac_checks}
+    for name, r in runs.items():
+        steps = r["per_step"]
+        report[name] = {k: r[k] for k in (
+            "ttft_s", "decode_s", "prefill_tokens_per_s",
+            "decode_tokens_per_s", "ms_per_decode_step")}
+        report[name]["pim"] = ctxs[name].stats()
+        report[name]["launches_per_step_mean"] = {
+            k: sum(st.get(k, 0) for st in steps) / len(steps)
+            for k in sorted({k for st in steps for k in st})}
+    clean, bad, off = runs["clean"], runs["faulted"], runs["unprotected"]
+    report["unprotected_logit_drift"] = {
+        "max_abs": float((off["logits"] - clean["logits"]).abs().max()),
+        "tokens_equal_share": float(
+            (off["tokens"] == clean["tokens"]).float().mean())}
+    log(f"  pim serving: {json.dumps(report)}")
+
+    fault_stats = report["faulted"]["pim"]
+    if fault_stats["uncorrected_words"] != 0:
+        raise AssertionError(f"faulted PIM run: uncorrected words "
+                             f"{fault_stats}")
+    if fault_stats["detected_words"] <= 0:
+        raise AssertionError("faulted PIM run: no word was flagged")
+    if not torch.equal(bad["tokens"], clean["tokens"]) or not torch.equal(
+            bad["logits"], clean["logits"]):
+        err = float((bad["logits"] - clean["logits"]).abs().max())
+        raise AssertionError(f"faulted PIM run differs from the fault-free "
+                             f"run (logits max abs {err})")
+    if torch.equal(off["logits"], clean["logits"]):
+        raise AssertionError("unprotected PIM run under faults equals the "
+                             "fault-free run: the faults did not bite")
+    for name, r in runs.items():
+        counts = [st.get("attend_protected", 0) for st in r["per_step"]]
+        if counts != [n_layers] * PIM_STEPS:
+            raise AssertionError(f"{name} PIM run: attend_protected "
+                                 f"launches per step {counts}")
+        del r["caches"]
+    report["profile_step"] = profile_decode_step(params, cfg, prompts, pkv,
+                                                 PIMContext(spec))
+    log(f"  pim serving, one clean step profiled: "
+        f"{json.dumps(report['profile_step'])}")
+    return report, launches
+
+
+def phase_campaign(device) -> tuple[dict, dict]:
+    """The paper's BER comparison on the card: `run_campaign` of
+    `paper_schemes(wl1024_r08)` (NB-LDPC decoding on the card, Hamming
+    SECDED, the modulo checksum, no code) over CAMPAIGN_BERS at the JAX
+    package's bench settings. Checks: an acceptance row exists and
+    NB-LDPC improves >= 10x there; Hamming improves > 50x at 1e-4 and
+    < 3x at 1e-2; the detect-only checksum improves nothing at 1e-3.
+    Before the campaign, one draw's decode and residuals on the card are
+    held against the CPU's on the same words. Then, logged only: the conditional residuals of wl1024_r088 for m =
+    1..12 (the abstract's "corrects up to 8-bit errors at rate > 88%").
+    Returns (report, the campaign's launches)."""
+    import torch
+    from repro_torch.core import get_code
+    from repro_torch.kernels import build
+    from repro_torch.memory import (NBLDPCScheme,
+                                    conditional_residual_profile,
+                                    paper_schemes, run_campaign,
+                                    select_acceptance_row)
+    from repro_torch.core import decode_integers
+    schemes = paper_schemes(get_code("wl1024_r08"), device=device)
+    # one draw of CAMPAIGN_TRIALS words at an error count near the
+    # acceptance row (1e-2 of 1024 cells) and one past the code's
+    # strength (3e-2): the card's decode and residuals against the CPU's
+    # on the same words, exactly
+    nb = schemes[0]                       # decodes where its words lie
+    card_vs_cpu = {}
+    for m in (10, 31):
+        cw, y = nb.draw(m, CAMPAIGN_TRIALS, SEED)
+        card = decode_integers(nb.code, y, **nb._decode_kw)
+        ref = decode_integers(nb.code, y.cpu(), **nb._decode_kw)
+        for a, b in zip((card[0], *card[1]), (ref[0], *ref[1]),
+                        strict=True):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"campaign decode at m={m}: the card "
+                                     f"differs from the CPU")
+        r_card = nb.residuals_of(cw, y)
+        r_cpu = nb.residuals_of(cw.cpu(), y.cpu())
+        if r_card != r_cpu:
+            raise AssertionError(f"campaign residuals at m={m}: card "
+                                 f"{r_card}, CPU {r_cpu}")
+        card_vs_cpu[m] = r_card
+    log(f"  campaign draws, card == CPU (r_word, r_info by m): "
+        f"{json.dumps(card_vs_cpu)}")
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_campaign(schemes, CAMPAIGN_BERS, trials=CAMPAIGN_TRIALS,
+                       hamming_trials=CAMPAIGN_HAMMING_TRIALS, seed=SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    rows = out["rows"]
+    acc = select_acceptance_row(rows)
+    t1 = time.perf_counter()
+    prof = conditional_residual_profile(
+        NBLDPCScheme(get_code("wl1024_r088"), device=device), max_errors=12,
+        seed=SEED)
+    report = {"code": "wl1024_r08", "raw_bers": CAMPAIGN_BERS,
+              "trials": CAMPAIGN_TRIALS,
+              "hamming_trials": CAMPAIGN_HAMMING_TRIALS,
+              "seconds": seconds, "rows": rows, "acceptance_row": acc,
+              "card_vs_cpu_residuals": card_vs_cpu,
+              "max_errors": {k: len(p.r_word) - 1
+                             for k, p in out["profiles"].items()},
+              "wl1024_r088_residuals": {
+                  "r_word": prof.r_word.tolist(),
+                  "r_info": prof.r_info.tolist(),
+                  "seconds": time.perf_counter() - t1}}
+    for r in rows:
+        log(f"  campaign row: {json.dumps(r)}")
+    log(f"  campaign: acceptance row {json.dumps(acc)}, {seconds} s")
+    log(f"  wl1024_r088 residuals by m: "
+        f"{json.dumps(report['wl1024_r088_residuals'])}")
+
+    by = {(r["scheme"], r["raw_ber"]): r["improvement"] for r in rows}
+    if acc is None or not acc["nbldpc_improvement"] >= 10.0:
+        raise AssertionError(f"campaign acceptance row {acc}: NB-LDPC "
+                             f"under 10x where Hamming saturates")
+    if not (by[("hamming_secded", 1e-4)] > 50
+            and by[("hamming_secded", 1e-2)] < 3):
+        raise AssertionError(f"Hamming SECDED improvements {by}")
+    if abs(by[("modulo_parity", 1e-3)] - 1.0) > 1e-6:
+        raise AssertionError(f"modulo parity improves "
+                             f"{by[('modulo_parity', 1e-3)]} at 1e-3")
+    return report, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1754,9 +2073,22 @@ def main() -> int:
     prefill_report, prefill_launches = phase_prefill(device, *serve_model)
     log(f"  launches on the prefill path: {prefill_launches}")
     check_path("prefill", prefill_launches, ("flash_fwd",))
-    del serve_model                    # free the serving model's 6 GB
+
+    log("phase 12: PIM-protected serving, paper-pim-2b")
+    pim_serving, pim_launches = phase_pim_serving(device, *serve_model)
+    log(f"  launches on the PIM serving path: {pim_launches}")
+    check_path("PIM serving", pim_launches,
+               ("pim_mac", "scan_syndromes", "fbp_cn", "gf_matmul",
+                "attend_protected"))
+    del serve_model                    # free the serving model's 6.9 GB
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("phase 13: BER campaign, wl1024_r08")
+    campaign, campaign_launches = phase_campaign(device)
+    log(f"  launches on the campaign path: {campaign_launches}")
+    check_path("campaign", campaign_launches,
+               ("gf_matmul", "scan_syndromes", "fbp_cn"))
 
     log("phase 10: reduced training, card against CPU, protected "
         "checkpoint")
@@ -1770,7 +2102,8 @@ def main() -> int:
                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gf_matmul",
                 "scan_syndromes", "fbp_cn"))
     launches = {k: sum(path.get(k, 0) for path in (
-        codec_launches, serve_launches, prefill_launches, train_launches))
+        codec_launches, serve_launches, prefill_launches, pim_launches,
+        campaign_launches, train_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -1788,12 +2121,15 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
                     "serving": serving, "prefill": prefill_report,
+                    "pim_serving": pim_serving, "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
                     "launches_per_call": per_call,
                     "launches_codec": codec_launches,
                     "launches_serving": serve_launches,
                     "launches_prefill": prefill_launches,
+                    "launches_pim_serving": pim_launches,
+                    "launches_campaign": campaign_launches,
                     "launches_training": train_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)

@@ -7,8 +7,9 @@ ints, e.g. `{f: getattr(code, f) for f in CODE_FIELDS}`), and
 `stored_from_arrays` wraps persisted cell levels as a `StoredTensor` on a
 device, so both packages can run on the identical graph and cells.
 `params_from_arrays` loads a model's weights from the JAX package's
-`init_params` pytree (as numpy arrays, stacked over groups), so both
-packages can run the same model, and `opt_state_from_arrays` carries an
+`init_params` pytree (as numpy arrays, stacked over groups), with the
+precoded PIM weights of its `encode_params_for_pim` where the tree has
+them, so both packages can run the same model on the same integers, and `opt_state_from_arrays` carries an
 optimizer state (AdamW's `m`/`v`/`step`, Adafactor's `f`/`step`/`m`)
 across the same way, so both packages' optimizers start from one state.
 """
@@ -29,6 +30,8 @@ _INTS = ("p", "n", "k", "dv", "dc_max")
 _DTYPES = {"H": np.int64, "G": np.int64, "P": np.int64, "cn_vns": np.int32,
            "cn_coefs": np.int32, "cn_mask": bool, "perm_to_contrib": np.int32,
            "perm_to_sym": np.int32}
+# the projections whose precoded PIM weights a parameter tree may carry
+PIM_LEAVES = (("mlp", "w_down"), ("attn", "wo"))
 
 
 def code_from_arrays(d) -> LDPCCode:
@@ -61,8 +64,12 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
     (`jax.tree.map(np.asarray, params)`: "embed", "final_norm",
     "lm_head" unless tied, and "groups"/"pos{i}" subtrees whose leaves are
     stacked over `n_groups`) -> the port's `LM` on `device` (the card by
-    default). Every parameter must be present with the model's shape."""
-    model = LM(cfg, device=resolve_device(device))
+    default). Every parameter must be present with the model's shape. The
+    precoded leaves of `repro.models.encode_params_for_pim` (`w_down_enc`,
+    `w_down_alpha`, `wo_enc`, `wo_alpha`), where present, become the
+    layers' PIM buffers (`LM.pim_leaves`)."""
+    device = resolve_device(device)
+    model = LM(cfg, device=device)
     with torch.no_grad():
         for name, param in model.named_parameters():
             path, g = jax_path(name, cfg)
@@ -72,6 +79,22 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
                 raise ValueError(f"{name}: array of shape {arr.shape}, "
                                  f"parameter {tuple(param.shape)}")
             param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    for idx, blk in enumerate(model.blocks):
+        g, i = divmod(idx, len(cfg.group_spec))
+        node = tree["groups"][f"pos{i}"]
+        for sub, weight in PIM_LEAVES:
+            leaf = node.get(sub, {})
+            if f"{weight}_enc" not in leaf:
+                continue
+            enc = np.asarray(leaf[f"{weight}_enc"][g])
+            if enc.dtype != np.int8:
+                raise ValueError(f"{sub}/{weight}_enc: dtype {enc.dtype}, "
+                                 "expected the precoded int8 cells")
+            module = getattr(blk, sub)
+            setattr(module, f"{weight}_enc",
+                    torch.tensor(enc, device=device))
+            setattr(module, f"{weight}_alpha", torch.tensor(
+                np.float32(leaf[f"{weight}_alpha"][g]), device=device))
     return model
 
 

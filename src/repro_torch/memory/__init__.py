@@ -11,12 +11,21 @@
 - `paged`      — `PagedProtectedStore`: fixed-shape pages on the device
                  with scan-gated corrected reads (the protected KV cache's
                  store), and the float <-> GF quantization bridge;
-- `packing`    — the byte <-> GF(p) symbolization.
+- `packing`    — the byte <-> GF(p) symbolization;
+- `campaign`   — the semi-analytic BER campaign: NB-LDPC against Hamming
+                 SECDED, a modulo checksum and no code (the paper's
+                 post-decode BER comparison).
 """
 from .array import ProtectedMemoryArray, StoredTensor
-from .channel import (Channel, Compose, LevelTransition, ReadDisturb,
-                      RetentionDrift, StuckAt, asymmetric_adjacent,
-                      uniform_flip, validate_transition)
+from .campaign import (HammingSECDEDScheme, ModuloParityScheme,
+                       NBLDPCScheme, ResidualProfile, UnprotectedScheme,
+                       binom_pmf, conditional_residual_profile,
+                       default_max_errors, mix_post_ber, paper_schemes,
+                       post_ber_from_profile, run_campaign,
+                       select_acceptance_row)
+from .channel import (Channel, Compose, LevelTransition, PlusMinusOne,
+                      ReadDisturb, RetentionDrift, StuckAt,
+                      asymmetric_adjacent, uniform_flip, validate_transition)
 from .controller import (ControllerStats, MemoryController, ScrubController,
                          WritebackController, make_controller)
 from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
@@ -26,12 +35,18 @@ from .repair import RepairQueue
 
 __all__ = [
     "ProtectedMemoryArray", "StoredTensor",
-    "Channel", "Compose", "LevelTransition", "ReadDisturb", "RetentionDrift",
-    "StuckAt", "asymmetric_adjacent", "uniform_flip", "validate_transition",
+    "Channel", "Compose", "LevelTransition", "PlusMinusOne", "ReadDisturb",
+    "RetentionDrift", "StuckAt", "asymmetric_adjacent", "uniform_flip",
+    "validate_transition",
     "ControllerStats", "MemoryController", "ScrubController",
     "WritebackController", "make_controller",
     "desymbolize_u8", "digits_per_byte", "symbolize_u8",
     "PagedProtectedStore", "QuantizedTensor", "dequantize_tensor",
     "quantize_tensor", "words_for_tensor",
     "RepairQueue",
+    "ResidualProfile", "NBLDPCScheme", "HammingSECDEDScheme",
+    "ModuloParityScheme", "UnprotectedScheme", "binom_pmf", "mix_post_ber",
+    "default_max_errors", "conditional_residual_profile",
+    "post_ber_from_profile", "run_campaign", "paper_schemes",
+    "select_acceptance_row",
 ]

@@ -16,7 +16,14 @@ Every model is a frozen dataclass with an `apply(generator, levels, *, t,
 n_reads)` method driven by an explicit `torch.Generator` on the levels'
 device: same generator state, same faults. The models match the JAX
 package's `repro.memory.channel` in distribution, not in bits (the two
-random streams differ). Levels live in `[0, p)`.
+random streams differ). Levels live in `[0, p)`. `PlusMinusOne` is the one
+*integer-domain* channel (PIM MAC outputs, unbounded integers);
+`ProtectedMemoryArray` only accepts level-domain channels.
+
+Matrix-backed channels expose their per-cell level-transition matrix via
+`transition(t, n_reads)` — a (p, p) row-stochastic matrix validated at
+construction — which the semi-analytic BER campaign uses to draw
+conditional error values (`corrupt_exact`).
 """
 from __future__ import annotations
 
@@ -27,8 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["Channel", "LevelTransition", "RetentionDrift", "ReadDisturb",
-           "StuckAt", "Compose", "uniform_flip", "asymmetric_adjacent",
-           "validate_transition"]
+           "StuckAt", "Compose", "PlusMinusOne", "uniform_flip",
+           "asymmetric_adjacent", "validate_transition"]
 
 
 def validate_transition(T: np.ndarray, atol: float = 1e-6) -> np.ndarray:
@@ -62,8 +69,19 @@ def _sample_rows(generator: torch.Generator, T: np.ndarray,
     return out
 
 
+def _positions(generator: torch.Generator, words: torch.Tensor,
+               m: int) -> torch.Tensor:
+    """(B, m) distinct cell positions per row: the first m of a uniform
+    random permutation of each row's n cells."""
+    B, n = words.shape
+    u = torch.rand((B, n), generator=generator, device=words.device)
+    return torch.argsort(u, dim=1)[:, :m]
+
+
 class Channel:
     """Base class: a stochastic map on stored cell levels."""
+
+    domain = "level"            # "level" (cells in [0,p)) | "integer"
 
     @property
     def p(self) -> int:
@@ -85,6 +103,26 @@ class Channel:
         """Marginal per-cell error probability under a uniform level prior."""
         T = self.transition(t, n_reads)
         return float(1.0 - np.diag(T).mean())
+
+    def corrupt_exact(self, generator: torch.Generator, words: torch.Tensor,
+                      m: int, *, t: float = 0.0,
+                      n_reads: int = 0) -> torch.Tensor:
+        """Corrupt exactly `m` distinct cells per word (rows of `words`),
+        drawing wrong values from this channel's conditional-on-error
+        distribution: the row-normalised off-diagonal of `transition`
+        (a level with no off-diagonal mass, e.g. an absorbing one, stays
+        put). This is the sampler behind the semi-analytic BER campaign
+        (post_BER = sum_m Binom(n, eps, m) * r(m))."""
+        T = self.transition(t, n_reads)
+        p = T.shape[0]
+        E = T.copy()
+        np.fill_diagonal(E, 0.0)
+        rowsum = E.sum(axis=1, keepdims=True)
+        safe = rowsum > 0
+        E = np.where(safe, E / np.where(safe, rowsum, 1.0), np.eye(p))
+        pos = _positions(generator, words, m)                    # (B, m)
+        new = _sample_rows(generator, E, torch.gather(words, 1, pos))
+        return words.scatter(1, pos, new)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,3 +290,40 @@ class Compose(Channel):
         for c in self.channels:
             levels = c.apply(generator, levels, t=t, n_reads=n_reads)
         return levels
+
+
+@dataclasses.dataclass(frozen=True)
+class PlusMinusOne(Channel):
+    """The paper's ±1 *integer-error* channel (PIM-mode MAC outputs and the
+    BER-campaign reference channel): each integer is hit with probability
+    `eps`; a hit adds +1 with probability `up` else -1. Operates on
+    unbounded integers, not cell levels."""
+
+    eps: float
+    up: float = 0.5
+    p_field: int = 3              # field the protecting code works over
+
+    domain = "integer"
+
+    @property
+    def p(self) -> int:
+        return self.p_field
+
+    def error_rate(self, *, t: float = 0.0, n_reads: int = 0) -> float:
+        return self.eps
+
+    def _signs(self, generator, shape, device) -> torch.Tensor:
+        up = torch.rand(shape, generator=generator, device=device) < self.up
+        return torch.where(up, 1, -1)
+
+    def apply(self, generator, y, *, t=0.0, n_reads=0):
+        hit = torch.rand(y.shape, generator=generator,
+                         device=y.device) < self.eps
+        sign = self._signs(generator, y.shape, y.device)
+        return y + torch.where(hit, sign, 0).to(y.dtype)
+
+    def corrupt_exact(self, generator, words, m, *, t=0.0, n_reads=0):
+        pos = _positions(generator, words, m)
+        sign = self._signs(generator, pos.shape, words.device)
+        cur = torch.gather(words, 1, pos)
+        return words.scatter(1, pos, cur + sign.to(words.dtype))

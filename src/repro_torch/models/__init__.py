@@ -1,9 +1,9 @@
 """The dense language model and its protected KV-cache serving path."""
 from .kv import (ProtectedKVCaches, ProtectedKVConfig, ProtectedKVLayer,
                  protected_overhead)
-from .lm import (LM, decode_step, forward, init_caches, init_params,
-                 loss_fn, prefill)
+from .lm import (LM, decode_step, encode_params_for_pim, forward,
+                 init_caches, init_params, loss_fn, prefill)
 
 __all__ = ["ProtectedKVCaches", "ProtectedKVConfig", "ProtectedKVLayer",
-           "protected_overhead", "LM", "decode_step", "forward",
-           "init_caches", "init_params", "loss_fn", "prefill"]
+           "protected_overhead", "LM", "decode_step", "encode_params_for_pim",
+           "forward", "init_caches", "init_params", "loss_fn", "prefill"]

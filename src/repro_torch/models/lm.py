@@ -8,6 +8,14 @@ sliding-window self-attention with a gated MLP. MoE, mamba,
 encoder-decoder and cross blocks raise `NotImplementedError`
 (ROADMAP Queue 1 item 9).
 
+PIM protection (the paper's technique) plugs in through `pim_ctx`, a
+`core.context.PIMContext`: every block's `mlp_down` and `attn_o`
+projections that its targets name run on the protected PIM path, in
+`forward` (inference), `prefill` and `decode_step`.
+`encode_params_for_pim` precodes those weights once, as the JAX package's
+deploy-time transform does. A backward through the protected projections
+is not ported (ROADMAP Queue 1 item 10).
+
 Entry points: `init_params` / `forward` / `loss_fn` / `init_caches` /
 `prefill` / `decode_step`. `forward` and `loss_fn` are the training pass:
 under `cfg.remat` (with grad enabled) each group runs under
@@ -29,10 +37,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
-from ..nn.layers import CDT, Block, RMSNorm, _param, no_pim
+from ..nn.layers import CDT, Block, RMSNorm, _param
 
 __all__ = ["LM", "init_params", "forward", "loss_fn", "init_caches",
-           "prefill", "decode_step"]
+           "prefill", "decode_step", "encode_params_for_pim"]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -75,6 +83,17 @@ class LM(nn.Module):
         for name, param in self.named_parameters():
             path, _g = jax_path(name, self.cfg)
             out.setdefault("/".join(path), []).append(param)
+        return dict(sorted(out.items()))
+
+    def pim_leaves(self) -> dict[str, list[torch.Tensor]]:
+        """The precoded PIM weights of `encode_params_for_pim` (or carried
+        across by `convert.params_from_arrays`), keyed like `leaves`:
+        "groups/pos0/mlp/w_down_enc" lists its per-layer int8 tensors (the
+        JAX leaf stacks them over the group). Empty before precoding."""
+        out: dict[str, list[torch.Tensor]] = {}
+        for name, buf in self.named_buffers():
+            path, _g = jax_path(name, self.cfg)
+            out.setdefault("/".join(path), []).append(buf)
         return dict(sorted(out.items()))
 
 
@@ -161,9 +180,11 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _run_group(params: LM, cfg: ArchConfig, g: int, x, positions):
+def _run_group(params: LM, cfg: ArchConfig, g: int, x, positions,
+               pim_ctx=None):
     for i, spec in enumerate(cfg.group_spec):
-        x, _ = params.block(g, i)(x, spec, cfg, positions=positions)
+        x, _ = params.block(g, i)(x, spec, cfg, positions=positions,
+                                  pim_ctx=pim_ctx)
     return x
 
 
@@ -172,8 +193,13 @@ def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
     """tokens: (B, S) ints. Returns logits (B, S, V) float32. With
     `cfg.remat` and grad enabled, each group's activations are recomputed
     in the backward pass (remat_policy "full": nothing inside a group is
-    saved)."""
-    no_pim(pim_ctx)
+    saved). With `pim_ctx` it is an inference pass: under grad it
+    raises."""
+    if pim_ctx is not None and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "a backward through the PIM-protected projections (pim_ctx) is "
+            "not ported: ROADMAP Queue 1 item 10; run forward with pim_ctx "
+            "under torch.no_grad()")
     if aux is not None:
         raise NotImplementedError("auxiliary (cross-attention) inputs are "
                                   "not ported yet: ROADMAP Queue 1 item 9")
@@ -189,7 +215,7 @@ def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
             x = checkpoint(_run_group, params, cfg, g, x, positions,
                            use_reentrant=False)
         else:
-            x = _run_group(params, cfg, g, x, positions)
+            x = _run_group(params, cfg, g, x, positions, pim_ctx)
     return _head_logits(params, cfg, x)
 
 
@@ -220,8 +246,8 @@ def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
     ({"pos{i}": {"k", "v": (n_groups, B, S', Hkv, D)}}, S' = the window
     for sliding layers, ring-aligned), or with `protected_kv` a
     `ProtectedKVCaches` manager that has ingested them (`max_seq` sizes
-    its dense entries; the prompt length by default)."""
-    no_pim(pim_ctx)
+    its dense entries; the prompt length by default). `pim_ctx` protects
+    its target projections."""
     if aux is not None:
         raise NotImplementedError("auxiliary (cross-attention) inputs are "
                                   "not ported yet: ROADMAP Queue 1 item 9")
@@ -243,7 +269,7 @@ def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
                 v = torch.roll(v[:, -Wd:], S % Wd, dims=1)
             entries[f"pos{i}"]["k"].append(k)
             entries[f"pos{i}"]["v"].append(v)
-            x, _ = blk(x, spec, cfg, positions=positions)
+            x, _ = blk(x, spec, cfg, positions=positions, pim_ctx=pim_ctx)
     caches = {pos: {name: torch.stack(bufs) for name, bufs in e.items()}
               for pos, e in entries.items()}
     logits = _head_logits(params, cfg, x)
@@ -256,7 +282,8 @@ def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
     return logits, caches
 
 
-def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos):
+def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos,
+                           pim_ctx=None):
     """One-token decode against `ProtectedKVCaches`: each protected layer
     appends the token's K/V and reads through its `attend`; dense entries
     update in the manager. `pos` is a scalar or a (B,) vector."""
@@ -269,7 +296,7 @@ def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos):
         for i, spec in enumerate(cfg.group_spec):
             x, nc = params.block(g, i)(x, spec, cfg, positions=positions,
                                        cache=caches.view(g, i),
-                                       cache_pos=pos)
+                                       cache_pos=pos, pim_ctx=pim_ctx)
             caches.update(g, i, nc)
     return _head_logits(params, cfg, x), caches
 
@@ -280,14 +307,15 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
     """One-token decode. token: (B, 1) ints; pos: the position (an int).
     `caches` is the stacked dense caches of `init_caches`, written in
     place, or the `ProtectedKVCaches` manager of `prefill(...,
-    protected_kv=...)`. Returns (logits (B, 1, V) float32, caches)."""
-    no_pim(pim_ctx)
+    protected_kv=...)`. Returns (logits (B, 1, V) float32, caches).
+    `pim_ctx` protects its target projections."""
     if aux is not None:
         raise NotImplementedError("auxiliary (cross-attention) inputs are "
                                   "not ported yet: ROADMAP Queue 1 item 9")
     from .kv import ProtectedKVCaches
     if isinstance(caches, ProtectedKVCaches):
-        return _decode_step_protected(params, cfg, caches, token, pos)
+        return _decode_step_protected(params, cfg, caches, token, pos,
+                                      pim_ctx)
     B = token.shape[0]
     x = _embed(params, cfg, token)
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
@@ -297,5 +325,33 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
             gc = caches[f"pos{i}"]
             x, _ = params.block(g, i)(
                 x, spec, cfg, positions=positions,
-                cache={"k": gc["k"][g], "v": gc["v"][g]}, cache_pos=pos)
+                cache={"k": gc["k"][g], "v": gc["v"][g]}, cache_pos=pos,
+                pim_ctx=pim_ctx)
     return _head_logits(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# PIM deployment: precoded weights (the paper's deploy-time encode, Fig. 2(b))
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def encode_params_for_pim(params: LM, cfg: ArchConfig) -> LM:
+    """Deploy-time transform: for every protected projection, store the
+    ternarized + NB-LDPC-encoded int8 weights (`w_down_enc`, `wo_enc`)
+    and the fp32 ternary scale (`*_alpha`) next to the fp weights, as
+    buffers of each layer (`LM.pim_leaves`). Serving then reads only the
+    encoded integers — the paper's 'write-time encode': checks are
+    generated when the array is programmed, not per MAC. Encodes on the
+    parameters' device; returns `params`, updated in place."""
+    from ..core.context import PIMContext
+    ctx = PIMContext(cfg.pim)
+    targets = set(cfg.pim.targets)
+    for blk in params.blocks:
+        if "mlp_down" in targets and hasattr(blk, "mlp"):
+            blk.mlp.w_down_enc, blk.mlp.w_down_alpha = ctx.encode_weight(
+                blk.mlp.w_down)
+        if "attn_o" in targets:
+            blk.attn.wo_enc, blk.attn.wo_alpha = ctx.encode_weight(
+                blk.attn.wo)
+    return params

@@ -12,9 +12,15 @@ one query goes through `kernels.flash_attention.flash_attention` (the
 flash kernels, forward and backward), as `repro.nn.layers._attend` routes
 it; decode steps read their caches with the naive attention.
 
-Not ported (they raise `NotImplementedError`): cross-attention,
-`attn_impl="standin"` (cost-lowering tooling), and PIM-protected
-projections (`pim_ctx`, ROADMAP Queue 1 item 1).
+With a `core.context.PIMContext` (`pim_ctx`) whose targets name them, the
+MLP's down projection (`mlp_down`) and attention's output projection
+(`attn_o`) run on the protected PIM path, from the precoded int8 weights
+(`w_down_enc` / `wo_enc` and their `*_alpha` scales, buffers that
+`models.lm.encode_params_for_pim` fills) where present, else from the fp
+weights ternarized and encoded per call.
+
+Not ported (they raise `NotImplementedError`): cross-attention and
+`attn_impl="standin"` (cost-lowering tooling).
 """
 from __future__ import annotations
 
@@ -34,11 +40,20 @@ ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
         "relu": F.relu}
 
 
-def no_pim(pim_ctx) -> None:
-    if pim_ctx is not None:
-        raise NotImplementedError(
-            "PIM-protected projections (pim_ctx) are not ported yet: "
-            "ROADMAP Queue 1 item 1 (core/context.py)")
+def project(x, w, pim_ctx, target: str, enc, alpha):
+    """x @ w in bf16, or through `pim_ctx`'s protected PIM path when its
+    targets hold `target` (precoded from `enc`/`alpha` when given)."""
+    if pim_ctx is not None and target in pim_ctx.targets:
+        return pim_ctx.matmul(x, w, target, enc=enc, alpha=alpha)
+    return x @ w.to(CDT)
+
+
+def _pim_buffers(module: nn.Module, weight: str) -> None:
+    """Empty slots for a projection's precoded PIM weights: `{weight}_enc`
+    (int8) and `{weight}_alpha` (fp32). Buffers, not parameters, so the
+    optimizer, `LM.leaves` and checkpoints never see them."""
+    module.register_buffer(f"{weight}_enc", None, persistent=False)
+    module.register_buffer(f"{weight}_alpha", None, persistent=False)
 
 
 def _param(shape, generator, device) -> nn.Parameter:
@@ -84,10 +99,12 @@ class MLP(nn.Module):
         self.w_gate = _param((d_model, d_ff), generator, device)
         self.w_up = _param((d_model, d_ff), generator, device)
         self.w_down = _param((d_ff, d_model), generator, device)
+        _pim_buffers(self, "w_down")
 
-    def forward(self, x):
+    def forward(self, x, pim_ctx=None):
         h = self.act(x @ self.w_gate.to(CDT)) * (x @ self.w_up.to(CDT))
-        return h @ self.w_down.to(CDT)
+        return project(h, self.w_down, pim_ctx, "mlp_down",
+                       self.w_down_enc, self.w_down_alpha)
 
 
 def _softcap(logits, cap):
@@ -157,6 +174,11 @@ class Attention(nn.Module):
         self.wk = _param((d, hkv * dh), generator, device)
         self.wv = _param((d, hkv * dh), generator, device)
         self.wo = _param((hq * dh, d), generator, device)
+        _pim_buffers(self, "wo")
+
+    def out_proj(self, out, pim_ctx):
+        return project(out, self.wo, pim_ctx, "attn_o", self.wo_enc,
+                       self.wo_alpha)
 
     def project_kv(self, x, cfg: ArchConfig, positions):
         """(B, S, d) -> RoPE'd K and V, each (B, S, Hkv, D) in bf16."""
@@ -172,8 +194,8 @@ class Attention(nn.Module):
         Decode: a dense {"k", "v"} (B, Smax, Hkv, D) cache is written at
         `cache_pos` in place (a ring of size `local_window` for sliding
         layers) and returned; a `KVSource` appends the token's K/V and
-        serves the read through its `attend`."""
-        no_pim(pim_ctx)
+        serves the read through its `attend`. `wo` runs on `pim_ctx`'s
+        protected path where it targets "attn_o"."""
         if spec.cross:
             raise NotImplementedError(
                 "cross-attention is not ported yet: ROADMAP Queue 1 item 9")
@@ -185,7 +207,7 @@ class Attention(nn.Module):
         if isinstance(kv_cache, KVSource):
             kv_cache.append(k, v)
             out = kv_cache.attend(q, cfg.softcap_attn)
-            return out.reshape(B, S, hq * dh) @ self.wo.to(CDT), None
+            return self.out_proj(out.reshape(B, S, hq * dh), pim_ctx), None
 
         new_cache = None
         if kv_cache is not None:
@@ -211,7 +233,7 @@ class Attention(nn.Module):
         impl = cfg.attn_impl if kv_cache is None else "naive"
         out = _attend(q, k, v, mask, cfg.softcap_attn, impl=impl,
                       causal=True, window=spec.local_window)
-        return out.reshape(B, S, hq * dh) @ self.wo.to(CDT), new_cache
+        return self.out_proj(out.reshape(B, S, hq * dh), pim_ctx), new_cache
 
 
 class Block(nn.Module):
@@ -241,5 +263,5 @@ class Block(nn.Module):
                                  cache_pos=cache_pos, pim_ctx=pim_ctx)
         x = x + y
         if hasattr(self, "mlp"):
-            x = x + self.mlp(self.norm2(x))
+            x = x + self.mlp(self.norm2(x), pim_ctx)
         return x, new_cache

@@ -788,3 +788,74 @@ def test_training_steps_on_card_match_cpu(dev, tmp_path):
         assert LAUNCHES[name] - n0.get(name, 0) == per_step * 2, name
     for a, b in zip(cpu, card, strict=True):
         assert b["loss"] == pytest.approx(a["loss"], rel=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# PIM-protected serving and the BER campaign on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["off", "correct", "correct_budget"])
+def test_pim_context_on_card_matches_cpu(dev, mode, rng):
+    """`PIMContext.matmul` on integer activations (max 7: scale 1) and
+    ternary weights (alpha 1), with the same output noise on both
+    devices: the card (the encode, MAC, scan and FBP kernels) equals the
+    CPU's plain run exactly, outputs and counts."""
+    from repro_torch.configs.base import PIMSpec
+    from repro_torch.core import PIMContext, get_code, prepare_weights
+    spec = PIMSpec(enabled=True, code_name="wl320_r08", mode=mode,
+                   n_iters=4, correct_budget=8)
+    x = rng.integers(-7, 8, (96, 512)).astype(np.float32)
+    x[0, 0] = 7
+    W = rng.integers(-1, 2, (512, 600)).astype(np.float32)
+    n_enc = prepare_weights(torch.as_tensor(W, dtype=torch.int8),
+                            get_code("wl320_r08")).shape[1]
+    noise = torch.as_tensor(
+        (rng.random((96, n_enc)) < 2e-3) * rng.choice([-1, 1], (96, n_enc)),
+        dtype=torch.int32)
+    out, stats = {}, {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        ctx = PIMContext(spec)
+        n0 = dict(LAUNCHES)
+        out[name] = ctx.matmul(torch.as_tensor(x, device=d),
+                               torch.as_tensor(W, device=d), "a",
+                               out_noise=noise.to(d)).cpu()
+        stats[name] = ctx.stats()
+    ran = {k for k, v in LAUNCHES.items() if v > n0.get(k, 0)}   # the card
+    assert torch.equal(out["cuda"], out["cpu"])
+    assert stats["cuda"] == stats["cpu"]
+    assert {"gf_matmul", "pim_mac"} <= ran
+    if mode != "off":
+        assert stats["cpu"]["detected_words"] > 0
+        assert {"scan_syndromes", "fbp_cn"} <= ran
+
+
+def test_nbldpc_residuals_on_card_match_cpu(dev):
+    """The campaign's residuals of identical corrupted words: the card's
+    decode (FBP and the scan kernels) equals the CPU's, float for float;
+    the card's own draw runs the encode kernel."""
+    from repro_torch.core import get_code
+    from repro_torch.memory import NBLDPCScheme, asymmetric_adjacent
+    code = get_code("wl1024_r08")
+    for channel in (None, asymmetric_adjacent(3, 0.7, 0.3)):
+        cpu = NBLDPCScheme(code, channel, device="cpu")
+        card = NBLDPCScheme(code, channel, device=dev)
+        for m in (4, 24, 48):
+            cw, y = cpu.draw(m, 64, 1)
+            assert card.residuals_of(cw.to(dev), y.to(dev)) == \
+                cpu.residuals_of(cw, y)
+    n0 = LAUNCHES["gf_matmul"]
+    cw, y = card.draw(8, 64, 0)
+    assert cw.is_cuda and LAUNCHES["gf_matmul"] == n0 + 1
+    assert ((y != cw).sum(dim=1) == 8).all()
+
+
+def test_plusminusone_corrupt_exact_on_card(dev):
+    from repro_torch.memory import PlusMinusOne
+    words = torch.randint(0, 3, (256, 1024), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for m in (1, 7, 64):
+        y = PlusMinusOne(0.0).corrupt_exact(gen, words, m)
+        diff = y - words
+        assert y.is_cuda and ((diff != 0).sum(dim=1) == m).all()
+        assert set(diff.unique().tolist()) == {-1, 0, 1}

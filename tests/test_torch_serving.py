@@ -319,8 +319,11 @@ def test_unported_model_parts_raise():
     cfg = get_config("paper_pim").reduced(**REDUCED)
     params = init_params(cfg, 0, device="cpu")
     toks = torch.zeros((1, 3), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-        prefill(params, cfg, toks, pim_ctx=object())
+    from repro_torch.core import PIMContext
+    from repro_torch.models import loss_fn
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        loss_fn(params, cfg, {"tokens": toks, "labels": toks},
+                pim_ctx=PIMContext(cfg.pim))
     standin = dataclasses.replace(cfg, attn_impl="standin")
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         prefill(params, standin, toks)
