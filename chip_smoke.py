@@ -90,6 +90,25 @@ Phases (any failure exits non-zero):
      fault-free tokens and logits bit for bit with no uncorrected word;
      and the same errors with protection off, whose logits must differ.
      Then one clean step under torch.profiler;
+ 14. the multi-tenant serving engine, right after phase 12 on phase 8's
+     model: 8 tenants (prompts of 128, 256, 384 and 512 tokens, two of
+     each, drawn with numpy from SEED) through a `ServingEngine` of 4
+     slots (max_seq 544) over one shared wl160_r08 `ProtectedPagePool`
+     (pages of 384 words, one slot's 16-token K or V page), 32 greedy
+     tokens each, five runs: (a) clean; (b) tenant 0 alone, which must
+     give (a)'s tokens for it; (c) `uniform_flip(3, 2e-5)` injected into
+     the pool after step 8 with a 256-page scrub every 4 steps, which
+     must give (a)'s tokens, with corrections on exactly the tenants that
+     owned pages then, none left, and scrub repairs; (d) the pool cut to
+     60% of (a)'s peak pages, which must preempt and still give (a)'s
+     tokens, the pool drained at the end; (e) unprotected, tokens logged.
+     In (a) one layer's fused read is held against its plain version at
+     the run's ragged page counts and one step is profiled; in (c) a
+     copy of 128 pool pages (every owner's) is scrubbed on the card and
+     on the CPU, coalesced and page by page, with equal reports and
+     pages (the checks' time and launches are not the runs'). It logs
+     ms an engine step, decode tokens/s, TTFT by tenant, the pool's peak
+     and the kernel launches a step;
  13. the paper's BER campaign, `run_campaign(paper_schemes(wl1024_r08))`
      over nine raw BERs at the JAX bench's settings (NB-LDPC decoding on
      the card; first two draws' decode and residuals held against the
@@ -98,8 +117,8 @@ Phases (any failure exits non-zero):
      modulo checksum 1x at 1e-3; wl1024_r088's conditional residuals for
      m = 1..12 are logged.
 
-The phases run in the order 1-9, 12, 13, 10, 11 (phase 12 needs phase
-8's model, which is freed before training). Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
+The phases run in the order 1-9, 12, 14, 13, 10, 11 (phases 12 and 14
+need phase 8's model, which is freed before training). Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
 their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
 logged) at the training and prefill shapes, a ragged
@@ -111,6 +130,7 @@ the yardstick; the port never calls SDPA).
 Kernel launch counts are reset just before each main path, memory and
 PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9),
 PIM-protected serving (phase 12, from the precode to the third run),
+the engine (phase 14, its five runs less its two checks' launches),
 the campaign (phase 13) and training (phases 10-11), and read just after
 it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
@@ -150,6 +170,21 @@ PIM_FAULT_RATE = 2e-5              # PIM output errors of runs (b) and (c)
 PIM_PREFILL_WORDS = SERVE_BATCH * SERVE_PROMPT * 8
 PIM_DECODE_WORDS = SERVE_BATCH * 8
 PIM_CHECK_NOISE = 1e-3             # out_noise of the card-vs-CPU check
+ENGINE_TENANTS = 8                 # phase 14's tenants
+ENGINE_PROMPT_LENS = (128, 256, 384, 512)   # prompt tokens, cycled
+ENGINE_NEW = 32                    # greedy tokens a tenant
+ENGINE_SLOTS = 4                   # the engine's max_active
+ENGINE_MAX_SEQ = 544               # the engine's max_seq (512 + 32)
+ENGINE_PAGE_WORDS = 384            # wl160_r08 words of a (1, 16, 8, 64) page
+ENGINE_FLIP = 2e-5                 # uniform_flip rate of run (c)
+ENGINE_INJECT_STEP = 8             # run (c) injects after this step
+ENGINE_SCRUB_EVERY = 4             # run (c)'s scrub cadence, in steps
+ENGINE_SCRUB_PAGES = 256           # pages a scrub sweeps
+ENGINE_PREEMPT_SHARE = 0.6         # run (d)'s pool, of (a)'s peak pages
+ENGINE_CHECK_STEP = 20             # run (a) checks a fused read here
+ENGINE_PROFILE_STEP = 24           # and profiles this step
+SCRUB_CHECK_PAGES = 128            # pool pages scrubbed on card and CPU
+ENGINE_MAX_STEPS = 1000            # an engine run longer than this fails
 # the BER campaign: the JAX package's bench settings
 # (benchmarks/bench_memory_mode.py)
 CAMPAIGN_BERS = [3e-2, 2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 3e-4, 1e-4, 1e-5]
@@ -471,14 +506,16 @@ def fbp_inputs(code, words: int, gen, device):
 
 
 # code, words: phase 2's encodes (gf_matmul)
-GF_CASES = [("wl1024_r08", 4096), ("wl160_r08", 1536)]
+GF_CASES = [("wl1024_r08", 4096), ("wl160_r08", 1536),
+            ("wl160_r08", ENGINE_PAGE_WORDS)]
 # code, words, share of words with one corrupted cell: phase 2's scans
 SCAN_CASES = [("wl1024_r08", 4096, 0.1), ("wl1024_r08", 256, 0.1),
               ("wl1024_r08", 67, 0.1), ("wl160_r08", 1536, 0.01),
               ("wl40_r08", 4096, 0.1), ("wl512_r033", 1024, 0.1),
               ("wl160_r08_gf5", 1024, 0.1), ("wl160_r08_gf7", 1024, 0.1),
               ("wl320_r08", PIM_PREFILL_WORDS, 0.1),
-              ("wl320_r08", PIM_DECODE_WORDS, 0.1)]
+              ("wl320_r08", PIM_DECODE_WORDS, 0.1),
+              ("wl160_r08", ENGINE_PAGE_WORDS, 0.1)]
 # code, words: phase 2's FBP updates (words x checks rows)
 FBP_CASES = [("wl1024_r08", 256), ("wl160_r08_gf5", 256),
              ("wl1024_r088", 256), ("wl320_r08", PIM_PREFILL_WORDS),
@@ -516,7 +553,8 @@ def phase_kernels(device) -> dict:
     # wl1024_r08 (the first row), the decoder's check (256 words of hard
     # decisions) and a ragged 67-word tail of it, a paged-store page
     # (wl160_r08 at the serving page size), n = 40, C = 343, p = 5 and 7,
-    # and a PIM serving projection's words at the prefill and at a step
+    # a PIM serving projection's words at the prefill and at a step, and
+    # an engine slot's page (phase 14's corrected reads and pool scrub)
     for name, words, share in SCAN_CASES:
         c = get_code(name)
         u = rng.integers(0, c.p, (words, c.k))
@@ -560,10 +598,12 @@ def phase_kernels(device) -> dict:
                        y, ht, p), 200), **extra)
 
     # encode: a page of 4096 words of wl1024_r08, (4096, 819) x (819, 205)
-    # (the first row), and a paged-store page freeze of wl160_r08 at the
-    # serving page size, (1536, 128) x (128, 32), through the code's cached
-    # P; torch.matmul in fp32 is the yardstick, and torch._int_mm on the
-    # operands zero-padded to K and N multiples of 8 is logged beside it
+    # (the first row), a paged-store page freeze of wl160_r08 at the
+    # serving page size, (1536, 128) x (128, 32), and an engine slot's
+    # page freeze (phase 14), (384, 128) x (128, 32), through the code's
+    # cached P; torch.matmul in fp32 is the yardstick, and torch._int_mm
+    # on the operands zero-padded to K and N multiples of 8 is logged
+    # beside it
     for name, words in GF_CASES:
         c = get_code(name)
         a = torch.as_tensor(rng.integers(0, c.p, (words, c.k)),
@@ -719,8 +759,10 @@ def phase_attend(device) -> list:
     """attend_protected against its plain version at the serving shape,
     hot-only, with a softcap, with per-slot sub-pages, at one page, at a
     page count its ranges do not divide evenly, at a long context, and
-    with rows that have no valid token in some ranges or in all; and two
-    calls on the same inputs bitwise equal."""
+    with rows that have no valid token in some ranges or in all; at phase
+    14's per-slot read (ranges sized for the engine's max_seq); and at one
+    request (B = 1, the single-sequence layer's read) over a short and a
+    long context. Two calls on the same inputs bitwise equal."""
     import torch
     from repro_torch.core import get_code
     from repro_torch.kernels import build
@@ -740,13 +782,21 @@ def phase_attend(device) -> list:
              ("uneven_np40", uneven, 0.0, True, False),
              ("empty_rows", uneven, 0.0, True, True),
              ("empty_rows_no_hot", uneven, 0.0, False, True),
-             ("long_np256", {**serving, "NP": 256}, 0.0, True, False)]
+             ("long_np256", {**serving, "NP": 256}, 0.0, True, False),
+             ("engine_per_slot", {**serving, "S": 4, "NP": 20,
+                                  "ragged": True}, 0.0, True, False),
+             ("single_np32", {**serving, "B": 1}, 0.0, True, False),
+             ("single_np256", {**serving, "B": 1, "NP": 256}, 0.0, True,
+              False)]
+    # the engine sizes its ranges for max_seq's pages (BatchedPagedKV)
+    ref_of = {"engine_per_slot": -(-ENGINE_MAX_SEQ // serving["T"])}
     rows = []
     for label, shape, softcap, with_hot, empty in cases:
         args, kw = attend_operands(device, gen, code=code, **shape)
         if empty:
             args = empty_rows(args, shape["NP"])
-        kw.update(softcap=softcap, with_hot=with_hot)
+        ref = ref_of.get(label, 0)
+        kw.update(softcap=softcap, with_hot=with_hot, ref_pages=ref)
         n0 = build.LAUNCHES["attend_protected"]
         got = pa.attend_protected(*args, **kw)
         again = pa.attend_protected(*args, **kw)
@@ -767,9 +817,10 @@ def phase_attend(device) -> list:
         B, Hkv = shape["B"], shape["Hkv"]
         row = {"name": "attend_protected", "case": label,
                "shape": {k: v for k, v in shape.items() if k != "ragged"},
-               "softcap": softcap, "with_hot": with_hot,
-               "pages_a_step_and_ranges": pa.attend_plan(
-                   shape["NP"], B * Hkv, shape["T"], build.sm_count(device)),
+               "softcap": softcap, "with_hot": with_hot, "ref_pages": ref,
+               "pages_a_step_range_and_ranges": pa.attend_plan(
+                   shape["NP"], B * Hkv, shape["T"], build.sm_count(device),
+                   ref),
                "max_abs_err": err, "bitwise_repeatable": True,
                "launches_per_call": launches,
                "ms": cuda_ms(lambda: pa.attend_protected(*args, **kw), 20),
@@ -1386,6 +1437,325 @@ def phase_pim_serving(device, cfg, params, prompts) -> tuple[dict, dict]:
                                                  PIMContext(spec))
     log(f"  pim serving, one clean step profiled: "
         f"{json.dumps(report['profile_step'])}")
+    return report, launches
+
+
+# ---------------------------------------------------------------------------
+# the multi-tenant serving engine
+# ---------------------------------------------------------------------------
+
+
+def engine_prompts(cfg) -> list:
+    """ENGINE_TENANTS prompts drawn with numpy from SEED, their lengths
+    cycling through ENGINE_PROMPT_LENS (two tenants of each)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size,
+                         ENGINE_PROMPT_LENS[t % len(ENGINE_PROMPT_LENS)])
+            for t in range(ENGINE_TENANTS)]
+
+
+def check_pool_scrub(pool) -> dict:
+    """Copies of SCRUB_CHECK_PAGES allocated pages of `pool`, taken at an
+    even stride so that every owner has some, scrubbed on the card and on
+    the CPU, coalesced and page by page: the four reports and the four
+    sets of pages must be equal."""
+    import torch
+    allocated = pool.allocated()
+    pids = allocated[::max(1, len(allocated) // SCRUB_CHECK_PAGES)][
+        :SCRUB_CHECK_PAGES]
+    now = max(pool.stamp(pid) for pid in pids)   # the engine's step
+    reports, pages, secs = {}, {}, {}
+    for dev in (pool.device, torch.device("cpu")):
+        for coalesce in (True, False):
+            copy = pool.copy(pids, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = copy.scrub(now=now, coalesce=coalesce)
+            torch.cuda.synchronize()
+            key = f"{dev.type}_{'coalesced' if coalesce else 'per_page'}"
+            secs[key] = time.perf_counter() - t0
+            reports[key] = rep
+            pages[key] = torch.stack([copy.page(p).cpu() for p in pids])
+    first = next(iter(reports))
+    for key, rep in reports.items():
+        if rep != reports[first] or not torch.equal(pages[key],
+                                                    pages[first]):
+            raise AssertionError(f"pool scrub {key} differs from {first}: "
+                                 f"{rep} against {reports[first]}")
+    if reports[first]["flagged_words"] <= 0:
+        raise AssertionError("pool scrub check: the copied pages hold no "
+                             "flagged word")
+    return {"pages": len(pids), "report": {
+        k: v for k, v in reports[first].items() if k != "by_owner"},
+        "owners": sorted(map(str, reports[first]["by_owner"])),
+        "seconds": secs}
+
+
+def check_fused_read(eng) -> dict:
+    """One layer's fused `BatchedPagedKV.attend` on the card mid-run, at
+    the run's ragged page counts, against `attend_protected_plain` on the
+    same operands (phase 2's tolerance). Returns the check's fields and
+    the kernel launches it made."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as pa
+    layer = eng.caches.layers[(0, 0)]
+    counts = sorted({len(m) for m, s in zip(layer.metas, eng.slots)
+                     if s is not None})
+    if len(counts) < 2:
+        raise AssertionError(f"fused read check: page counts {counts} are "
+                             f"not ragged")
+    cfg = eng.cfg
+    gen = torch.Generator(device=layer.device).manual_seed(SEED + 14)
+    q = torch.randn((eng.max_active, 1, cfg.n_heads, cfg.head_dim),
+                    generator=gen, device=layer.device).to(torch.bfloat16)
+    before = dict(build.LAUNCHES)
+    got = layer.attend(q)
+    made = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+            if v - before.get(k, 0)}
+    ops = layer.fused_inputs()
+    want = pa.attend_protected_plain(
+        q, *ops, layer.hot_k, layer.hot_v, layer._hot_len_dev,
+        p=layer.code.p, k_info=layer.code.k, page_shape=layer.page_shape,
+        with_hot=True)
+    diff = (got.float() - want.float()).abs()
+    if not torch.isfinite(got.float()).all() or bool(
+            (diff > ULP_ATOL + ULP_RTOL * want.float().abs()).any()):
+        raise AssertionError(f"engine fused read differs from its plain "
+                             f"version (max abs {float(diff.max())})")
+    return {"NP": int(ops[0].shape[0]), "slot_pages": counts,
+            "max_abs_err": float(diff.max())}, made
+
+
+def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
+               capacity=None, inject_at=None, scrub_every=0, check_at=None,
+               profile_at=None) -> dict:
+    """Serve `prompts` (tenants `tenants`, all by default) through a
+    `ServingEngine` at ENGINE_SLOTS slots and ENGINE_MAX_SEQ, ENGINE_NEW
+    greedy tokens each. Options: the pool's capacity; `uniform_flip(3,
+    ENGINE_FLIP)` injected after step `inject_at` (and a copy of the
+    pool's pages scrubbed on the card and the CPU there); the scrub
+    cadence; one layer's fused read checked before step `check_at`; step
+    `profile_at` under torch.profiler. Returns tokens, step times, TTFT,
+    launches by step, pool and scrub figures."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.memory import (ProtectedPagePool, uniform_flip,
+                                    words_for_tensor)
+    from repro_torch.models import ProtectedKVConfig
+    from repro_torch.serving import ServingEngine
+    pkv = ProtectedKVConfig("wl160_r08", page_tokens=16, n_iters=8)
+    kw = dict(max_active=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+              protected=protected, scrub_every=scrub_every,
+              scrub_max_pages=ENGINE_SCRUB_PAGES)
+    if protected:
+        kw["pkv"] = pkv
+    if protected and capacity is not None:     # else the engine's default
+        from repro_torch.core import get_code
+        code = get_code(pkv.code_name)
+        wpu = words_for_tensor((1, pkv.page_tokens, cfg.n_kv_heads,
+                                cfg.head_dim), code.p, code.k)
+        kw["pool"] = ProtectedPagePool(code, page_words=wpu,
+                                       capacity_pages=capacity,
+                                       n_iters=pkv.n_iters,
+                                       damping=pkv.damping,
+                                       device=params.device)
+    eng = ServingEngine(params, cfg, **kw)
+    if protected and eng.pool.page_words != ENGINE_PAGE_WORDS:
+        raise AssertionError(f"engine pages of {eng.pool.page_words} words,"
+                             f" phase 2 checks {ENGINE_PAGE_WORDS}")
+    scrub_s = []
+    if protected and scrub_every:
+        scrub = eng.pool.scrub
+
+        def timed_scrub(**skw):
+            t0 = time.perf_counter()
+            rep = scrub(**skw)
+            torch.cuda.synchronize()
+            scrub_s.append(time.perf_counter() - t0)
+            return rep
+        eng.pool.scrub = timed_scrub
+    tenants = list(range(len(prompts))) if tenants is None else tenants
+    for t in tenants:
+        eng.submit(t, prompts[t], max_new=ENGINE_NEW)
+    out = {"steps": [], "launches": [], "first_token": {}, "checks": {}}
+    extra = {}                      # launches made by the checks
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while eng.waiting or any(s is not None for s in eng.slots):
+        i = len(out["steps"])
+        if i > ENGINE_MAX_STEPS:
+            raise AssertionError(f"engine run: not done after {i} steps: "
+                                 f"{eng.stats()}")
+        if i == check_at:
+            t0 = time.perf_counter()
+            out["checks"]["fused_read"], made = check_fused_read(eng)
+            t_run += time.perf_counter() - t0      # not the run's time
+            for k, v in made.items():
+                extra[k] = extra.get(k, 0) + v
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        if i == profile_at:
+            reps = []
+            got = profiled_device(lambda: reps.append(eng.step()))
+            rep = reps[-1]
+            fields, _ = busy_report(got, "step_wall_ms_profiled", 8)
+            out["profile_step"] = {**fields, "steps_profiled": len(reps)}
+            out["steps"].extend([None] * (len(reps) - 1))
+            dt = None
+        else:
+            rep = eng.step()
+            dt = time.perf_counter() - t0
+        done_at = time.perf_counter() - t_run
+        out["steps"].append(dt and {"s": dt, "tokens": rep["tokens"]})
+        out["launches"].append({k: v - before.get(k, 0)
+                                for k, v in build.LAUNCHES.items()
+                                if v - before.get(k, 0)})
+        for s in eng.sequences:
+            if s.generated and s.tenant not in out["first_token"]:
+                out["first_token"][s.tenant] = (len(out["steps"]), done_at)
+        if inject_at is not None and len(out["steps"]) == inject_at:
+            owners = sorted({eng.pool.owner(pid)
+                             for pid in eng.pool.allocated()})
+            out["inject"] = {
+                "cells": eng.inject(uniform_flip(3, ENGINE_FLIP), SEED),
+                "owners": owners, "pool_pages": eng.pool.n_allocated}
+            ex, t0 = dict(build.LAUNCHES), time.perf_counter()
+            out["checks"]["pool_scrub"] = check_pool_scrub(eng.pool)
+            t_run += time.perf_counter() - t0      # not the run's time
+            for k, v in build.LAUNCHES.items():
+                extra[k] = extra.get(k, 0) + v - ex.get(k, 0)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t_run
+    out["check_launches"] = extra
+    out["tokens"] = {s.tenant: list(s.generated) for s in eng.sequences}
+    out["stats"] = eng.stats()
+    out["tenant_stats"] = {t: eng.tenant_stats(t) for t in tenants}
+    if protected:
+        out["peak_pages"] = eng.pool.peak_allocated
+        out["page_bytes"] = eng.pool.page_bytes
+        out["capacity_pages"] = eng.pool.capacity_pages
+        out["pool_allocated_at_end"] = eng.pool.n_allocated
+        out["scrub_reports"] = eng.scrub_reports
+        out["scrub_s"] = scrub_s
+    return out
+
+
+def engine_summary(r: dict) -> dict:
+    """A run's logged figures: ms an engine step (median over the timed
+    steps), aggregate decode tokens/s, TTFT by tenant (steps, s), the
+    pool's peak, launches a step by kernel, and the scrub's time."""
+    timed = [s for s in r["steps"] if s]
+    step_s = sorted(s["s"] for s in timed)
+    tokens = sum(s["tokens"] for s in timed)
+    n = len(r["launches"])
+    kernels = sorted({k for st in r["launches"] for k in st})
+    out = {"steps": len(r["steps"]), "run_s": r["run_s"],
+           "ms_per_step_median": 1e3 * step_s[len(step_s) // 2],
+           "ms_per_step_max": 1e3 * step_s[-1],
+           "decode_tokens_per_s": tokens / sum(step_s),
+           "ttft": {str(t): {"steps": st, "s": s}
+                    for t, (st, s) in sorted(r["first_token"].items())},
+           "launches_per_step": {k: sum(st.get(k, 0)
+                                        for st in r["launches"]) / n
+                                 for k in kernels},
+           "launches": {k: sum(st.get(k, 0) for st in r["launches"])
+                        for k in kernels},
+           "stats": r["stats"]}
+    if "peak_pages" in r:
+        out["peak_pages"] = r["peak_pages"]
+        out["peak_bytes"] = r["peak_pages"] * r["page_bytes"]
+        out["capacity_pages"] = r["capacity_pages"]
+    if r.get("scrub_s"):
+        out["scrub_ms_median"] = 1e3 * sorted(r["scrub_s"])[
+            len(r["scrub_s"]) // 2]
+        out["scrubs"] = len(r["scrub_s"])
+    for key in ("profile_step", "inject", "checks"):
+        if key in r:
+            out[key] = r[key]
+    return out
+
+
+def phase_engine(device, cfg, params) -> tuple[dict, dict]:
+    """The multi-tenant serving engine on phase 8's model: ENGINE_TENANTS
+    tenants (prompts of ENGINE_PROMPT_LENS tokens, two of each) through
+    ENGINE_SLOTS slots and one shared wl160_r08 page pool, ENGINE_NEW
+    greedy tokens each, five runs: (a) clean; (b) tenant 0 alone, which
+    must give (a)'s tokens for tenant 0; (c) `uniform_flip(3,
+    ENGINE_FLIP)` injected after step ENGINE_INJECT_STEP with a scrub of
+    ENGINE_SCRUB_PAGES pages every ENGINE_SCRUB_EVERY steps, which must
+    give (a)'s tokens, corrections on exactly the tenants that owned pages
+    then, none left, and scrub repairs; (d) the pool cut to
+    ENGINE_PREEMPT_SHARE of (a)'s peak, which must preempt and give (a)'s
+    tokens and drain the pool; (e) unprotected (`protected=False`),
+    tokens logged. Mid-run checks: one layer's fused read against its
+    plain version in (a), and a copy of the pool's pages scrubbed on the
+    card and the CPU after (c)'s injection. Returns (report, the launches
+    of the five runs less the checks')."""
+    from repro_torch.kernels import build
+    prompts = engine_prompts(cfg)
+    build.reset_launches()
+    runs = {"clean": run_engine(params, cfg, prompts,
+                                check_at=ENGINE_CHECK_STEP,
+                                profile_at=ENGINE_PROFILE_STEP)}
+    runs["alone"] = run_engine(params, cfg, prompts, tenants=[0])
+    runs["injected"] = run_engine(params, cfg, prompts,
+                                  inject_at=ENGINE_INJECT_STEP,
+                                  scrub_every=ENGINE_SCRUB_EVERY)
+    peak = runs["clean"]["peak_pages"]
+    runs["preempted"] = run_engine(
+        params, cfg, prompts, capacity=int(ENGINE_PREEMPT_SHARE * peak))
+    runs["unprotected"] = run_engine(params, cfg, prompts, protected=False)
+    launches = dict(build.LAUNCHES)
+    for r in runs.values():
+        for k, v in r["check_launches"].items():
+            launches[k] -= v
+
+    report = {"arch": cfg.name, "tenants": ENGINE_TENANTS,
+              "prompt_lens": [len(p) for p in prompts],
+              "slots": ENGINE_SLOTS, "max_seq": ENGINE_MAX_SEQ,
+              "new_tokens": ENGINE_NEW, "code": "wl160_r08",
+              "page_tokens": 16, "launches": launches}
+    for name, r in runs.items():
+        report[name] = engine_summary(r)
+    log(f"  engine: {json.dumps(report)}")
+
+    clean, inj = runs["clean"], runs["injected"]
+    want = clean["tokens"]
+    if sorted(want) != list(range(ENGINE_TENANTS)) or any(
+            len(v) != ENGINE_NEW for v in want.values()):
+        raise AssertionError(f"clean engine run: tokens {want}")
+    for name in ("clean", "injected", "preempted"):
+        if runs[name]["pool_allocated_at_end"] != 0:
+            raise AssertionError(f"{name} engine run: the pool did not "
+                                 f"drain")
+    if runs["alone"]["tokens"][0] != want[0]:
+        raise AssertionError("tenant 0 alone: tokens differ from the "
+                             "multi-tenant run's")
+    for name in ("injected", "preempted"):
+        if runs[name]["tokens"] != want:
+            raise AssertionError(f"{name} engine run: tokens differ from "
+                                 f"the clean run's")
+    owners = set(inj["inject"]["owners"])
+    for t, st in inj["tenant_stats"].items():
+        if st["uncorrectable"] or st["scrub_flagged"] != st["scrub_repaired"]:
+            raise AssertionError(f"injected engine run: tenant {t} left "
+                                 f"words uncorrected: {st}")
+        if (st["detected"] > 0) != (t in owners) or st["corrected"] != \
+                st["detected"]:
+            raise AssertionError(f"injected engine run: tenant {t}'s "
+                                 f"corrections {st}, page owners at the "
+                                 f"injection {sorted(owners)}")
+    if sum(r["repaired_words"] for r in inj["scrub_reports"]) <= 0:
+        raise AssertionError("injected engine run: the scrub repaired "
+                             "nothing")
+    if runs["preempted"]["stats"]["preemptions"] < 1:
+        raise AssertionError("preempted engine run: nothing was preempted")
+    report["unprotected_tokens_equal_share"] = sum(
+        a == b for t in want for a, b in zip(
+            want[t], runs["unprotected"]["tokens"][t])) / (
+        ENGINE_TENANTS * ENGINE_NEW)
     return report, launches
 
 
@@ -2080,6 +2450,12 @@ def main() -> int:
     check_path("PIM serving", pim_launches,
                ("pim_mac", "scan_syndromes", "fbp_cn", "gf_matmul",
                 "attend_protected"))
+    log("phase 14: multi-tenant serving engine, paper-pim-2b")
+    engine, engine_launches = phase_engine(device, *serve_model[:2])
+    log(f"  launches on the engine path: {engine_launches}")
+    check_path("engine", engine_launches,
+               ("attend_protected", "gf_matmul", "scan_syndromes",
+                "fbp_cn"))
     del serve_model                    # free the serving model's 6.9 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -2103,7 +2479,7 @@ def main() -> int:
                 "scan_syndromes", "fbp_cn"))
     launches = {k: sum(path.get(k, 0) for path in (
         codec_launches, serve_launches, prefill_launches, pim_launches,
-        campaign_launches, train_launches))
+        engine_launches, campaign_launches, train_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -2121,7 +2497,8 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
                     "serving": serving, "prefill": prefill_report,
-                    "pim_serving": pim_serving, "campaign": campaign,
+                    "pim_serving": pim_serving, "engine": engine,
+                    "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
                     "launches_per_call": per_call,
@@ -2129,6 +2506,7 @@ def main() -> int:
                     "launches_serving": serve_launches,
                     "launches_prefill": prefill_launches,
                     "launches_pim_serving": pim_launches,
+                    "launches_engine": engine_launches,
                     "launches_campaign": campaign_launches,
                     "launches_training": train_launches,
                     "seconds": time.perf_counter() - t0}))

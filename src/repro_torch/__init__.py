@@ -11,13 +11,15 @@ Memory mode:  `repro_torch.memory.ProtectedMemoryArray`
 PIM mode:     `repro_torch.core.protected_pim_matmul`
 Protected KV-cache serving: `repro_torch.models.prefill(...,
               protected_kv=ProtectedKVConfig(...))`, then `decode_step`
+Multi-tenant serving: `repro_torch.serving.ServingEngine` over a shared
+              `repro_torch.memory.ProtectedPagePool`
 Training:     `repro_torch.launch.train.run(cfg, ...)` (flash attention
               forward and backward under `attn_impl="flash"`)
 """
 from . import (checkpoint, configs, convert, core, data, distributed,
-               kernels, launch, memory, models, nn, optim)
+               kernels, launch, memory, models, nn, optim, serving)
 from .device import resolve_device
 
 __all__ = ["checkpoint", "configs", "convert", "core", "data", "distributed",
            "kernels", "launch", "memory", "models", "nn", "optim",
-           "resolve_device"]
+           "serving", "resolve_device"]

@@ -48,7 +48,7 @@ SIGNATURES = {
     "rt_scan_syndromes": [_P, _P, _P] + [_I] * 6 + [_P],
     "rt_pim_mac": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rt_fbp_cn": [_P, _P, _I, _I, _I, _I, _P],
-    "rt_attend_protected": [_P] * 11 + [_I] * 16 + [_F, _P],
+    "rt_attend_protected": [_P] * 11 + [_I] * 17 + [_F, _P],
     "rt_flash_fwd": [_P] * 5 + [_I] * 7 + [_F, _F, _P],
     "rt_flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _F, _P],
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _F, _P],

@@ -10,8 +10,14 @@
 //
 // Split-page decode attention (flash-decoding), two kernels:
 // - attend_split_kernel, a CTA per (batch row b, KV head h, page range):
-//   the NP pages are cut into nsplit contiguous ranges (the wrapper's
-//   count, from NP, B * Hkv and the SMs), and each CTA runs the online
+//   the NP pages are cut into nsplit contiguous ranges of RP pages (the
+//   wrapper's RP, from B * Hkv, T, the SMs and a page count the caller
+//   may fix, such as its max_seq in pages: then a row's ranges, and the
+//   bits of its output, do not depend on how many pages the other rows
+//   hold, since a row's pages past its own are masked (valid 0) and only
+//   add empty ranges, which the merge weighs by 0; nsplit never passes
+//   one wave of CTAs, so the merge's shared memory is bounded whatever
+//   NP), and each CTA runs the online
 //   softmax of its (b, h) query rows over its range, PG pages a step (PG T
 //   tokens: 2 pages of 16 at the serving shape, so a step has a thread
 //   per q.k dot and a lane per token, and half the barriers of a step per
@@ -78,7 +84,7 @@ struct Args {
   __nv_bfloat16* out;
   float* part;              // (B * Hkv, nsplit, R, D + 2): acc, m, l
   int B, Sq, Hq, Hkv, D, T, Bsub, S, NP, W, n, k_info, p, Dg, with_hot;
-  int nsplit, PG;           // page ranges; pages a softmax step takes
+  int nsplit, RP, PG;       // page ranges; pages a range; pages a step
   int NWM, span;            // words a run spans at most; a run's stride
   bool vec;                 // 16-byte copies
   // a byte's digits as dp4a operands: weights p^i of digits 0-3 and 4-7
@@ -367,10 +373,9 @@ attend_split_kernel(Args a) {
   }
   __syncthreads();
 
-  // this CTA's pages: its range of steps of PG pages
-  const int steps = (a.NP + PG - 1) / PG;
-  const int j0 = (int)((long)sp * steps / a.nsplit) * PG;
-  const int j1 = min(a.NP, (int)((long)(sp + 1) * steps / a.nsplit) * PG);
+  // this CTA's pages: its range of RP pages, walked PG pages a step
+  const int j0 = sp * a.RP;
+  const int j1 = min(a.NP, j0 + a.RP);
   const long cells = (long)a.W * a.n;
   // the step at page j into stage st: its copies, valid counts and scales
   auto prefetch = [&](int j, int st) {
@@ -500,19 +505,19 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 extern "C" {
 
 // part: (B * Hkv, nsplit, R, D + 2) fp32 scratch, R = (Hq / Hkv) Sq;
-// nsplit >= 1 page ranges when NP > 0, else 0; pg pages a softmax step
-// (fewer when the step's shared memory would pass 227 KB).
+// nsplit = ceil(NP / rp) ranges of rp pages (0 when NP is 0); pg pages a
+// softmax step (fewer when the step's shared memory would pass 227 KB).
 int rt_attend_protected(const void* q, const void* kp, const void* vp,
                         const void* ks, const void* vs, const void* valid,
                         const void* hk, const void* hv, const void* hvalid,
                         void* out, void* part, int B, int Sq, int Hq, int Hkv,
                         int D, int T, int Bsub, int S, int NP, int W, int n,
-                        int k_info, int p, int with_hot, int nsplit, int pg,
-                        float softcap, void* stream) {
+                        int k_info, int p, int with_hot, int nsplit, int rp,
+                        int pg, float softcap, void* stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
   if (Hkv < 1 || Hq % Hkv || T < 1 || D < 1 || k_info < 1 || p < 2 ||
-      pg < 1 || (NP == 0 && !with_hot) || (NP > 0 && nsplit < 1) ||
-      (NP == 0 && nsplit != 0))
+      pg < 1 || rp < 1 || (NP == 0 && !with_hot) ||
+      nsplit != (NP + rp - 1) / rp)
     return (int)cudaErrorInvalidValue;
   int Dg = 0;
   for (long v = 1; v < 256; v *= p) ++Dg;       // ceil(log_p 256)
@@ -556,7 +561,7 @@ int rt_attend_protected(const void* q, const void* kp, const void* vp,
          (const __nv_bfloat16*)hk, (const __nv_bfloat16*)hv,
          (const int*)hvalid, (__nv_bfloat16*)out, (float*)part,
          B, Sq, Hq, Hkv, D, T, Bsub, S, NP, W, n, k_info, p, Dg, with_hot,
-         nsplit, PG, NWM, span, vec, w[0], w[1], m[0], m[1],
+         nsplit, rp, PG, NWM, span, vec, w[0], w[1], m[0], m[1],
          (uint32_t)(0x80 - p) * 0x01010101u, softcap};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e = allow_smem((const void*)attend_split_kernel,

@@ -34,12 +34,19 @@ The CUDA kernel splits the page walk over the grid (flash-decoding): a
 CTA per (batch row, KV head, range of pages) runs the online softmax over
 its range and writes the partial (m, l, acc); a second small kernel
 merges the ranges in order, applies the hot page last and finalizes. The
-ranges' count and the pages a softmax step takes come from `attend_plan`
-(NP, B·Hkv, the page's tokens and the SMs), so the serving shape's 32
-(row, head) pairs fill the card. No atomics: a call is
-bitwise repeatable. Each CTA copies the info columns of the words its
-(row, head) slice covers into shared memory (16-byte copies, the next
-page's in flight) and assembles each element's digits from there.
+pages a range and a softmax step take come from `attend_plan`: ranges are
+sized so that max(NP, ref_pages) pages fill one wave of CTAs. A caller
+whose rows hold different page counts (per-slot pages) passes a bound on
+NP that does not change between calls, such as its max_seq in pages: a
+row's ranges are then the same whatever the other rows hold, and a row's
+pages past its own (valid 0) only add ranges that the merge weighs by
+exactly 0. So a serving slot's output does not depend on the
+other slots' page counts, to the bit. The ranges never outnumber the
+CTAs of one wave, so the merge's shared memory does not grow with NP and
+the kernel takes any NP. No atomics: a call is bitwise repeatable. Each
+CTA copies the info columns of the words its (row, head) slice covers
+into shared memory (16-byte copies, the next page's in flight) and
+assembles each element's digits from there.
 
 Bound on the card: bytes (the info digits of K and V once); see the note
 in `csrc/paged_attention.cu`.
@@ -66,7 +73,6 @@ NEG_INF = -1e30
 # three fit), and tokens a softmax step aims at (a lane each)
 CTAS_PER_SM = 3
 STEP_TOKENS = 32
-MAX_SPLITS = 32
 
 
 def _packing():
@@ -147,11 +153,12 @@ def dequant_gf_page(words, scale, *, p: int, k_info: int, page_shape,
 def attend_protected_plain(q, kpages, vpages, kscales, vscales, valid,
                            hot_k, hot_v, hot_valid, *, p: int, k_info: int,
                            page_shape, softcap: float = 0.0,
-                           with_hot: bool = True):
+                           with_hot: bool = True, ref_pages: int = 0):
     """The fused read's plain version (the JAX oracle
     `ref.attend_protected_ref`): per page, `dequant_gf_page` then
     `paged_softmax_update`, the hot page last when `with_hot`. Operands as
-    in `attend_protected`."""
+    in `attend_protected`; `ref_pages` sizes the kernel's page ranges and
+    has no effect here (the walk is one range)."""
     _check_pages(kpages, vpages, with_hot)
     B, Sq, Hq, D = q.shape
     _Bsub, T, Hkv, Dh = page_shape
@@ -177,19 +184,21 @@ def attend_protected_plain(q, kpages, vpages, kscales, vscales, valid,
 
 
 @functools.lru_cache(maxsize=256)
-def attend_plan(NP: int, BH: int, T: int, slots: int) -> tuple[int, int]:
-    """(pages a softmax step, page ranges) of the split kernel for NP
-    pages of T tokens and BH (row, KV head) pairs on `slots` SMs: steps
-    of about STEP_TOKENS tokens (at most 8 pages; the kernel takes fewer
-    where shared memory is short), and as many ranges of whole steps as
-    CTAS_PER_SM CTAs an SM hold in one wave, at most one a step and
-    MAX_SPLITS (the merge reads each range's partials); no ranges without
-    pages."""
+def attend_plan(NP: int, BH: int, T: int, slots: int, ref_pages: int = 0
+                ) -> tuple[int, int, int]:
+    """(pages a softmax step, pages a range, ranges) of the split kernel
+    for NP pages of T tokens and BH (row, KV head) pairs on `slots` SMs.
+    Steps take about STEP_TOKENS tokens (at most 8 pages; the kernel takes
+    fewer where shared memory is short). A range holds whole steps, as few
+    as let max(NP, ref_pages) pages fill one wave of CTAS_PER_SM CTAs an
+    SM, so there are never more ranges than that wave holds. With NP <=
+    ref_pages the range's page count depends on ref_pages alone, not on
+    NP; the last range holds the rest, and there are none without pages."""
     pg = max(1, min(8, STEP_TOKENS // T))
-    if NP == 0:
-        return pg, 0
-    want = CTAS_PER_SM * slots // max(BH, 1)     # one wave
-    return pg, max(1, min(-(-NP // pg), MAX_SPLITS, want))
+    steps = max(1, -(-max(NP, ref_pages) // pg))
+    want = max(1, CTAS_PER_SM * slots // max(BH, 1))   # ranges in a wave
+    rp = pg * -(-steps // want)
+    return pg, rp, -(-NP // rp)
 
 
 def _check_pages(kpages, vpages, with_hot):
@@ -214,7 +223,8 @@ def _expect(name, t, shape, dtype):
 
 def attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
                      hot_v, hot_valid, *, p: int, k_info: int, page_shape,
-                     softcap: float = 0.0, with_hot: bool = True):
+                     softcap: float = 0.0, with_hot: bool = True,
+                     ref_pages: int = 0):
     """Fused protected paged attention -> (B, Sq, Hq, D) in q's dtype.
 
     q: (B, Sq, Hq, D) bf16. kpages/vpages: (NP, S, W, n) int8 corrected GF
@@ -222,7 +232,10 @@ def attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
     with S·Bsub = B; NP may be 0 when `with_hot`. kscales/vscales: (NP, S)
     float32 absmax scales. valid: (NP, B) int32 valid tokens per step and
     row. hot_k/hot_v: (B, T, Hkv, D) bf16 hot page, applied last with
-    hot_valid (B,) int32 fill levels when `with_hot`.
+    hot_valid (B,) int32 fill levels when `with_hot`. ref_pages: the page
+    count the kernel's page ranges are sized for (`attend_plan`); a bound
+    on NP that stays fixed across calls keeps each row's result
+    independent of NP. It does not change the plain version's result.
 
     On the card every operand must already have exactly these dtypes and
     be contiguous; anything else raises (nothing is cast for the caller).
@@ -262,7 +275,8 @@ def attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
     _expect("hot_v", hot_v, (B, T, Hkv, D), torch.bfloat16)
     _expect("hot_valid", hot_valid, (B,), torch.int32)
     out = torch.empty_like(q)
-    pg, nsplit = attend_plan(NP, B * Hkv, T, build.sm_count(q.device))
+    pg, rp, nsplit = attend_plan(NP, B * Hkv, T, build.sm_count(q.device),
+                                 ref_pages)
     # each range's partial acc (R x D), m and l (R each), R = G·Sq
     part = torch.empty((B * Hkv, nsplit, (Hq // Hkv) * Sq, D + 2),
                        dtype=torch.float32, device=q.device)
@@ -271,7 +285,7 @@ def attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
         kscales.data_ptr(), vscales.data_ptr(), valid.data_ptr(),
         hot_k.data_ptr(), hot_v.data_ptr(), hot_valid.data_ptr(),
         out.data_ptr(), part.data_ptr(), B, Sq, Hq, Hkv, D, T, Bsub, S, NP,
-        W, n, k_info, p, int(bool(with_hot)), nsplit, pg,
+        W, n, k_info, p, int(bool(with_hot)), nsplit, rp, pg,
         float(softcap or 0.0),
         build.stream_handle(q.device))
     build.check(err, "attend_protected")

@@ -11,6 +11,9 @@
 - `paged`      — `PagedProtectedStore`: fixed-shape pages on the device
                  with scan-gated corrected reads (the protected KV cache's
                  store), and the float <-> GF quantization bridge;
+- `pool`       — `ProtectedPagePool` / `PooledStore`: a shared page pool
+                 with block tables, copy-on-write and per-owner scrubs
+                 (the multi-tenant serving engine's storage);
 - `packing`    — the byte <-> GF(p) symbolization;
 - `campaign`   — the semi-analytic BER campaign: NB-LDPC against Hamming
                  SECDED, a modulo checksum and no code (the paper's
@@ -31,6 +34,7 @@ from .controller import (ControllerStats, MemoryController, ScrubController,
 from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
 from .paged import (PagedProtectedStore, QuantizedTensor, dequantize_tensor,
                     quantize_tensor, words_for_tensor)
+from .pool import PooledStore, PoolExhausted, ProtectedPagePool
 from .repair import RepairQueue
 
 __all__ = [
@@ -43,6 +47,7 @@ __all__ = [
     "desymbolize_u8", "digits_per_byte", "symbolize_u8",
     "PagedProtectedStore", "QuantizedTensor", "dequantize_tensor",
     "quantize_tensor", "words_for_tensor",
+    "PoolExhausted", "PooledStore", "ProtectedPagePool",
     "RepairQueue",
     "ResidualProfile", "NBLDPCScheme", "HammingSECDEDScheme",
     "ModuloParityScheme", "UnprotectedScheme", "binom_pmf", "mix_post_ber",

@@ -18,8 +18,9 @@ the stored int8 words, or the exact product for codes past the kernel's
 int8 symbols or int32 bound (`_scan_route`, as the JAX controller's), then
 the decoder runs ONLY on flagged words,
 through the controller's `RepairQueue`. Sweeps use the coalesced repair
-pipeline: pages are scanned a window ahead, flagged rows from many pages
-are queued and decoded together. Per-policy counters (detected / corrected
+pipeline (pages are scanned a window ahead, flagged rows from many pages
+are queued and decoded together) or, with `coalesce=False`, the per-page
+baseline it is measured against. Per-policy counters (detected / corrected
 / uncorrectable / writebacks / scrub bandwidth) live in `ControllerStats`.
 """
 from __future__ import annotations
@@ -76,6 +77,17 @@ class ControllerStats:
     def correction_counts(self) -> dict[str, int]:
         """The read-path correction triple."""
         return {k: getattr(self, k) for k in self.CORRECTION_KEYS}
+
+    @staticmethod
+    def add_counts(out: dict[str, int], src) -> dict[str, int]:
+        """Add one correction-count source (a `ControllerStats` or a dict
+        holding the triple) into `out` in place: the one merge behind every
+        per-tenant sum of the serving engine."""
+        get = src.correction_counts().get if isinstance(
+            src, ControllerStats) else src.get
+        for k in ControllerStats.CORRECTION_KEYS:
+            out[k] = out.get(k, 0) + int(get(k, 0))
+        return out
 
 
 class MemoryController:
@@ -181,21 +193,32 @@ class MemoryController:
               page_words: int | None = None, **kw) -> dict:
         """Full-array sweep: scan every stored word, repair flagged words in
         place. `page_words` (default: the controller's `page_words`) streams
-        the sweep in fixed-size pages. Returns the sweep's report."""
+        the sweep in fixed-size pages; other keywords (`coalesce=`,
+        `scan_ahead=`, `drain_words=`) reach `scrub_pages`. Returns the
+        sweep's report."""
         if page_words is None:
             page_words = self.page_words
         return self.scrub_pages(code, self.iter_pages(store, page_words),
                                 page_words=page_words, **kw)
 
     def scrub_pages(self, code: LDPCCode, pages: Iterable[torch.Tensor], *,
-                    page_words: int | None = None, scan_ahead: int = 4,
+                    page_words: int | None = None, coalesce: bool = True,
+                    scan_ahead: int = 4,
                     drain_words: int | None = None) -> dict:
-        """Coalesced sweep over any iterator of writable (b, n) level-word
-        pages: pages are scanned `scan_ahead` ahead of the one whose flags
-        are being read (one host read per window of pages), flagged rows
-        wait on the `RepairQueue`, which drains once `drain_words` rows
-        have accumulated, and repairs are written back through the page
-        views."""
+        """Paged sweep over any iterator of writable (b, n) level-word
+        pages; repairs are written back through the page views.
+
+        `coalesce=True` (default) is the repair pipeline: pages are
+        scanned `scan_ahead` ahead of the one whose flags are being read
+        (one host read per window of pages), flagged rows wait on the
+        `RepairQueue`, which drains once `drain_words` rows have
+        accumulated. `coalesce=False` is the per-page baseline: each
+        page's flag count is read back and its flagged rows decoded before
+        the next page. Both repair the same words (FBP is
+        row-independent)."""
+        if not coalesce:
+            return self._scrub_pages_baseline(code, pages,
+                                              page_words=page_words)
         t0 = time.perf_counter()
         scan_ahead = max(1, scan_ahead)
         if drain_words is None:
@@ -282,6 +305,53 @@ class MemoryController:
                 "coalesced": True, "scan_ahead": scan_ahead,
                 "drains": len(drain_stats), "drain_stats": drain_stats,
                 "seconds": dt,
+                "bandwidth_cells_per_s": words * code.n / dt if dt else 0.0}
+
+    def _scrub_pages_baseline(self, code: LDPCCode,
+                              pages: Iterable[torch.Tensor], *,
+                              page_words: int | None = None) -> dict:
+        """Per-page sweep: a scan, a host read of its flag count and a
+        decode of that page's flagged rows, page after page."""
+        t0 = time.perf_counter()
+        words = flagged_n = corrected_n = fail_n = n_pages = 0
+        page_stats: list[dict] = []
+        backend = None
+        for page in pages:
+            n_pages += 1
+            backend = page.device.type
+            tp = time.perf_counter()
+            flagged = self._scan(code, page)
+            pg_flagged = int(flagged.sum())
+            pg_fail = 0
+            if pg_flagged:
+                rows = torch.nonzero(flagged)[:, 0]
+                syms, f, _iters = self._repair_queue(code).decode_batch(
+                    page[rows])
+                pg_fail = int(f.sum())
+                ok = ~f.to(rows.device)
+                if pg_fail < pg_flagged:
+                    page[rows[ok]] = syms[ok].to(page.dtype).to(page.device)
+            words += page.shape[0]
+            flagged_n += pg_flagged
+            corrected_n += pg_flagged - pg_fail
+            fail_n += pg_fail
+            if n_pages <= MAX_PAGE_STATS:
+                page_stats.append({
+                    "words": int(page.shape[0]), "flagged": pg_flagged,
+                    "corrected": pg_flagged - pg_fail,
+                    "uncorrectable": pg_fail,
+                    "seconds": time.perf_counter() - tp})
+        dt = time.perf_counter() - t0
+        self._note_scrub_totals(code, words, corrected_n, fail_n, dt)
+        return {"policy": self.policy, "backend": backend,
+                "scan_route": self._scan_route(code),
+                "words_scanned": words,
+                "cells_scanned": words * code.n, "flagged": flagged_n,
+                "corrected": corrected_n, "uncorrectable": fail_n,
+                "pages": n_pages, "page_words": page_words,
+                "page_stats": page_stats,
+                "page_stats_truncated": n_pages > MAX_PAGE_STATS,
+                "coalesced": False, "seconds": dt,
                 "bandwidth_cells_per_s": words * code.n / dt if dt else 0.0}
 
     def _note_scrub_totals(self, code: LDPCCode, words: int, corrected_n: int,

@@ -26,10 +26,11 @@ Global self-attention layers are protected; sliding-window layers keep
 dense ring caches. `models.lm.prefill(..., protected_kv=...)` builds the
 manager and ingests the prompt K/V, `decode_step` serves through it.
 
-The JAX package's `mesh` (one card here) and `pool` (the page-pool slice,
-ROADMAP Queue 1 item B) have no counterpart yet; `pool` raises. The JAX
-layer's trace spans and metric counters are not ported (ROADMAP Queue 1
-item 4).
+With `pool` (a `memory.pool.ProtectedPagePool`) every layer's stores are
+`PooledStore`s: block tables into the shared pool instead of private
+pages, returned to its free list by `free()`. The JAX package's `mesh`
+has no counterpart (one card here). The JAX layer's trace spans and
+metric counters are not ported (ROADMAP Queue 1 item 4+8).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from ..kernels.paged_attention import attend_protected
 from ..memory.packing import digits_per_byte
 from ..memory.paged import (PagedProtectedStore, dequantize_tensor,
                             quantize_tensor, words_for_tensor)
+from ..memory.pool import PooledStore
 from ..nn.kv_source import KVSource
 from ..nn.layers import CDT
 
@@ -68,13 +70,10 @@ class ProtectedKVConfig:
                                    # pages through attend_paged (CPU only)
     overlap: bool = True           # False: block on every page decode of
                                    # the streaming refill (CPU only)
-    pool: Any = None               # shared page pool: not ported yet
-
-    def __post_init__(self):
-        if self.pool is not None:
-            raise NotImplementedError(
-                "pool-backed protected KV (memory/pool.py) is not ported "
-                "yet: ROADMAP Queue 1 item B")
+    pool: Any = None               # ProtectedPagePool: every layer's
+                                   # stores take their pages from this
+                                   # shared pool (block tables) instead of
+                                   # private grow-only storage
 
 
 def _block_until_done(t: torch.Tensor) -> torch.Tensor:
@@ -100,11 +99,30 @@ class ProtectedKVLayer(KVSource):
         code = get_code(pkv.code_name)
         # one frozen KV page == exactly one store page
         wpu = words_for_tensor(self.page_shape, code.p, code.k)
-        self.k_store, self.v_store = (
-            PagedProtectedStore(code, page_words=wpu, n_iters=pkv.n_iters,
-                                damping=pkv.damping, device=self.device)
-            for _ in range(2))
-        self.k_store.owner = self.v_store.owner = owner
+        if pkv.pool is not None:
+            pool = pkv.pool
+            if pool.page_words != wpu:
+                raise ValueError(
+                    f"pool page_words={pool.page_words} != {wpu} words per "
+                    f"KV page for page_shape {self.page_shape}; size the "
+                    "pool with words_for_tensor(page_shape, p, k)")
+            if (pool.code.n, pool.code.k, pool.code.p) != (code.n, code.k,
+                                                           code.p):
+                raise ValueError(
+                    f"pool code ({pool.code.n},{pool.code.k},p{pool.code.p})"
+                    f" != KV code ({code.n},{code.k},p{code.p})")
+            if pool.device.type != self.device.type:
+                raise ValueError(f"pool on {pool.device}, layer on "
+                                 f"{self.device}")
+            self.k_store = PooledStore(pool, owner=owner)
+            self.v_store = PooledStore(pool, owner=owner)
+        else:
+            self.k_store, self.v_store = (
+                PagedProtectedStore(code, page_words=wpu,
+                                    n_iters=pkv.n_iters, damping=pkv.damping,
+                                    device=self.device)
+                for _ in range(2))
+            self.k_store.owner = self.v_store.owner = owner
         self.words_per_page = wpu
         self._gen = torch.Generator(device=self.device).manual_seed(0)
         self.hot_k = torch.zeros(self.page_shape, dtype=dtype,
@@ -181,7 +199,8 @@ class ProtectedKVLayer(KVSource):
         return changed
 
     def free(self) -> None:
-        """Release the stores and reset the hot page."""
+        """Release the stores (pool-backed stores return every block to
+        the shared free list) and reset the hot page."""
         self.k_store.free()
         self.v_store.free()
         self.hot_k.zero_()

@@ -306,14 +306,18 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
                 aux=None, pim_ctx=None):
     """One-token decode. token: (B, 1) ints; pos: the position (an int).
     `caches` is the stacked dense caches of `init_caches`, written in
-    place, or the `ProtectedKVCaches` manager of `prefill(...,
-    protected_kv=...)`. Returns (logits (B, 1, V) float32, caches).
+    place, the `ProtectedKVCaches` manager of `prefill(...,
+    protected_kv=...)`, or any manager with the same `view`/`update`
+    surface and `is_protected_manager = True` (the serving engine's
+    batched caches, which take a (B,) per-slot `pos`). Returns (logits
+    (B, 1, V) float32, caches).
     `pim_ctx` protects its target projections."""
     if aux is not None:
         raise NotImplementedError("auxiliary (cross-attention) inputs are "
                                   "not ported yet: ROADMAP Queue 1 item 9")
     from .kv import ProtectedKVCaches
-    if isinstance(caches, ProtectedKVCaches):
+    if (isinstance(caches, ProtectedKVCaches)
+            or getattr(caches, "is_protected_manager", False)):
         return _decode_step_protected(params, cfg, caches, token, pos,
                                       pim_ctx)
     B = token.shape[0]

@@ -392,16 +392,19 @@ def _split_operands(dev, NP, *, empty_rows=False, seed=4):
 
 @pytest.mark.parametrize("NP,empty_rows,with_hot", [
     (1, False, True), (40, False, True), (40, True, True),
-    (40, True, False), (256, False, True)])
+    (40, True, False), (41, False, True), (256, False, True)])
 def test_attend_protected_page_splits(dev, NP, empty_rows, with_hot):
-    """The split-page kernel at one page, at a page count its ranges do
-    not divide evenly, at a long context (256 pages, 4,096 tokens), and
-    with rows that have no valid token in some ranges or in all of them
-    (and, without the hot page, none at all)."""
+    """The split-page kernel at one page, over several ranges, at a page
+    count whose last range is short (41), at a long context (256 pages,
+    4,096 tokens), and with rows that have no valid token in some ranges
+    or in all of them (and, without the hot page, none at all)."""
     from repro_torch.kernels import paged_attention as pa
-    args, kw, (pg, nsplit) = _split_operands(dev, NP, empty_rows=empty_rows)
-    if NP == 40:                         # ranges of unequal page counts
-        assert 1 < nsplit and -(-NP // pg) % nsplit
+    args, kw, (pg, rp, nsplit) = _split_operands(dev, NP,
+                                                 empty_rows=empty_rows)
+    if NP >= 40:
+        assert 1 < nsplit
+    if NP == 41:                         # ranges of unequal page counts
+        assert NP % rp
     kw.update(with_hot=with_hot)
     got = pa.attend_protected(*args, **kw)
     want = pa.attend_protected_plain(*args, **kw)
@@ -859,3 +862,130 @@ def test_plusminusone_corrupt_exact_on_card(dev):
         diff = y - words
         assert y.is_cuda and ((diff != 0).sum(dim=1) == m).all()
         assert set(diff.unique().tolist()) == {-1, 0, 1}
+
+
+# ---------------------------------------------------------------------------
+# the shared page pool and the multi-tenant engine on the card
+# ---------------------------------------------------------------------------
+
+
+def test_attend_protected_slot_ignores_other_slots_pages(dev):
+    """Per-slot pages (S = B) with the ranges sized for a fixed page
+    bound, as the engine sizes them for max_seq: a slot's output is
+    bitwise the same when another slot holds more pages (NP grows, the
+    slot's own pages past its count are zero pages with scale 0 and valid
+    0), because a range's pages then do not depend on NP (`attend_plan`)
+    and an empty range merges with weight 0."""
+    from repro_torch.kernels import paged_attention as pa
+    shape = dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, S=4)
+    args, kw = _attend_operands(dev, code_name="wl160_r08", seed=9, NP=34,
+                                **shape)
+    kw.update(ref_pages=34)                   # the engine's max_seq 544
+    q, kp, vp, ks, vs, valid, hk, hv, hval = args
+    own = 11                      # slot 0's pages; the others hold 34
+    kp, vp, ks, vs, valid = (t.clone() for t in (kp, vp, ks, vs, valid))
+    for t in (kp, vp, ks, vs):
+        t[own:, 0] = 0
+    valid[own:, 0] = 0
+    full = pa.attend_protected(q, kp, vp, ks, vs, valid, hk, hv, hval, **kw)
+    alone = pa.attend_protected(q, *(t[:own].contiguous()
+                                     for t in (kp, vp, ks, vs, valid)),
+                                hk, hv, hval, **kw)
+    assert torch.equal(full[0].view(torch.int16),
+                       alone[0].view(torch.int16))
+    want = pa.attend_protected_plain(q, kp, vp, ks, vs, valid, hk, hv, hval,
+                                     **kw)
+    torch.testing.assert_close(full.float(), want.float(), **ULP)
+
+
+def _pool_pair(dev, rng):
+    """A wl160_r08 pool on `dev` with two owners' pages, corrupted from
+    numpy, and a CPU copy of it."""
+    from repro_torch.memory import PooledStore, ProtectedPagePool
+    pools = [ProtectedPagePool("wl160_r08", page_words=24, capacity_pages=32,
+                               n_iters=8, device=d) for d in (dev, "cpu")]
+    words = [rng.integers(0, 3, (m, 128)) for m in (150, 90)]
+    for pool in pools:
+        for owner, u in enumerate(words):
+            PooledStore(pool, owner=owner).append_words(torch.as_tensor(u))
+    for pid in pools[0].allocated():
+        page = pools[1].page(pid).numpy().astype(np.int64)
+        hit = rng.random(page.shape) < 2e-3
+        page[hit] = (page[hit] + rng.integers(1, 3, hit.sum())) % 3
+        for pool in pools:
+            pool.set_page(pid, torch.as_tensor(page, dtype=torch.int8,
+                                               device=pool.device))
+    return pools
+
+
+@pytest.mark.parametrize("coalesce", [True, False])
+def test_pool_scrub_on_card_matches_cpu(dev, coalesce, rng):
+    """The pool's scrub on the card (scan and FBP kernels) repairs exactly
+    what its CPU run repairs, with the same reports and attribution."""
+    card, cpu = _pool_pair(dev, rng)
+    n0 = LAUNCHES["scan_syndromes"], LAUNCHES["fbp_cn"]
+    for kw in (dict(max_pages=5), dict(max_pages=5), {}):
+        a = card.scrub(coalesce=coalesce, **kw)
+        b = cpu.scrub(coalesce=coalesce, **kw)
+        assert a == b
+    assert LAUNCHES["scan_syndromes"] > n0[0] and LAUNCHES["fbp_cn"] > n0[1]
+    assert card.scrub_by_owner == cpu.scrub_by_owner
+    assert cpu.stats.scrub_corrected > 0
+    for pid in cpu.allocated():
+        assert torch.equal(card.page(pid).cpu(), cpu.page(pid))
+
+
+def _tiny_engine_runs(device, prompts, pool_pages=256, **kw):
+    from repro_torch.configs import get_config
+    from repro_torch.core import get_code
+    from repro_torch.memory import ProtectedPagePool, words_for_tensor
+    from repro_torch.models import ProtectedKVConfig, init_params
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("paper_pim").reduced(n_groups=2, d_model=64, n_heads=4,
+                                          n_kv_heads=2, d_ff=128)
+    params = init_params(cfg, 0, device="cpu")
+    with torch.no_grad():
+        for p in params.parameters():
+            p.mul_(3.0)
+    params = params.to(device)
+    code = get_code("wl160_r08")
+    pool = ProtectedPagePool(code, capacity_pages=pool_pages, n_iters=8,
+                             page_words=words_for_tensor((1, 8, 2, 16),
+                                                         code.p, code.k),
+                             device=device)
+    eng = ServingEngine(params, cfg, pool=pool, max_active=4, max_seq=48,
+                        pkv=ProtectedKVConfig("wl160_r08", page_tokens=8,
+                                              n_iters=8), **kw)
+    for t, p in prompts.items():
+        eng.submit(t, p, max_new=8)
+    return eng.run(), eng
+
+
+def test_engine_tokens_on_card_match_cpu(dev):
+    """The tiny engine (reduced paper-pim-2b, 4 tenants, 8 tokens each)
+    gives the same tokens on the card as on the CPU, its reads through
+    attend_protected (once per layer a step) and its freezes through the
+    encode kernel; the pool drains."""
+    rng = np.random.default_rng(0)
+    prompts = {t: rng.integers(0, 512, 12 + 3 * t) for t in range(4)}
+    want, _ = _tiny_engine_runs("cpu", prompts)
+    n0 = LAUNCHES["attend_protected"], LAUNCHES["gf_matmul"]
+    got, eng = _tiny_engine_runs(dev, prompts)
+    assert got == want
+    assert LAUNCHES["attend_protected"] - n0[0] == 2 * eng.stats()["step"]
+    assert LAUNCHES["gf_matmul"] > n0[1]
+    assert eng.pool.n_allocated == 0
+
+
+def test_engine_single_tenant_matches_multi_tenant_on_card(dev):
+    """On the card a tenant's tokens do not depend on the other slots:
+    each tenant served alone gives its multi-tenant tokens, and so does a
+    preempted and resumed run in a small pool."""
+    rng = np.random.default_rng(1)
+    prompts = {t: rng.integers(0, 512, 9 + 7 * t) for t in range(4)}
+    multi, _ = _tiny_engine_runs(dev, prompts)
+    for t, p in prompts.items():
+        solo, _ = _tiny_engine_runs(dev, {t: p})
+        assert solo[t] == multi[t], f"tenant {t} diverged under batching"
+    tight, eng = _tiny_engine_runs(dev, prompts, pool_pages=40)
+    assert eng.stats()["preemptions"] > 0 and tight == multi

@@ -98,16 +98,25 @@ def test_kmajor_h_is_h_padded_and_kept(name):
 @pytest.mark.parametrize("BH,T", [(32, 16), (1, 16), (6, 4), (512, 16),
                                   (8, 64)])
 def test_attend_plan_ranges(NP, BH, T):
-    """Steps of about 32 tokens; no ranges without pages; otherwise at
-    least one range, at most one a step and MAX_SPLITS, and no more CTAs
-    than one wave holds unless one range a pair already passes it."""
-    pg, nsplit = pa.attend_plan(NP, BH, T, 132)
+    """Steps of about 32 tokens; ranges of whole steps, as few pages each
+    as let max(NP, ref_pages) pages fill one wave of CTAs and never more
+    ranges than one wave holds (the merge's partials stay bounded at any
+    NP); ceil(NP / range) ranges, none without pages; and with NP <=
+    ref_pages a range's page count that does not depend on NP (a row's
+    ranges are the same whatever the other rows hold)."""
+    pg = pa.attend_plan(NP, BH, T, 132)[0]
     assert 1 <= pg <= 8 and (pg == 1 or pg * T <= pa.STEP_TOKENS)
-    if NP == 0:
-        assert nsplit == 0
-        return
-    assert 1 <= nsplit <= min(-(-NP // pg), pa.MAX_SPLITS)
-    assert nsplit == 1 or nsplit * BH <= pa.CTAS_PER_SM * 132
+    wave = max(1, pa.CTAS_PER_SM * 132 // BH)
+    for ref in (0, NP // 2, NP, 2 * NP + 3, 1000):
+        got_pg, rp, nsplit = pa.attend_plan(NP, BH, T, 132, ref)
+        assert got_pg == pg and rp % pg == 0
+        assert nsplit == -(-NP // rp) and nsplit <= wave
+        assert NP == 0 or (nsplit - 1) * rp < NP <= nsplit * rp
+        steps = max(1, -(-max(NP, ref) // pg))
+        assert rp == pg or -(-steps // (rp // pg - 1)) > wave
+        if NP <= ref:
+            for other in (0, 1, ref):
+                assert pa.attend_plan(other, BH, T, 132, ref)[:2] == (pg, rp)
 
 
 def test_route_names_the_device():

@@ -167,8 +167,19 @@ def test_layer_inject_and_free():
     assert (tl.n_tokens, tl.k_store.n_pages) == (0, 0)
     with pytest.raises(ValueError, match="at least one KV page"):
         tl.attend(q)
-    with pytest.raises(NotImplementedError, match="pool"):
-        ProtectedKVConfig(pool=object())
+    # pool-backed stores (ProtectedKVConfig(pool=...)) return every block
+    from repro_torch.memory import ProtectedPagePool, words_for_tensor
+    pool = ProtectedPagePool("wl40_r08", capacity_pages=8,
+                             page_words=words_for_tensor((2, 4, 2, 8), 3, 32),
+                             device="cpu")
+    pl = ProtectedKVLayer(ProtectedKVConfig(code_name="wl40_r08",
+                                            page_tokens=4, pool=pool),
+                          2, 2, 8, device="cpu")
+    pl.append(x.to(torch.bfloat16), x.to(torch.bfloat16))
+    assert pool.n_allocated == 4 and pl.inject(uniform_flip(3, 0.01),
+                                               key=1) > 0
+    pl.free()
+    assert pool.n_allocated == 0
 
 
 # ---------------------------------------------------------------------------
