@@ -109,6 +109,31 @@ Phases (any failure exits non-zero):
      pages (the checks' time and launches are not the runs'). It logs
      ms an engine step, decode tokens/s, TTFT by tenant, the pool's peak
      and the kernel launches a step;
+ 15. telemetry and the sanitizer, right after phase 14 on its model:
+     runs (a)-(e) must have built no metric instrument and recorded no
+     span; (f) run (c)'s configuration under `use_metrics`,
+     `use_tracer(Tracer(torch_profiler=True))` and `use_estimator` (the
+     scrub interval `adaptive_interval(4)`, sweeps prioritized), one step
+     under torch.profiler: (a)'s tokens, (c)'s corrections, the
+     `engine_steps`, `engine_tokens`, `pool_scrub_pages` and
+     `pool_scrub_flagged` counters equal to the engine's reports, the
+     `tenant_*` gauges of `publish_metrics` equal to `tenant_stats()`,
+     one `engine.step` span a step, `engine.decode` at depth 1,
+     `engine.scrub` exactly at the steps the schedule picked, and
+     `engine.step`/`admit`/`decode`/`sample_sync` in the profile; it logs
+     the schedule, each tenant's raw BER, stress and pressure, ms a step
+     against (c)'s and the Chrome trace's events (written to a temporary
+     directory); a 16 MiB float32 tensor in a wl1024_r08 writeback array
+     with `uniform_flip(3, 1e-4)`, read once under a registry and an
+     estimator: exact, the `mem_*` counters equal to the read's, the
+     estimated raw BER within 5% of the share of changed cells; the
+     sanitizer on CUDA tensors: an out-of-field symbol in a 4,096-word
+     page given to the scan and to the encode's lhs, a NaN query, a NaN
+     hot K row and a negative scale at the serving shape raise with the
+     JAX package's text, a clean `attend_protected` gives the unsanitized
+     bits, a decode of levels drifted below 0 passes, its host ms a call
+     with the checks off and on, and 4 sanitized engine steps give (a)'s
+     first tokens;
  13. the paper's BER campaign, `run_campaign(paper_schemes(wl1024_r08))`
      over nine raw BERs at the JAX bench's settings (NB-LDPC decoding on
      the card; first two draws' decode and residuals held against the
@@ -117,8 +142,8 @@ Phases (any failure exits non-zero):
      modulo checksum 1x at 1e-3; wl1024_r088's conditional residuals for
      m = 1..12 are logged.
 
-The phases run in the order 1-9, 12, 14, 13, 10, 11 (phases 12 and 14
-need phase 8's model, which is freed before training). Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
+The phases run in the order 1-9, 12, 14, 15, 13, 10, 11 (phases 12, 14
+and 15 need phase 8's model, which is freed before training). Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
 their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
 logged) at the training and prefill shapes, a ragged
@@ -131,6 +156,7 @@ Kernel launch counts are reset just before each main path, memory and
 PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9),
 PIM-protected serving (phase 12, from the precode to the third run),
 the engine (phase 14, its five runs less its two checks' launches),
+telemetry (phase 15, run (f) and the memory-mode read),
 the campaign (phase 13) and training (phases 10-11), and read just after
 it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
@@ -185,6 +211,11 @@ ENGINE_CHECK_STEP = 20             # run (a) checks a fused read here
 ENGINE_PROFILE_STEP = 24           # and profiles this step
 SCRUB_CHECK_PAGES = 128            # pool pages scrubbed on card and CPU
 ENGINE_MAX_STEPS = 1000            # an engine run longer than this fails
+TELEMETRY_MIB = 16                 # phase 15's memory-mode tensor
+TELEMETRY_FLIP = 1e-4              # uniform_flip rate injected into it
+RAW_BER_RTOL = 0.05                # estimated raw BER against the share of
+                                   # changed cells
+SANITIZED_STEPS = 4                # engine steps run under the sanitizer
 # the BER campaign: the JAX package's bench settings
 # (benchmarks/bench_memory_mode.py)
 CAMPAIGN_BERS = [3e-2, 2e-2, 1e-2, 5e-3, 2e-3, 1e-3, 3e-4, 1e-4, 1e-5]
@@ -287,9 +318,13 @@ def profiled(fn, seen, *, cpu: bool = False, setup=None):
 
 
 def device_events(prof) -> list:
-    """The profiler's device events (kernels, copies, sets)."""
+    """The profiler's device events (kernels, copies, sets), without the
+    device-side ranges of `record_function` annotations (the spans of a
+    `Tracer(torch_profiler=True)`), which cover kernels and would count
+    their idle gaps as busy."""
     from torch.autograd import DeviceType
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def profiled_device(fn, *, cpu: bool = False, setup=None):
@@ -1530,14 +1565,18 @@ def check_fused_read(eng) -> dict:
 
 def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
                capacity=None, inject_at=None, scrub_every=0, check_at=None,
-               profile_at=None) -> dict:
+               profile_at=None, check_scrub=True, profile_cpu=False,
+               setup=None, stop_after=None) -> dict:
     """Serve `prompts` (tenants `tenants`, all by default) through a
     `ServingEngine` at ENGINE_SLOTS slots and ENGINE_MAX_SEQ, ENGINE_NEW
     greedy tokens each. Options: the pool's capacity; `uniform_flip(3,
-    ENGINE_FLIP)` injected after step `inject_at` (and a copy of the
-    pool's pages scrubbed on the card and the CPU there); the scrub
-    cadence; one layer's fused read checked before step `check_at`; step
-    `profile_at` under torch.profiler. Returns tokens, step times, TTFT,
+    ENGINE_FLIP)` injected after step `inject_at` (and, with
+    `check_scrub`, a copy of the pool's pages scrubbed on the card and the
+    CPU there); the scrub cadence; one layer's fused read checked before
+    step `check_at`; step `profile_at` under torch.profiler (host ops too
+    with `profile_cpu`, and the names of the `engine.*` ranges it saw
+    kept); `setup(engine)` called before the first step; stop after
+    `stop_after` steps. Returns tokens, step reports and times, TTFT,
     launches by step, pool and scrub figures."""
     import torch
     from repro_torch.kernels import build
@@ -1562,6 +1601,8 @@ def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
                                        damping=pkv.damping,
                                        device=params.device)
     eng = ServingEngine(params, cfg, **kw)
+    if setup is not None:
+        setup(eng)
     if protected and eng.pool.page_words != ENGINE_PAGE_WORDS:
         raise AssertionError(f"engine pages of {eng.pool.page_words} words,"
                              f" phase 2 checks {ENGINE_PAGE_WORDS}")
@@ -1579,12 +1620,15 @@ def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
     tenants = list(range(len(prompts))) if tenants is None else tenants
     for t in tenants:
         eng.submit(t, prompts[t], max_new=ENGINE_NEW)
-    out = {"steps": [], "launches": [], "first_token": {}, "checks": {}}
+    out = {"steps": [], "reports": [], "launches": [], "first_token": {},
+           "checks": {}}
     extra = {}                      # launches made by the checks
     torch.cuda.synchronize()
     t_run = time.perf_counter()
     while eng.waiting or any(s is not None for s in eng.slots):
         i = len(out["steps"])
+        if i == stop_after:
+            break
         if i > ENGINE_MAX_STEPS:
             raise AssertionError(f"engine run: not done after {i} steps: "
                                  f"{eng.stats()}")
@@ -1598,17 +1642,24 @@ def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
         t0 = time.perf_counter()
         if i == profile_at:
             reps = []
-            got = profiled_device(lambda: reps.append(eng.step()))
+            got = profiled_device(lambda: reps.append(eng.step()),
+                                  cpu=profile_cpu)
             rep = reps[-1]
             fields, _ = busy_report(got, "step_wall_ms_profiled", 8)
             out["profile_step"] = {**fields, "steps_profiled": len(reps)}
+            if got is not None:
+                out["profile_names"] = sorted(
+                    {e.key for e in got[0].key_averages()
+                     if e.key.startswith("engine.")})
             out["steps"].extend([None] * (len(reps) - 1))
+            out["reports"].extend(reps[:-1])
             dt = None
         else:
             rep = eng.step()
             dt = time.perf_counter() - t0
         done_at = time.perf_counter() - t_run
         out["steps"].append(dt and {"s": dt, "tokens": rep["tokens"]})
+        out["reports"].append(rep)
         out["launches"].append({k: v - before.get(k, 0)
                                 for k, v in build.LAUNCHES.items()
                                 if v - before.get(k, 0)})
@@ -1621,11 +1672,12 @@ def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
             out["inject"] = {
                 "cells": eng.inject(uniform_flip(3, ENGINE_FLIP), SEED),
                 "owners": owners, "pool_pages": eng.pool.n_allocated}
-            ex, t0 = dict(build.LAUNCHES), time.perf_counter()
-            out["checks"]["pool_scrub"] = check_pool_scrub(eng.pool)
-            t_run += time.perf_counter() - t0      # not the run's time
-            for k, v in build.LAUNCHES.items():
-                extra[k] = extra.get(k, 0) + v - ex.get(k, 0)
+            if check_scrub:
+                ex, t0 = dict(build.LAUNCHES), time.perf_counter()
+                out["checks"]["pool_scrub"] = check_pool_scrub(eng.pool)
+                t_run += time.perf_counter() - t0  # not the run's time
+                for k, v in build.LAUNCHES.items():
+                    extra[k] = extra.get(k, 0) + v - ex.get(k, 0)
     torch.cuda.synchronize()
     out["run_s"] = time.perf_counter() - t_run
     out["check_launches"] = extra
@@ -1677,7 +1729,31 @@ def engine_summary(r: dict) -> dict:
     return out
 
 
-def phase_engine(device, cfg, params) -> tuple[dict, dict]:
+def check_injected_run(name: str, r: dict, want: dict) -> None:
+    """An injected engine run must give the clean run's tokens, drain its
+    pool, correct exactly the tenants that owned pages at the injection,
+    leave no word uncorrected and repair something in its scrubs."""
+    if r["tokens"] != want:
+        raise AssertionError(f"{name} engine run: tokens differ from the "
+                             f"clean run's")
+    if r["pool_allocated_at_end"] != 0:
+        raise AssertionError(f"{name} engine run: the pool did not drain")
+    owners = set(r["inject"]["owners"])
+    for t, st in r["tenant_stats"].items():
+        if st["uncorrectable"] or st["scrub_flagged"] != st["scrub_repaired"]:
+            raise AssertionError(f"{name} engine run: tenant {t} left "
+                                 f"words uncorrected: {st}")
+        if (st["detected"] > 0) != (t in owners) or st["corrected"] != \
+                st["detected"]:
+            raise AssertionError(f"{name} engine run: tenant {t}'s "
+                                 f"corrections {st}, page owners at the "
+                                 f"injection {sorted(owners)}")
+    if sum(x["repaired_words"] for x in r["scrub_reports"]) <= 0:
+        raise AssertionError(f"{name} engine run: the scrub repaired "
+                             f"nothing")
+
+
+def phase_engine(device, cfg, params) -> tuple[dict, dict, dict]:
     """The multi-tenant serving engine on phase 8's model: ENGINE_TENANTS
     tenants (prompts of ENGINE_PROMPT_LENS tokens, two of each) through
     ENGINE_SLOTS slots and one shared wl160_r08 page pool, ENGINE_NEW
@@ -1692,7 +1768,7 @@ def phase_engine(device, cfg, params) -> tuple[dict, dict]:
     tokens logged. Mid-run checks: one layer's fused read against its
     plain version in (a), and a copy of the pool's pages scrubbed on the
     card and the CPU after (c)'s injection. Returns (report, the launches
-    of the five runs less the checks')."""
+    of the five runs less the checks', the runs)."""
     from repro_torch.kernels import build
     prompts = engine_prompts(cfg)
     build.reset_launches()
@@ -1726,36 +1802,342 @@ def phase_engine(device, cfg, params) -> tuple[dict, dict]:
     if sorted(want) != list(range(ENGINE_TENANTS)) or any(
             len(v) != ENGINE_NEW for v in want.values()):
         raise AssertionError(f"clean engine run: tokens {want}")
-    for name in ("clean", "injected", "preempted"):
+    for name in ("clean", "preempted"):
         if runs[name]["pool_allocated_at_end"] != 0:
             raise AssertionError(f"{name} engine run: the pool did not "
                                  f"drain")
     if runs["alone"]["tokens"][0] != want[0]:
         raise AssertionError("tenant 0 alone: tokens differ from the "
                              "multi-tenant run's")
-    for name in ("injected", "preempted"):
-        if runs[name]["tokens"] != want:
-            raise AssertionError(f"{name} engine run: tokens differ from "
-                                 f"the clean run's")
-    owners = set(inj["inject"]["owners"])
-    for t, st in inj["tenant_stats"].items():
-        if st["uncorrectable"] or st["scrub_flagged"] != st["scrub_repaired"]:
-            raise AssertionError(f"injected engine run: tenant {t} left "
-                                 f"words uncorrected: {st}")
-        if (st["detected"] > 0) != (t in owners) or st["corrected"] != \
-                st["detected"]:
-            raise AssertionError(f"injected engine run: tenant {t}'s "
-                                 f"corrections {st}, page owners at the "
-                                 f"injection {sorted(owners)}")
-    if sum(r["repaired_words"] for r in inj["scrub_reports"]) <= 0:
-        raise AssertionError("injected engine run: the scrub repaired "
-                             "nothing")
+    if runs["preempted"]["tokens"] != want:
+        raise AssertionError("preempted engine run: tokens differ from the "
+                             "clean run's")
+    check_injected_run("injected", inj, want)
     if runs["preempted"]["stats"]["preemptions"] < 1:
         raise AssertionError("preempted engine run: nothing was preempted")
     report["unprotected_tokens_equal_share"] = sum(
         a == b for t in want for a, b in zip(
             want[t], runs["unprotected"]["tokens"][t])) / (
         ENGINE_TENANTS * ENGINE_NEW)
+    return report, launches, runs
+
+
+# ---------------------------------------------------------------------------
+# telemetry and the sanitizer
+# ---------------------------------------------------------------------------
+
+
+def scrub_span_steps(tracer) -> list:
+    """The steps (an `engine.step` span's `step` arg) whose span holds an
+    `engine.scrub` span: children close, and so are recorded, before
+    their parent."""
+    steps, pending = [], 0
+    for e in tracer.spans():
+        if e["name"] == "engine.scrub":
+            pending += 1
+        elif e["name"] == "engine.step":
+            if pending:
+                steps.append(e["args"]["step"])
+            pending = 0
+    return steps
+
+
+def telemetry_engine(cfg, params, runs, report14) -> dict:
+    """Run (f): run (c)'s configuration with the three pillars installed
+    (a `Tracer(torch_profiler=True)`), one step under torch.profiler. It
+    must give (a)'s tokens and (c)'s corrections; its counters, gauges and
+    spans must agree with the engine's own reports and schedule."""
+    import tempfile
+    from repro_torch import obs
+    prompts = engine_prompts(cfg)
+    reg, est = obs.MetricsRegistry(), obs.ErrorRateEstimator()
+    tr = obs.Tracer(torch_profiler=True)
+    engines, schedule = [], []
+
+    def setup(eng):
+        engines.append(eng)
+        due = eng._due_for_scrub
+
+        def recorded():
+            interval = obs.current_estimator().adaptive_interval(
+                eng.scrub_every)
+            hit = due()
+            schedule.append({"step": eng._step_no - 1, "interval": interval,
+                             "due": hit})
+            return hit
+        eng._due_for_scrub = recorded
+
+    with obs.use_metrics(reg), obs.use_tracer(tr), obs.use_estimator(est):
+        r = run_engine(params, cfg, prompts, inject_at=ENGINE_INJECT_STEP,
+                       scrub_every=ENGINE_SCRUB_EVERY, check_scrub=False,
+                       profile_at=ENGINE_PROFILE_STEP, profile_cpu=True,
+                       setup=setup)
+        eng = engines[0]
+        eng.publish_metrics()
+    want = runs["clean"]["tokens"]
+    check_injected_run("telemetry", r, want)
+    snap = reg.snapshot()
+
+    def value(name, **labels):
+        return obs.MetricsRegistry.value(snap, name, **labels)
+
+    counted = {
+        "engine_steps": (value("engine_steps", layer="engine"),
+                         len(r["reports"])),
+        "engine_tokens": (value("engine_tokens", layer="engine"),
+                          sum(x["tokens"] for x in r["reports"])),
+        "pool_scrub_pages": (value("pool_scrub_pages", layer="pool"),
+                             sum(x["pages"] for x in r["scrub_reports"])),
+        "pool_scrub_flagged": (value("pool_scrub_flagged", layer="pool"),
+                               sum(x["flagged_words"]
+                                   for x in r["scrub_reports"]))}
+    for name, (got, ref) in counted.items():
+        if got != ref:
+            raise AssertionError(f"telemetry run: {name} counts {got}, the "
+                                 f"engine's reports {ref}")
+    for t, st in r["tenant_stats"].items():
+        for k, v in st.items():
+            got = value(f"tenant_{k}", layer="engine", tenant=str(t))
+            if got != v:
+                raise AssertionError(f"telemetry run: gauge tenant_{k} of "
+                                     f"tenant {t} is {got}, tenant_stats "
+                                     f"{v}")
+    steps = tr.spans("engine.step")
+    if len(steps) != len(r["reports"]):
+        raise AssertionError(f"telemetry run: {len(steps)} engine.step "
+                             f"spans for {len(r['reports'])} steps")
+    bad = [e for e in tr.spans("engine.decode") if e["args"]["depth"] != 1]
+    if bad or not tr.spans("engine.decode"):
+        raise AssertionError(f"telemetry run: engine.decode spans not at "
+                             f"depth 1: {bad[:2]}")
+    picked = [x["step"] for x in schedule if x["due"]]
+    reported = [x["step"] for x in r["reports"] if "scrubbed_pages" in x]
+    spanned = scrub_span_steps(tr)
+    if not picked or not picked == reported == spanned:
+        raise AssertionError(f"telemetry run: scrubs at {spanned} (spans),"
+                             f" {reported} (reports), the schedule picked "
+                             f"{picked}")
+    names = set(r.get("profile_names", ()))
+    want_names = {"engine.step", "engine.admit", "engine.decode",
+                  "engine.sample_sync"}
+    if not want_names <= names:
+        raise AssertionError(f"torch.profiler saw {sorted(names)}, not "
+                             f"{sorted(want_names)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "engine_trace.json")
+        doc = tr.to_chrome_trace(path)
+        trace_bytes = os.path.getsize(path)
+    ests = est.snapshot()
+    summary = engine_summary(r)
+    return {
+        "steps": len(r["reports"]), "scrub_steps": picked,
+        "scrub_intervals": sorted({x["interval"] for x in schedule}),
+        "scrubs": len(picked),
+        "scrubs_fixed_cadence_run_c": len(runs["injected"]["scrub_reports"]),
+        "scrub_pages_swept": counted["pool_scrub_pages"][0],
+        "scrub_flagged": counted["pool_scrub_flagged"][0],
+        "tenants": {str(t): {
+            "raw_ber": ests.get(str(t), {}).get("raw_ber"),
+            "stress": ests.get(str(t), {}).get("stress"),
+            "flag_rate": ests.get(str(t), {}).get("flag_rate"),
+            "pressure": est.pressure(str(t)),
+            "corrected": r["tenant_stats"][t]["corrected"]}
+            for t in sorted(r["tenant_stats"])},
+        "regions": sorted(ests), "hot_regions": est.hot_regions(3),
+        "adaptive_interval_default_region": est.adaptive_interval(
+            ENGINE_SCRUB_EVERY),
+        "ms_per_step_median": summary["ms_per_step_median"],
+        "ms_per_step_median_run_c": report14["injected"][
+            "ms_per_step_median"],
+        "ms_per_step_median_run_a": report14["clean"]["ms_per_step_median"],
+        "run_s": r["run_s"], "profile_names": sorted(names),
+        "profile_step": r.get("profile_step"),
+        "chrome_trace_events": len(doc["traceEvents"]),
+        "chrome_trace_dropped": doc["otherData"]["dropped_events"],
+        "chrome_trace_bytes": trace_bytes,
+        "metric_series": sum(len(v["series"]) for v in snap.values()),
+        "inject": r["inject"]}
+
+
+def telemetry_memory(device) -> dict:
+    """A TELEMETRY_MIB float32 tensor in a wl1024_r08 writeback array,
+    `uniform_flip(3, TELEMETRY_FLIP)` injected, one read under a registry
+    and an estimator: the read must be exact, the counters must agree with
+    the read, and the estimated raw BER must be within RAW_BER_RTOL of the
+    share of cells the injection changed."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.memory import ProtectedMemoryArray, uniform_flip
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    t = torch.randn(TELEMETRY_MIB * 2 ** 18, generator=gen, device=device)
+    expect = t.cpu().numpy()
+    mem = ProtectedMemoryArray("wl1024_r08", controller="writeback",
+                               device=device, key=SEED + 15)
+    st = mem.write("t", t)
+    words, cells = int(st.enc.shape[0]), int(st.enc.numel())
+    changed = mem.inject(uniform_flip(3, TELEMETRY_FLIP))
+    reg, est = obs.MetricsRegistry(), obs.ErrorRateEstimator()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with obs.use_metrics(reg), obs.use_estimator(est):
+        out = mem.read("t")
+    read_s = time.perf_counter() - t0
+    if not np.array_equal(out.view(np.uint8), expect.view(np.uint8)):
+        raise AssertionError("telemetry memory read differs from the "
+                             "written bytes")
+    snap = reg.snapshot()
+    lab = dict(layer="controller", policy="writeback", code="gf3n1024")
+    got = {k: obs.MetricsRegistry.value(snap, f"mem_{k}", **lab) for k in (
+        "words_read", "detected", "corrected", "uncorrectable")}
+    s = mem.stats
+    if got["words_read"] != words or got["detected"] != s.detected or \
+            got["corrected"] != got["detected"] - got["uncorrectable"] or \
+            got["corrected"] != s.corrected:
+        raise AssertionError(f"telemetry memory counters {got}, the read "
+                             f"{s.correction_counts()}, {words} words")
+    share = changed / cells
+    raw = est.region("").raw_ber()
+    if raw is None or abs(raw / share - 1.0) > RAW_BER_RTOL:
+        raise AssertionError(f"estimated raw BER {raw} against the "
+                             f"injected share {share}")
+    return {"mib": TELEMETRY_MIB, "words": words, "cells": cells,
+            "cells_changed": changed, "changed_share": share,
+            "raw_ber_estimate": raw, "raw_ber_rel_err": raw / share - 1.0,
+            "flag_rate": est.region("").flag_rate,
+            "stress": est.region("").stress, "counters": got,
+            "read_s": read_s}
+
+
+def expect_sanitizer_error(fn, message: str, exact: bool) -> str:
+    """Run `fn`, which must raise `SanitizerError` whose text is `message`
+    (or starts with it)."""
+    from repro_torch.analysis import SanitizerError
+    try:
+        fn()
+    except SanitizerError as e:
+        text = str(e)
+        if text == message or (not exact and text.startswith(message)):
+            return text
+        raise AssertionError(f"sanitizer said {text!r}, not {message!r}")
+    raise AssertionError(f"no SanitizerError: {message!r}")
+
+
+def telemetry_sanitizer(device, cfg, params, want) -> dict:
+    """The sanitizer on CUDA tensors: an out-of-field symbol in a 4,096-word
+    wl1024_r08 page (the scan's words, the encode's lhs), a NaN query, a
+    NaN hot K row and a negative scale at the serving shape must raise
+    with the JAX package's text; a clean `attend_protected` must give the
+    unsanitized bits and a decode of levels drifted below 0 must pass;
+    `attend_protected`'s host ms a call with the checks off and on; and
+    SANITIZED_STEPS engine steps of run (a)'s schedule under the sanitizer
+    must give (a)'s first tokens."""
+    import torch
+    from repro_torch.analysis import use_sanitizer
+    from repro_torch.core import decode_integers, encode_words, get_code
+    from repro_torch.kernels import gf_matmul as gm
+    from repro_torch.kernels import paged_attention as pa
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    code = get_code("wl1024_r08")
+    u = torch.randint(0, code.p, (4096, code.k), generator=gen,
+                      device=device, dtype=torch.int8)
+    y = encode_words(u, code)
+    y[17, 5] = code.p
+    ht = code.tensor("H.T", device, torch.int8)
+    P = code.tensor("P", device, torch.int8)
+    args, kw = attend_operands(device, gen, B=4, Sq=1, Hq=32, Hkv=8, D=64,
+                               T=16, NP=32, S=1, code=get_code("wl160_r08"))
+    q, kp, vp, ks, vs, valid, hk, hv, hval = args
+    bad_q = q.clone()
+    bad_q[1, 0, 3, 7] = float("nan")
+    bad_k = hk.clone()
+    bad_k[2, 0] = float("nan")
+    plain_out = pa.attend_protected(*args, **kw)
+    out = {}
+    with use_sanitizer():
+        out["scan"] = expect_sanitizer_error(
+            lambda: gm.scan_syndromes(y, ht, code.p),
+            "sanitizer[scan_syndromes words]: GF symbol outside [0, 3): "
+            "min=0, max=3", exact=True)
+        out["gf_matmul"] = expect_sanitizer_error(
+            lambda: gm.gf_matmul(y[:, :code.k], P, code.p),
+            "sanitizer[gf_matmul lhs]: GF symbol outside [0, 3): min=0, "
+            "max=3", exact=True)
+        out["query"] = expect_sanitizer_error(
+            lambda: pa.attend_protected(bad_q, *args[1:], **kw),
+            "sanitizer[attend_protected query]: non-finite value "
+            "(nan_count=1, inf_count=0)", exact=True)
+        out["hot_k"] = expect_sanitizer_error(
+            lambda: pa.attend_protected(q, kp, vp, ks, vs, valid, bad_k,
+                                        hv, hval, **kw),
+            "sanitizer[attend_protected output]: non-finite value "
+            "(nan_count=", exact=False)
+        neg = ks.clone()
+        neg[5, 0] = -neg[5, 0]
+        out["scale"] = expect_sanitizer_error(
+            lambda: pa.attend_protected(q, kp, vp, neg, vs, valid, hk, hv,
+                                        hval, **kw),
+            "sanitizer[attend_protected K scales]: quantization scale must "
+            f"be finite and >= 0 (zero marks an empty/padded page): "
+            f"min={float(neg.min())}", exact=True)
+        clean = pa.attend_protected(*args, **kw)
+        if not torch.equal(clean.view(torch.int16),
+                           plain_out.view(torch.int16)):
+            raise AssertionError("attend_protected under the sanitizer "
+                                 "differs from the unsanitized call")
+        # zero codewords whose level drifted below 0 in one cell of every
+        # fifth word: the decoder's outputs are checked, its input is not
+        drift = torch.zeros((64, 160), dtype=torch.int32, device=device)
+        drift[::5, 3] = -1
+        _y, res = decode_integers(get_code("wl160_r08"), drift, n_iters=8,
+                                  early_exit=True)
+        if bool(res.detect_fail.any()) or bool(res.symbols.any()):
+            raise AssertionError("decode of drifted levels did not give "
+                                 "the zero codewords")
+    def call():
+        return pa.attend_protected(*args, **kw)
+
+    # host ms (back-to-back calls, not waited for) and ms a call (CUDA
+    # events around each call: host, launch and device), phase 2's two
+    # measures, with the checks off and on
+    host = {"off": host_ms(call, 200), "call_ms_off": cuda_ms(call, 50)}
+    with use_sanitizer():
+        host["on"] = host_ms(call, 200)
+        host["call_ms_on"] = cuda_ms(call, 50)
+        r = run_engine(params, cfg, engine_prompts(cfg),
+                       stop_after=SANITIZED_STEPS)
+    for t, toks in r["tokens"].items():
+        if toks != want[t][:len(toks)]:
+            raise AssertionError(f"sanitized engine steps: tenant {t} "
+                                 f"{toks} against (a)'s {want[t]}")
+    return {"messages": out, "attend_host_ms": host,
+            "sanitized_steps": len(r["reports"]),
+            "sanitized_tokens": sum(len(v) for v in r["tokens"].values())}
+
+
+def phase_telemetry(device, cfg, params, runs, report14,
+                    instruments_before: int) -> tuple[dict, dict]:
+    """Phase 15 on phase 8's model, right after phase 14: no instrument
+    built and no event recorded by runs (a)-(e) (telemetry off), run (f)
+    with the three pillars, the memory-mode estimator against a known
+    injected rate, and the sanitizer on CUDA tensors. Returns (report, the
+    kernel launches of run (f) and the memory-mode read)."""
+    from repro_torch import obs
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    made = obs.instrument_count() - instruments_before
+    if made or obs.current_tracer().events():
+        raise AssertionError(f"telemetry off: runs (a)-(e) built {made} "
+                             f"instruments")
+    build.reset_launches()
+    report = {"instruments_built_by_runs_a_to_e": made,
+              "engine": telemetry_engine(cfg, params, runs, report14),
+              "memory": telemetry_memory(device)}
+    launches = dict(build.LAUNCHES)
+    report["sanitizer"] = telemetry_sanitizer(device, cfg, params,
+                                              runs["clean"]["tokens"])
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  telemetry: {json.dumps(report)}")
     return report, launches
 
 
@@ -2451,9 +2833,20 @@ def main() -> int:
                ("pim_mac", "scan_syndromes", "fbp_cn", "gf_matmul",
                 "attend_protected"))
     log("phase 14: multi-tenant serving engine, paper-pim-2b")
-    engine, engine_launches = phase_engine(device, *serve_model[:2])
+    from repro_torch import obs
+    instruments = obs.instrument_count()
+    engine, engine_launches, engine_runs = phase_engine(device,
+                                                        *serve_model[:2])
     log(f"  launches on the engine path: {engine_launches}")
     check_path("engine", engine_launches,
+               ("attend_protected", "gf_matmul", "scan_syndromes",
+                "fbp_cn"))
+    log("phase 15: telemetry and the sanitizer, paper-pim-2b")
+    telemetry, telemetry_launches = phase_telemetry(
+        device, *serve_model[:2], engine_runs, engine, instruments)
+    del engine_runs
+    log(f"  launches on the telemetry path: {telemetry_launches}")
+    check_path("telemetry", telemetry_launches,
                ("attend_protected", "gf_matmul", "scan_syndromes",
                 "fbp_cn"))
     del serve_model                    # free the serving model's 6.9 GB
@@ -2479,7 +2872,8 @@ def main() -> int:
                 "scan_syndromes", "fbp_cn"))
     launches = {k: sum(path.get(k, 0) for path in (
         codec_launches, serve_launches, prefill_launches, pim_launches,
-        engine_launches, campaign_launches, train_launches))
+        engine_launches, telemetry_launches, campaign_launches,
+        train_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -2498,7 +2892,7 @@ def main() -> int:
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
                     "serving": serving, "prefill": prefill_report,
                     "pim_serving": pim_serving, "engine": engine,
-                    "campaign": campaign,
+                    "telemetry": telemetry, "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
                     "launches_per_call": per_call,
@@ -2507,6 +2901,7 @@ def main() -> int:
                     "launches_prefill": prefill_launches,
                     "launches_pim_serving": pim_launches,
                     "launches_engine": engine_launches,
+                    "launches_telemetry": telemetry_launches,
                     "launches_campaign": campaign_launches,
                     "launches_training": train_launches,
                     "seconds": time.perf_counter() - t0}))

@@ -15,11 +15,14 @@ Multi-tenant serving: `repro_torch.serving.ServingEngine` over a shared
               `repro_torch.memory.ProtectedPagePool`
 Training:     `repro_torch.launch.train.run(cfg, ...)` (flash attention
               forward and backward under `attn_impl="flash"`)
+Telemetry:    `repro_torch.obs` (metrics, spans, the RAS estimator);
+              runtime checks: `repro_torch.analysis.use_sanitizer`
 """
-from . import (checkpoint, configs, convert, core, data, distributed,
-               kernels, launch, memory, models, nn, optim, serving)
+from . import (analysis, checkpoint, configs, convert, core, data,
+               distributed, kernels, launch, memory, models, nn, obs, optim,
+               serving)
 from .device import resolve_device
 
-__all__ = ["checkpoint", "configs", "convert", "core", "data", "distributed",
-           "kernels", "launch", "memory", "models", "nn", "optim",
-           "serving", "resolve_device"]
+__all__ = ["analysis", "checkpoint", "configs", "convert", "core", "data",
+           "distributed", "kernels", "launch", "memory", "models", "nn",
+           "obs", "optim", "serving", "resolve_device"]

@@ -36,9 +36,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..analysis.sanitizer import (check_finite, check_gf_symbols,
+                                  sanitizer_enabled)
 from ..device import as_tensor
 from ..kernels.fbp import fbp_cn_batched, identity_msg, maxplus_conv
 from ..kernels.gf_matmul import scan_syndromes_routed
+from ..obs import ras as obs_ras
 from .construction import LDPCCode
 from .gf import symbol_dtype
 from .llv import init_llv, normalize_llv, reinterpret
@@ -161,16 +164,41 @@ def decode_llv(code: LDPCCode, prior: torch.Tensor, *, n_iters: int = 10,
 def decode_integers(code: LDPCCode, y, *, n_iters: int = 10,
                     llv_scale: float = 4.0, llv_mode: str = "manhattan",
                     early_exit: bool = False, damping: float = 0.0,
-                    device=None):
+                    device=None, observe: bool = True):
     """Full arithmetic-code pipeline for received integer words y (B, n):
     LLV init -> iterative decode -> nearest-representative reinterpretation.
 
     `y` is a tensor (decoded on its own device) or an array (decoded on
     `device`, the card by default). Returns (y_corrected (B, n) in y's
     dtype, DecodeResult).
+
+    Under `use_sanitizer` the outputs are checked (symbols in [0, p),
+    finite LLV totals); `y` is not, since received levels may drift out
+    of the field. With `observe` (the default) the ambient RAS estimator
+    is fed this call's iterations and failures, as the JAX package's
+    eager calls feed it. Callers that feed the estimator themselves pass
+    `observe=False` (the repair queue, the paged store, the campaign and
+    the streamed decodes): their JAX counterparts decode under `jax.jit`,
+    where `decode_integers` feeds nothing, so feeding here as well would
+    count each word twice.
     """
     y = as_tensor(y, device)
     prior = init_llv(y, code.p, scale=llv_scale, mode=llv_mode)
     res = decode_llv(code, prior, n_iters=n_iters, early_exit=early_exit,
                      damping=damping)
-    return reinterpret(y, res.symbols, code.p), res
+    y_corr = reinterpret(y, res.symbols, code.p)
+    if sanitizer_enabled():
+        check_gf_symbols(res.symbols, code.p, "decode_integers symbols")
+        check_finite(res.llv_totals, "decode_integers llv totals")
+    if observe:
+        _observe_decode(res, n_iters)
+    return y_corr, res
+
+
+def _observe_decode(res: DecodeResult, n_iters: int) -> None:
+    """Feed one decode's iteration and failure vectors to the ambient RAS
+    estimator (a host read of each, only when one is installed)."""
+    est = obs_ras.current()
+    if est.enabled:
+        est.observe_decode(res.iterations, n_iters,
+                           detect_fail=res.detect_fail)

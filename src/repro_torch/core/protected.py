@@ -181,7 +181,7 @@ def decode_stream(code: LDPCCode, stream, *, chunk_size: int = 256,
             yield decode_integers(code, y, n_iters=n_iters,
                                   llv_scale=llv_scale, llv_mode=llv_mode,
                                   early_exit=early_exit, damping=damping,
-                                  device=device)
+                                  device=device, observe=False)
     return gen()
 
 

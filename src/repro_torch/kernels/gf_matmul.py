@@ -23,7 +23,9 @@ Bound on the card: bytes (each word read once, each output written
 once); see the note in `csrc/gf_matmul.cu`.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. The plain versions are the reference the
+launches the kernel or raises. Under `analysis.use_sanitizer` both
+wrappers first check that their words hold symbols in [0, p), as the JAX
+package's `kernels/ops.py` does. The plain versions are the reference the
 kernels are held against, on the card by `chip_smoke.py` and against the
 JAX package by the CPU tests.
 
@@ -44,6 +46,7 @@ import weakref
 import torch
 import torch.nn.functional as F
 
+from ..analysis.sanitizer import check_gf_symbols, sanitizer_enabled
 from . import build
 
 # int8 operands: |a|, |b| <= 128, so the int32 accumulator is exact while
@@ -116,7 +119,11 @@ def gf_matmul(a: torch.Tensor, b: torch.Tensor, p: int) -> torch.Tensor:
     """(a @ b) mod p -> (M, N) int32 in [0, p). Operands that are not int8
     are reduced mod p into int8 first (the result is the same). On the card
     a field past int8 or a K past the int32 bound raises (see
-    `field_route`)."""
+    `field_route`). Under `use_sanitizer` both operands must hold symbols
+    in [0, p)."""
+    if sanitizer_enabled():
+        check_gf_symbols(a, p, "gf_matmul lhs")
+        check_gf_symbols(b, p, "gf_matmul rhs")
     if build.route("gf_matmul", a, b) == "cpu":
         return gf_matmul_plain(a, b, p)
     _check_shapes("gf_matmul", a, b, p)
@@ -199,7 +206,10 @@ def kmajor_h(ht: torch.Tensor, p: int) -> torch.Tensor:
 
 def scan_syndromes(y: torch.Tensor, ht: torch.Tensor, p: int) -> torch.Tensor:
     """Fused syndrome scan: (M, n) words x (n, c) Hᵀ -> (M,) bool flags,
-    flags[i] = any((y[i] @ ht) mod p != 0)."""
+    flags[i] = any((y[i] @ ht) mod p != 0). Under `use_sanitizer` the
+    words must hold symbols in [0, p)."""
+    if sanitizer_enabled():
+        check_gf_symbols(y, p, "scan_syndromes words")
     if build.route("scan_syndromes", y, ht) == "cpu":
         return scan_syndromes_plain(y, ht, p)
     _check_shapes("scan_syndromes", y, ht, p)

@@ -56,7 +56,8 @@ bound retraces; the port passes the page count as a runtime argument and
 pads nothing (zero pages are exact no-ops, so results are unchanged).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. Under `analysis.use_sanitizer` it checks
+its operands and its output first and last (`attend_protected`).
 """
 from __future__ import annotations
 
@@ -65,6 +66,8 @@ import math
 
 import torch
 
+from ..analysis.sanitizer import (check_finite, check_gf_symbols,
+                                  check_quant_scales, sanitizer_enabled)
 from . import build
 
 NEG_INF = -1e30
@@ -239,7 +242,31 @@ def attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
 
     On the card every operand must already have exactly these dtypes and
     be contiguous; anything else raises (nothing is cast for the caller).
+
+    Under `use_sanitizer` the pages must hold symbols in [0, p), the
+    scales be finite and >= 0 and the query finite, and the output is
+    checked finite after the call (a NaN in the hot page reaches it
+    silently otherwise), as the JAX package's `ops.attend_protected`.
     """
+    sanitize = sanitizer_enabled()
+    if sanitize:
+        check_gf_symbols(kpages, p, "attend_protected K pages")
+        check_gf_symbols(vpages, p, "attend_protected V pages")
+        check_quant_scales(kscales, "attend_protected K scales")
+        check_quant_scales(vscales, "attend_protected V scales")
+        check_finite(q, "attend_protected query")
+    out = _attend_protected(q, kpages, vpages, kscales, vscales, valid,
+                            hot_k, hot_v, hot_valid, p=p, k_info=k_info,
+                            page_shape=page_shape, softcap=softcap,
+                            with_hot=with_hot, ref_pages=ref_pages)
+    if sanitize:
+        check_finite(out, "attend_protected output")
+    return out
+
+
+def _attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
+                      hot_v, hot_valid, *, p, k_info, page_shape, softcap,
+                      with_hot, ref_pages):
     tensors = (q, kpages, vpages, kscales, vscales, valid, hot_k, hot_v,
                hot_valid)
     if build.route("attend_protected", *tensors) == "cpu":

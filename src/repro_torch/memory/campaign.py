@@ -153,7 +153,8 @@ class NBLDPCScheme:
         Tensors stay on their device; arrays go to the scheme's."""
         dev = cw.device if isinstance(cw, torch.Tensor) else self.device
         cw, y = as_tensor(cw, dev), as_tensor(y, dev)
-        y_corr, res = decode_integers(self.code, y, **self._decode_kw)
+        y_corr, res = decode_integers(self.code, y, observe=False,
+                                      **self._decode_kw)
         # level-domain channels store field symbols, so the decoder's hard
         # symbol decisions are the read-back values; the integer channel
         # compares the arithmetic reinterpretation

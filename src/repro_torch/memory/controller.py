@@ -22,6 +22,12 @@ pipeline (pages are scanned a window ahead, flagged rows from many pages
 are queued and decoded together) or, with `coalesce=False`, the per-page
 baseline it is measured against. Per-policy counters (detected / corrected
 / uncorrectable / writebacks / scrub bandwidth) live in `ControllerStats`.
+
+Every read and sweep also feeds the ambient observability layer
+(`repro_torch.obs`), where the JAX controller does: correction counters
+into the metrics registry, per-read and per-page scan-flag rates and the
+decoder's iteration vectors into the RAS estimator. Both are free no-ops
+unless `use_metrics` / `use_estimator` is active.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from ..core.construction import LDPCCode
 from ..device import resolve_device
 from ..core.gf import symbol_dtype
 from ..kernels.gf_matmul import field_route, scan_syndromes_routed
+from ..obs import metrics as obs_metrics
+from ..obs import ras as obs_ras
 from .repair import RepairQueue
 
 __all__ = ["ControllerStats", "MemoryController", "WritebackController",
@@ -74,6 +82,14 @@ class ControllerStats:
         d["scrub_bandwidth_cells_per_s"] = self.scrub_bandwidth_cells_per_s
         return d
 
+    def merge(self, other: ControllerStats) -> ControllerStats:
+        """Add another stats block into this one (every counter sums;
+        returns self, so merges chain)."""
+        for f in dataclasses.fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+        return self
+
     def correction_counts(self) -> dict[str, int]:
         """The read-path correction triple."""
         return {k: getattr(self, k) for k in self.CORRECTION_KEYS}
@@ -88,6 +104,16 @@ class ControllerStats:
         for k in ControllerStats.CORRECTION_KEYS:
             out[k] = out.get(k, 0) + int(get(k, 0))
         return out
+
+    def publish(self, registry, **labels) -> None:
+        """Export every counter into a `MetricsRegistry` as gauges (the
+        stats are cumulative totals, so a gauge set is idempotent across
+        repeated publishes where a counter increment would double count)."""
+        if registry is None or not getattr(registry, "enabled", False):
+            return
+        for f in dataclasses.fields(self):
+            registry.gauge(f"controller_{f.name}", **labels).set(
+                getattr(self, f.name))
 
 
 class MemoryController:
@@ -138,10 +164,13 @@ class MemoryController:
         fail = torch.zeros_like(flagged)
         rows = torch.nonzero(flagged)[:, 0]
         if rows.numel():
-            syms, f, _iters = self._repair_queue(code).decode_batch(
+            syms, f, iters = self._repair_queue(code).decode_batch(
                 enc[rows])
             out[rows] = syms.to(out.device, out.dtype)
             fail[rows] = f.to(fail.device)
+            est = obs_ras.current()
+            if est.enabled:
+                est.observe_decode(iters, self.n_iters, detect_fail=f)
         return out, flagged, fail
 
     # -- policy surface -----------------------------------------------------
@@ -156,6 +185,17 @@ class MemoryController:
         self.stats.detected += n_flagged
         self.stats.corrected += n_flagged - n_fail
         self.stats.uncorrectable += n_fail
+        reg = obs_metrics.current()
+        if reg.enabled:
+            labels = {"layer": "controller", "policy": self.policy,
+                      "code": f"gf{code.p}n{code.n}"}
+            reg.counter("mem_words_read", **labels).inc(st.enc.shape[0])
+            reg.counter("mem_detected", **labels).inc(n_flagged)
+            reg.counter("mem_corrected", **labels).inc(n_flagged - n_fail)
+            reg.counter("mem_uncorrectable", **labels).inc(n_fail)
+        est = obs_ras.current()
+        if est.enabled:
+            est.observe_scan(n_flagged, st.enc.shape[0], n_symbols=code.n)
         self._writeback(st, out, flagged, fail)
         return out
 
@@ -229,6 +269,8 @@ class MemoryController:
         page_stats: list[dict] = []
         drain_stats: list[dict] = []
         backend = None
+        est = obs_ras.current()
+        reg = obs_metrics.current()
 
         def flush():
             rep = queue.drain()
@@ -256,6 +298,9 @@ class MemoryController:
                 totals["pages"] += 1
                 totals["words"] += page.shape[0]
                 totals["flagged"] += pg_flagged
+                if est.enabled:
+                    est.observe_scan(pg_flagged, page.shape[0],
+                                     n_symbols=code.n)
                 slot = None
                 if totals["pages"] <= MAX_PAGE_STATS:
                     slot = {"words": int(page.shape[0]),
@@ -293,6 +338,9 @@ class MemoryController:
         words, corrected_n, fail_n = (totals["words"], totals["corrected"],
                                       totals["uncorrectable"])
         self._note_scrub_totals(code, words, corrected_n, fail_n, dt)
+        if reg.enabled and drain_stats:
+            reg.histogram("scrub_drains_per_sweep",
+                          layer="controller").observe(len(drain_stats))
         return {"policy": self.policy, "backend": backend,
                 "scan_route": self._scan_route(code),
                 "words_scanned": words,
@@ -316,6 +364,8 @@ class MemoryController:
         words = flagged_n = corrected_n = fail_n = n_pages = 0
         page_stats: list[dict] = []
         backend = None
+        est = obs_ras.current()
+        reg = obs_metrics.current()
         for page in pages:
             n_pages += 1
             backend = page.device.type
@@ -325,8 +375,15 @@ class MemoryController:
             pg_fail = 0
             if pg_flagged:
                 rows = torch.nonzero(flagged)[:, 0]
-                syms, f, _iters = self._repair_queue(code).decode_batch(
+                syms, f, iters = self._repair_queue(code).decode_batch(
                     page[rows])
+                if est.enabled:
+                    # one feed per decoded chunk, as the JAX baseline's
+                    # per-chunk decodes feed it
+                    cs = self.chunk_size
+                    for lo in range(0, f.shape[0], cs):
+                        est.observe_decode(iters[lo:lo + cs], self.n_iters,
+                                           detect_fail=f[lo:lo + cs])
                 pg_fail = int(f.sum())
                 ok = ~f.to(rows.device)
                 if pg_fail < pg_flagged:
@@ -335,6 +392,13 @@ class MemoryController:
             flagged_n += pg_flagged
             corrected_n += pg_flagged - pg_fail
             fail_n += pg_fail
+            if est.enabled:
+                est.observe_scan(pg_flagged, page.shape[0],
+                                 n_symbols=code.n)
+            if reg.enabled:
+                reg.histogram("scrub_page_seconds",
+                              layer="controller").observe(
+                    time.perf_counter() - tp)
             if n_pages <= MAX_PAGE_STATS:
                 page_stats.append({
                     "words": int(page.shape[0]), "flagged": pg_flagged,
@@ -362,6 +426,13 @@ class MemoryController:
         self.stats.scrub_corrected += corrected_n
         self.stats.scrub_uncorrectable += fail_n
         self.stats.scrub_seconds += dt
+        reg = obs_metrics.current()
+        if reg.enabled:
+            labels = {"layer": "controller", "policy": self.policy,
+                      "code": f"gf{code.p}n{code.n}"}
+            reg.counter("scrub_words_scanned", **labels).inc(words)
+            reg.counter("scrub_corrected", **labels).inc(corrected_n)
+            reg.counter("scrub_uncorrectable", **labels).inc(fail_n)
 
 
 class WritebackController(MemoryController):

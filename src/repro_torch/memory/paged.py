@@ -22,6 +22,11 @@ reads, this store keeps fixed-shape (page_words, n) pages of GF(p) cells
 - **scrub** — scan, repair flagged words, write back: coalesced through
   the store's `RepairQueue` (one decode for the sweep), or page by page.
 
+`read_page_corrected` feeds the ambient observability layer as the JAX
+store's does: the page's scan and decode into the RAS estimator and the
+correction counters into the metrics registry, under the store's `owner`
+label (the tenant of a pool-backed store), free when neither is installed.
+
 `quantize_tensor` / `dequantize_tensor` are the float <-> GF bridge of the
 protected KV cache (`models/kv.py`): absmax int8 quantization, then base-p
 symbolization (`memory/packing.py`), exactly as the JAX package's
@@ -52,6 +57,8 @@ from ..core.protected import decode_pipelined
 from ..device import as_tensor, generator, resolve_device
 from ..core.gf import symbol_dtype
 from ..kernels.gf_matmul import scan_syndromes_routed
+from ..obs import metrics as obs_metrics
+from ..obs import ras as obs_ras
 from .channel import Channel
 from .controller import ControllerStats
 from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
@@ -192,7 +199,7 @@ class PagedProtectedStore:
         return decode_integers(
             self.code, page, n_iters=self.n_iters, damping=self.damping,
             llv_scale=self.llv_scale, llv_mode=self.llv_mode,
-            early_exit=True)
+            early_exit=True, observe=False)
 
     def _repair_queue(self) -> RepairQueue:
         """The queue this store's coalesced scrubs drain through."""
@@ -318,12 +325,19 @@ class PagedProtectedStore:
 
     def read_page_corrected(self, i: int) -> torch.Tensor:
         """Scan-gated corrected read of page `i`, with the correction
-        accounting (detected / corrected / uncorrectable) on `stats`."""
+        accounting (detected / corrected / uncorrectable) on `stats`, and
+        the telemetry attributed to the store's `owner`."""
         page = self.page(i)
         self.stats.reads += 1
         self.stats.words_read += self.page_words
         flags = self._scan(page)
         nf = int(flags.sum())
+        est = obs_ras.current()
+        owner = getattr(self, "owner", None)
+        region = str(owner) if owner is not None else ""
+        if est.enabled:
+            est.observe_scan(nf, self.page_words, n_symbols=self.code.n,
+                             region=region)
         if not nf:
             return page
         self.stats.detected += nf
@@ -331,6 +345,16 @@ class PagedProtectedStore:
         bad = int((flags & res.detect_fail).sum())
         self.stats.uncorrectable += bad
         self.stats.corrected += nf - bad
+        reg = obs_metrics.current()
+        if reg.enabled:
+            lab = {"layer": "paged", "tenant": region,
+                   "code": f"gf{self.code.p}n{self.code.n}"}
+            reg.counter("mem_detected", **lab).inc(nf)
+            reg.counter("mem_corrected", **lab).inc(nf - bad)
+            reg.counter("mem_uncorrectable", **lab).inc(bad)
+        if est.enabled:
+            est.observe_decode(res.iterations, self.n_iters,
+                               detect_fail=res.detect_fail, region=region)
         return res.symbols
 
     def read_corrected(self) -> torch.Tensor:

@@ -26,11 +26,14 @@ An allocation that does not fit raises `PoolExhausted` before any state
 is mutated: the engine preflights capacity and preempts, and a caller
 that races anyway gets a clean error, never a corrupted block table.
 
+Scrubs feed the ambient observability layer as the JAX pool's do: sweep
+and per-owner counters into the metrics registry, and each scanned page's
+flags and each decoded page's iterations into the RAS estimator under its
+owner's region (free when neither is installed).
+
 The JAX pool's `mesh` (page sharding) and kernel `policy` are not ported:
 the port runs on one card, and its wrappers pick kernel or plain version
-by the tensors' device. The pool takes `device=` instead. Its metric
-counters and the RAS estimator feed are not ported either (ROADMAP Queue
-1 item 4+8); the pool behaves as the JAX pool does with telemetry off.
+by the tensors' device. The pool takes `device=` instead.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ import torch
 
 from ..core.construction import LDPCCode
 from ..device import as_tensor, generator, resolve_device
+from ..obs import metrics as obs_metrics
+from ..obs import ras as obs_ras
 from .controller import ControllerStats
 from .paged import PagedProtectedStore
 
@@ -267,33 +272,51 @@ class ProtectedPagePool:
         self.stats.scrub_words += swept * self.page_words
         self.stats.scrub_corrected += repaired
         self.stats.scrub_uncorrectable += flagged_words - repaired
+        reg = obs_metrics.current()
+        if reg.enabled:
+            reg.counter("pool_scrub_pages", layer="pool").inc(swept)
+            reg.counter("pool_scrub_flagged", layer="pool").inc(flagged_words)
+            reg.counter("pool_scrub_repaired", layer="pool").inc(repaired)
         for owner, ent in by_owner.items():
             tot = self.scrub_by_owner.setdefault(
                 owner, {"flagged_words": 0, "repaired_words": 0})
             tot["flagged_words"] += ent["flagged_words"]
             tot["repaired_words"] += ent["repaired_words"]
+            if reg.enabled:
+                lab = {"layer": "pool",
+                       "tenant": str(owner) if owner is not None else ""}
+                reg.counter("pool_scrub_flagged_by_owner", **lab).inc(
+                    ent["flagged_words"])
+                reg.counter("pool_scrub_repaired_by_owner", **lab).inc(
+                    ent["repaired_words"])
         return {"pages": swept, "flagged_words": flagged_words,
                 "repaired_words": repaired, "by_owner": by_owner}
 
-    def _note_page_scan(self, pid: int, nf: int):
-        """Post-scan bookkeeping of both sweeps: flag EWMA and scanned
-        marker. Returns the page's owner."""
+    def _note_page_scan(self, pid: int, nf: int, est):
+        """Post-scan bookkeeping of both sweeps: flag EWMA, scanned marker,
+        the estimator's feed in the owner's region. Returns the page's
+        owner."""
         a = self.flag_alpha if self._scanned[pid] else 1.0
         self._flag_ewma[pid] += a * (nf / self.page_words
                                      - self._flag_ewma[pid])
         self._scanned[pid] = True
-        return self._owner[pid]
+        owner = self._owner[pid]
+        if est.enabled:
+            est.observe_scan(nf, self.page_words, n_symbols=self.code.n,
+                             region=str(owner) if owner is not None else "")
+        return owner
 
     def _scrub_selected_baseline(self, selected: list[int]):
         """Per-page sweep: read each page's flag count back, decode the
         whole page when any row flags."""
+        est = obs_ras.current()
         flagged_words = repaired = 0
         by_owner: dict[object, dict] = {}
         for pid in selected:
             page = self._storage[pid]
             flags = self._template._scan(page)
             nf = int(flags.sum())
-            owner = self._note_page_scan(pid, nf)
+            owner = self._note_page_scan(pid, nf, est)
             if not nf:
                 continue
             flagged_words += nf
@@ -303,6 +326,11 @@ class ProtectedPagePool:
                                              page).to(self.dtype)
             ok = int(good.sum())
             repaired += ok
+            if est.enabled:
+                est.observe_decode(res.iterations, self._template.n_iters,
+                                   detect_fail=res.detect_fail,
+                                   region=str(owner) if owner is not None
+                                   else "")
             ent = by_owner.setdefault(
                 owner, {"flagged_words": 0, "repaired_words": 0})
             ent["flagged_words"] += nf
@@ -318,11 +346,12 @@ class ProtectedPagePool:
             return 0, 0, 0, {}
         masks = torch.stack([self._template._scan(self._storage[pid])
                              for pid in selected]).cpu()
+        est = obs_ras.current()
         queue = self._template._repair_queue()
         flagged_words = 0
         for pid, mask in zip(selected, masks, strict=True):
             rows = torch.nonzero(mask)[:, 0]
-            owner = self._note_page_scan(pid, int(rows.numel()))
+            owner = self._note_page_scan(pid, int(rows.numel()), est)
             if not rows.numel():
                 continue
             flagged_words += int(rows.numel())

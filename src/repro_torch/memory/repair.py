@@ -18,6 +18,12 @@ next makes decode dispatch, not the scan, the sweep bottleneck.
   repairs scatter back through the writebacks afterwards. FBP is
   row-independent (per-codeword early exit), so decoding rows in a
   coalesced batch is bit-exact with decoding them per page.
+
+Queue depth, drain latency and repair counts feed `repro_torch.obs`
+metrics, and each drained entry's iteration vector feeds the RAS estimator
+in its owner's region, as in the JAX package; all of it free when no
+registry or estimator is installed. The `repair_pad_rows` counter is
+always 0 here, since nothing is padded.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from ..core.construction import LDPCCode
 from ..core.decode import decode_integers
 from ..core.gf import symbol_dtype
 from ..device import resolve_device
+from ..obs import metrics as obs_metrics
+from ..obs import ras as obs_ras
 
 __all__ = ["RepairQueue"]
 
@@ -80,7 +88,7 @@ class RepairQueue:
             _y, res = decode_integers(
                 self.code, chunk.to(torch.int32), n_iters=self.n_iters,
                 llv_scale=self.llv_scale, llv_mode=self.llv_mode,
-                damping=self.damping, early_exit=True)
+                damping=self.damping, early_exit=True, observe=False)
             syms.append(res.symbols)
             fail.append(res.detect_fail)
             iters.append(res.iterations)
@@ -116,8 +124,9 @@ class RepairQueue:
                     "by_owner": {}, "seconds": 0.0}
         t0 = time.perf_counter()
         batch = torch.cat([e.words.to(self.device) for e in entries])
-        syms, fail, _iters = self.decode_batch(batch)
+        syms, fail, iters = self.decode_batch(batch)
         ok_all = ~fail
+        est = obs_ras.current()
         by_owner: dict[object, dict] = {}
         lo = 0
         for e in entries:
@@ -127,9 +136,25 @@ class RepairQueue:
                 e.owner, {"flagged_words": 0, "repaired_words": 0})
             ent["flagged_words"] += e.rows
             ent["repaired_words"] += int(ok.sum())
+            if est.enabled:
+                est.observe_decode(iters[lo:lo + e.rows], self.n_iters,
+                                   detect_fail=fail[lo:lo + e.rows],
+                                   region=str(e.owner)
+                                   if e.owner is not None else "")
             lo += e.rows
         repaired = int(ok_all.sum())
         dt = time.perf_counter() - t0
+        reg = obs_metrics.current()
+        if reg.enabled:
+            reg.histogram("repair_queue_depth", layer="repair").observe(
+                pending)
+            reg.histogram("repair_drain_seconds", layer="repair").observe(dt)
+            reg.counter("repair_drains", layer="repair").inc()
+            reg.counter("repair_rows", layer="repair").inc(pending)
+            reg.counter("repair_pad_rows", layer="repair").inc(0)
+            reg.counter("repair_repaired", layer="repair").inc(repaired)
+            reg.counter("repair_uncorrectable", layer="repair").inc(
+                pending - repaired)
         return {"entries": len(entries), "words": pending,
                 "repaired": repaired, "failed": pending - repaired,
                 "by_owner": by_owner, "seconds": dt}

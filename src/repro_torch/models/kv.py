@@ -29,8 +29,12 @@ manager and ingests the prompt K/V, `decode_step` serves through it.
 With `pool` (a `memory.pool.ProtectedPagePool`) every layer's stores are
 `PooledStore`s: block tables into the shared pool instead of private
 pages, returned to its free list by `free()`. The JAX package's `mesh`
-has no counterpart (one card here). The JAX layer's trace spans and
-metric counters are not ported (ROADMAP Queue 1 item 4+8).
+has no counterpart (one card here).
+
+Under `repro_torch.obs`, each freeze is a `kv.freeze` span and bumps
+`kv_pages_frozen`, and each injection records a `kv.inject` instant and
+adds its changed cells to `kv_cells_injected`, per owner, as the JAX
+layer does.
 """
 from __future__ import annotations
 
@@ -49,6 +53,8 @@ from ..memory.paged import (PagedProtectedStore, dequantize_tensor,
 from ..memory.pool import PooledStore
 from ..nn.kv_source import KVSource
 from ..nn.layers import CDT
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 
 __all__ = ["ProtectedKVConfig", "ProtectedKVLayer", "ProtectedKVCaches",
            "protected_overhead"]
@@ -159,10 +165,16 @@ class ProtectedKVLayer(KVSource):
 
     def _freeze(self) -> None:
         code = self.k_store.code
-        kw, kmeta = quantize_tensor(self.hot_k, code.p, code.k)
-        vw, vmeta = quantize_tensor(self.hot_v, code.p, code.k)
-        self.k_store.append_words(kw)
-        self.v_store.append_words(vw)
+        with obs_trace.span("kv.freeze", owner=str(self.owner)):
+            kw, kmeta = quantize_tensor(self.hot_k, code.p, code.k)
+            vw, vmeta = quantize_tensor(self.hot_v, code.p, code.k)
+            self.k_store.append_words(kw)
+            self.v_store.append_words(vw)
+        reg = obs_metrics.current()
+        if reg.enabled:
+            reg.counter("kv_pages_frozen", layer="kv",
+                        tenant=str(self.owner) if self.owner is not None
+                        else "").inc()
         self._metas.append((kmeta, vmeta))
         if self._decoded is not None:
             # storage was just written clean: the decoded view of this page
@@ -196,6 +208,14 @@ class ProtectedKVLayer(KVSource):
         changed = self.k_store.inject(channel, gen, **kw)
         changed += self.v_store.inject(channel, gen, **kw)
         self.invalidate()
+        tr = obs_trace.current()
+        if tr.enabled:
+            tr.instant("kv.inject", owner=str(self.owner), cells=changed)
+        reg = obs_metrics.current()
+        if reg.enabled:
+            reg.counter("kv_cells_injected", layer="kv",
+                        tenant=str(self.owner) if self.owner is not None
+                        else "").inc(changed)
         return changed
 
     def free(self) -> None:

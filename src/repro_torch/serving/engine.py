@@ -16,10 +16,19 @@ NB-LDPC-protected page pool, as the JAX package's `repro.serving.engine`.
   contents: a resumed sequence continues bit for bit.
 - **background scrub** — every `scrub_every` steps a bounded
   `pool.scrub(max_pages=...)` sweeps allocated pages between decode steps,
-  repairs attributed to the owning tenant.
+  repairs attributed to the owning tenant. With a RAS estimator installed
+  the period is `adaptive_interval(scrub_every)` and the sweep takes the
+  pages that flag most first (`prioritize=True`).
 - **per-tenant accounting** — each slot store's `stats` counts the
   detected, corrected and uncorrectable words of that tenant's reads;
-  `tenant_stats` adds them up with the pool's per-owner scrub report.
+  `tenant_stats` adds them up with the pool's per-owner scrub report, and
+  `publish_metrics` exports them as gauges.
+- **observability** — under `repro_torch.obs` each step is an
+  `engine.step` span with `engine.admit`, `engine.prefill`,
+  `engine.decode`, `engine.scrub` and `engine.sample_sync` children and an
+  `engine.preempt` instant, and feeds the step counters, the step-time
+  histogram and the active-slot gauge. Each pillar costs one attribute
+  read a step when it is not installed; spans never synchronize the card.
 
 The engine drives the model stack unchanged: `models.lm.decode_step`
 routes `EngineCaches` (`is_protected_manager = True`, a (B,) position per
@@ -31,14 +40,12 @@ Differences from the JAX engine, by design: the page axis of the kernel's
 operands is not padded to a power of two (`np_bucket`), since zero pages
 are exact no-ops and the port passes the page count at run time; the
 streaming `pages()` read takes CPU tensors only (on the card every read
-is the kernel's, `corrected=False` handing it the raw cells). Not ported
-(ROADMAP Queue 1 item 4+8): the trace spans, metric counters and the RAS
-estimator's scrub schedule. The engine behaves as the JAX engine does with
-telemetry off: `prioritize` is False and the scrub cadence is fixed.
+is the kernel's, `corrected=False` handing it the raw cells).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any
 
@@ -58,6 +65,10 @@ from ..memory.pool import PooledStore, PoolExhausted, ProtectedPagePool
 from ..models.kv import ProtectedKVConfig
 from ..nn.kv_source import KVSource
 from ..nn.layers import CDT
+from ..obs import metrics as obs_metrics
+from ..obs import ras as obs_ras
+from ..obs import trace as obs_trace
+from ..obs.trace import span
 
 __all__ = ["BatchedPagedKV", "BatchedDenseKV", "EngineCaches",
            "SequenceState", "ServingEngine"]
@@ -601,9 +612,11 @@ class ServingEngine:
         tokens = np.zeros((self.max_active, S), np.int64)
         for j, (seq, _b) in enumerate(group):
             tokens[j] = seq.prompt
-        logits, caches = lm.prefill(
-            self.params, self.cfg,
-            torch.as_tensor(tokens, device=self.device))
+        with span("engine.prefill", prompt_len=S, n_seqs=len(group),
+                  tenants=[str(s.tenant) for s, _ in group]):
+            logits, caches = lm.prefill(
+                self.params, self.cfg,
+                torch.as_tensor(tokens, device=self.device))
         first = logits[:, -1].argmax(dim=-1).tolist()
         for j, (seq, b) in enumerate(group):
             for (g, i), layer in self.caches.layers.items():
@@ -669,9 +682,34 @@ class ServingEngine:
     def step(self) -> dict:
         """One engine tick: admit, preflight capacity, one batched decode
         step across the active slots, retire finished sequences, and the
-        scrub when due. Returns the step's report."""
+        scrub when due. Returns the step's report.
+
+        Under `repro_torch.obs` the tick is one `engine.step` span with
+        its children, the step counters and latency go to the ambient
+        registry, and an ambient RAS estimator drives the scrub schedule
+        (`_due_for_scrub`, `prioritize=True`)."""
+        t_start = time.perf_counter()
+        with span("engine.step", step=self._step_no) as sp:
+            report = self._step_inner(sp)
+        reg = obs_metrics.current()
+        if reg.enabled:
+            reg.counter("engine_steps", layer="engine").inc()
+            reg.counter("engine_tokens", layer="engine").inc(
+                report["tokens"])
+            reg.counter("engine_retired", layer="engine").inc(
+                report["retired"])
+            reg.counter("engine_preemptions", layer="engine").inc(
+                report["preempted"])
+            reg.histogram("engine_step_seconds", layer="engine").observe(
+                time.perf_counter() - t_start)
+            reg.gauge("engine_active_slots", layer="engine").set(
+                report["active"])
+        return report
+
+    def _step_inner(self, sp) -> dict:
         from ..models import lm
-        admitted = self._admit()
+        with span("engine.admit"):
+            admitted = self._admit()
         active_mask = np.zeros(self.max_active, bool)
         tokens = np.zeros((self.max_active, 1), np.int64)
         pos = np.zeros(self.max_active, np.int64)
@@ -684,6 +722,7 @@ class ServingEngine:
         report = {"step": self._step_no, "admitted": len(admitted),
                   "active": int(active_mask.sum()), "tokens": 0,
                   "retired": 0, "preempted": 0}
+        sp.set(active=report["active"], admitted=report["admitted"])
         if not active_mask.any():
             self._step_no += 1
             return report
@@ -691,29 +730,42 @@ class ServingEngine:
         self._preflight(active_mask)
         report["preempted"] = sum(s.preemptions
                                   for s in self.sequences) - pre
+        if report["preempted"]:
+            tr = obs_trace.current()
+            if tr.enabled:
+                tr.instant("engine.preempt", count=report["preempted"])
         if not active_mask.any():
             self._step_no += 1
             return report
         self.caches.set_active(active_mask)
-        logits, _ = lm.decode_step(
-            self.params, self.cfg, self.caches,
-            torch.as_tensor(tokens, device=self.device), pos)
-        # the sampled tokens stay on the device until after the scrub, so
-        # its scans queue behind the decode step instead of waiting for it
-        nxt_dev = logits[:, -1, :].argmax(dim=-1)
+        with span("engine.decode", step=self._step_no,
+                  active=report["active"]):
+            logits, _ = lm.decode_step(
+                self.params, self.cfg, self.caches,
+                torch.as_tensor(tokens, device=self.device), pos)
+            # the sampled tokens stay on the device until after the scrub,
+            # so its scans queue behind the decode step instead of waiting
+            # for it
+            nxt_dev = logits[:, -1, :].argmax(dim=-1)
         self._step_no += 1
         if self.protected:
             self._touch_pages()
-            if self.scrub_every and self._step_no % self.scrub_every == 0:
+            if self.scrub_every and self._due_for_scrub():
                 # a scrub moves storage toward clean, so the memoized
                 # corrected views stay valid: no invalidation
-                rep = self.pool.scrub(max_pages=self.scrub_max_pages,
-                                      now=self._step_no,
-                                      min_age=self.scrub_min_age,
-                                      prioritize=False)
+                est = obs_ras.current()
+                with span("engine.scrub") as ssp:
+                    rep = self.pool.scrub(max_pages=self.scrub_max_pages,
+                                          now=self._step_no,
+                                          min_age=self.scrub_min_age,
+                                          prioritize=est.enabled)
+                    ssp.set(pages=rep["pages"],
+                            flagged=rep["flagged_words"],
+                            repaired=rep["repaired_words"])
                 self.scrub_reports.append(rep)
                 report["scrubbed_pages"] = rep["pages"]
-        nxt = nxt_dev.tolist()
+        with span("engine.sample_sync", step=self._step_no - 1):
+            nxt = nxt_dev.tolist()
         for b, seq in enumerate(self.slots):
             if seq is None or not active_mask[b]:
                 continue
@@ -728,6 +780,19 @@ class ServingEngine:
                 seq.status = "done"
                 report["retired"] += 1
         return report
+
+    def _due_for_scrub(self) -> bool:
+        """The fixed `scrub_every` cadence, unless an ambient RAS estimator
+        is installed: then the period is `adaptive_interval(scrub_every)`,
+        shorter while pages flag above the estimator's target rate and
+        longer when the pool is quiet. As in the JAX engine, it reads the
+        estimator's default region "", which only owner-less reads and
+        scrubs feed (tenants' pages feed their tenants' regions)."""
+        est = obs_ras.current()
+        interval = self.scrub_every
+        if est.enabled:
+            interval = max(1, est.adaptive_interval(self.scrub_every))
+        return self._step_no % interval == 0
 
     def _touch_pages(self) -> None:
         for b, seq in enumerate(self.slots):
@@ -799,12 +864,27 @@ class ServingEngine:
         return out
 
     def publish_metrics(self, registry=None) -> None:
-        """The JAX engine exports its accounting into a metrics registry;
-        the port has no metrics registry yet."""
-        raise NotImplementedError(
-            "engine metrics (obs registry, per-tenant gauges) are not "
-            "ported yet: ROADMAP Queue 1 item 4+8; read tenant_stats() and "
-            "stats() instead")
+        """Export the engine's accounting into a metrics registry (the
+        ambient one by default): each tenant's correction triple and scrub
+        attribution as `tenant_*` gauges, and the pool's `ControllerStats`,
+        `pool_allocated` and `pool_available`. Gauges are set, so repeated
+        publishes do not double count."""
+        reg = obs_metrics.current() if registry is None else registry
+        if not getattr(reg, "enabled", False):
+            return
+        tenants = {}
+        for s in self.sequences:
+            tenants.setdefault(str(s.tenant), s.tenant)
+        for label in sorted(tenants):
+            for k, v in self.tenant_stats(tenants[label]).items():
+                reg.gauge(f"tenant_{k}", layer="engine",
+                          tenant=label).set(v)
+        if self.protected:
+            self.pool.stats.publish(reg, layer="pool")
+            reg.gauge("pool_allocated", layer="pool").set(
+                self.pool.n_allocated)
+            reg.gauge("pool_available", layer="pool").set(
+                self.pool.available)
 
     def stats(self) -> dict:
         live = sum(s is not None for s in self.slots)

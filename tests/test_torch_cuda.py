@@ -11,7 +11,9 @@ the s8 wgmma encode exactly at ragged shapes, every field, the int32 edge,
 unaligned words and every tile and grid, with IGMMA in its SASS; FBP at
 every field and dc, ragged row blocks, both strides and bitwise
 repeatable; GF(257) operands refused by the int8 kernels and flagged
-exactly on the exact route. Marked
+exactly on the exact route; the runtime sanitizer on CUDA tensors,
+`span(sync=...)` waiting for the card, and the RAS estimator and the tiny
+engine's telemetry fed from the card as from the CPU. Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -989,3 +991,133 @@ def test_engine_single_tenant_matches_multi_tenant_on_card(dev):
         assert solo[t] == multi[t], f"tenant {t} diverged under batching"
     tight, eng = _tiny_engine_runs(dev, prompts, pool_pages=40)
     assert eng.stats()["preemptions"] > 0 and tight == multi
+
+
+# ---------------------------------------------------------------------------
+# telemetry and the sanitizer on the card
+# ---------------------------------------------------------------------------
+
+
+def test_sanitizer_on_card_raises_and_passes_clean(dev, rng):
+    """The checks reduce on the card: an out-of-field symbol in the scan's
+    words or the encode's lhs, a NaN query, a NaN hot K row (the output
+    check) and a negative scale raise `SanitizerError` with the JAX text;
+    a clean `attend_protected` gives the unsanitized bits, and a decode of
+    levels that drifted below 0 passes."""
+    from repro_torch.analysis import SanitizerError, use_sanitizer
+    from repro_torch.kernels import paged_attention as pa
+    code = get_code("wl1024_r08")
+    y = torch.as_tensor(np_encode_words(
+        rng.integers(0, code.p, (4096, code.k)), code), dtype=torch.int8,
+        device=dev)
+    y[17, 5] = code.p
+    ht = code.tensor("H.T", dev, torch.int8)
+    with use_sanitizer():
+        with pytest.raises(SanitizerError) as err:
+            gf_matmul.scan_syndromes(y, ht, code.p)
+        assert str(err.value) == ("sanitizer[scan_syndromes words]: GF "
+                                  "symbol outside [0, 3): min=0, max=3")
+        with pytest.raises(SanitizerError, match=r"gf_matmul lhs\]"):
+            gf_matmul.gf_matmul(y[:, :code.k],
+                                code.tensor("P", dev, torch.int8), code.p)
+    shape = dict(B=4, Sq=1, Hq=32, Hkv=8, D=64, T=16, S=1)
+    args, kw = _attend_operands(dev, code_name="wl160_r08", seed=3, NP=32,
+                                **shape)
+    q, kp, vp, ks, vs, valid, hk, hv, hval = args
+    ref = pa.attend_protected(*args, **kw)
+    with use_sanitizer():
+        assert torch.equal(pa.attend_protected(*args, **kw).view(
+            torch.int16), ref.view(torch.int16))
+        bad_q = q.clone()
+        bad_q[1, 0, 3, 7] = float("nan")
+        with pytest.raises(SanitizerError, match=r"query\]: non-finite"):
+            pa.attend_protected(bad_q, *args[1:], **kw)
+        bad_k = hk.clone()
+        bad_k[2, 0] = float("nan")
+        with pytest.raises(SanitizerError, match=r"output\]: non-finite"):
+            pa.attend_protected(q, kp, vp, ks, vs, valid, bad_k, hv, hval,
+                                **kw)
+        with pytest.raises(SanitizerError, match=r"K scales\]"):
+            pa.attend_protected(q, kp, vp, -ks, vs, valid, hk, hv, hval,
+                                **kw)
+        words = torch.zeros((8, 32), dtype=torch.int32, device=dev)
+        words[3, 4] = -1
+        _y, res = decode_integers(get_code("wl32_r08"), words, n_iters=4)
+        assert res.symbols.is_cuda
+
+
+def test_span_sync_waits_for_the_card(dev):
+    """`span(sync=t)` on a CUDA tensor (here in a structure) returns only
+    when the card's queued work is done."""
+    from repro_torch import obs
+    a = torch.randn((4096, 4096), device=dev)
+    tr = obs.Tracer()
+    with obs.use_tracer(tr):
+        with obs.span("mm", sync=(a, {"x": [a]})):
+            b = a @ a
+            for _ in range(8):
+                b = b @ a
+        done = torch.cuda.current_stream(dev).query()
+        with obs.span("nosync"):
+            c = b @ a
+    assert done
+    assert [e["name"] for e in tr.spans()] == ["mm", "nosync"]
+    torch.cuda.synchronize(dev)
+    assert c.shape == a.shape
+
+
+def test_estimator_fed_from_card_iterations(dev, rng):
+    """Decodes and corrected reads on the card feed the estimator the same
+    numbers as on the CPU (the iteration vectors are read back once per
+    feed)."""
+    from repro_torch import obs
+    from repro_torch.memory import PagedProtectedStore
+    snaps = []
+    for device in (dev, "cpu"):
+        r = np.random.default_rng(4)
+        code = get_code("wl160_r08")
+        st = PagedProtectedStore(code, page_words=64, n_iters=8,
+                                 device=device)
+        st.owner = 1
+        st.append_words(torch.as_tensor(r.integers(0, 3, (200, code.k))))
+        for i in range(st.n_pages):
+            page = st.page(i).cpu().numpy().astype(np.int64)
+            hit = r.random(page.shape) < 3e-3
+            page[hit] = (page[hit] + r.integers(1, 3, hit.sum())) % 3
+            st._pages[i] = torch.as_tensor(page, dtype=torch.int8,
+                                           device=device)
+        est = obs.ErrorRateEstimator()
+        with obs.use_estimator(est):
+            for i in range(st.n_pages):
+                st.read_page_corrected(i)
+            y = torch.as_tensor(np_encode_words(
+                r.integers(0, 3, (64, code.k)), code), device=device)
+            y[::3, 7] = (y[::3, 7] + 1) % 3
+            decode_integers(code, y, n_iters=8, early_exit=True)
+        snaps.append(est.snapshot())
+    assert snaps[0] == snaps[1]
+    assert snaps[0]["1"]["decode_words"] > 0
+    assert snaps[0][""]["decode_words"] == 64
+
+
+def test_engine_telemetry_on_card_matches_cpu(dev):
+    """The tiny engine with a scrub every 2 steps under all three pillars:
+    on the card the same estimator snapshot, counters, gauges and span
+    structure as on the CPU, and the same tokens."""
+    from repro_torch import obs
+    rng = np.random.default_rng(2)
+    prompts = {t: rng.integers(0, 512, 10 + 4 * t) for t in range(4)}
+    runs = []
+    for device in ("cpu", dev):
+        reg, tr, est = (obs.MetricsRegistry(), obs.Tracer(),
+                        obs.ErrorRateEstimator())
+        with obs.use_metrics(reg), obs.use_tracer(tr), \
+                obs.use_estimator(est):
+            out, eng = _tiny_engine_runs(device, prompts, scrub_every=2,
+                                         scrub_max_pages=8)
+            eng.publish_metrics()
+        snap = {k: v for k, v in reg.snapshot().items()
+                if not k.endswith("_seconds")}
+        spans = [(e["name"], e["args"]) for e in tr.events()]
+        runs.append((out, est.snapshot(), snap, spans))
+    assert runs[0] == runs[1]

@@ -460,8 +460,11 @@ def test_background_scrub_preserves_outputs_and_repairs(tiny):
 def test_dense_baseline_and_unported_metrics(tiny):
     """`protected=False` serves the same prompts through dense per-slot
     rows (tokens logged, not compared: int8 pages differ from bf16 rows);
-    `publish_metrics` names its ROADMAP item; the engine runs where the
-    parameters are and refuses layers it cannot batch."""
+    `publish_metrics` publishes each tenant's gauges (and no pool
+    gauges, there being no pool), and into the null registry does
+    nothing; the engine runs where the parameters are and refuses layers
+    it cannot batch."""
+    from repro_torch import obs
     _, _, cfg, params, prompts = tiny
     eng = ServingEngine(params, cfg, max_active=4, max_seq=48,
                         protected=False)
@@ -469,8 +472,17 @@ def test_dense_baseline_and_unported_metrics(tiny):
     assert all(len(v) == 8 for v in out.values())
     assert eng.inject(_mixed_channel(3, 1e-2), key=0) == 0
     assert eng.tenant_stats(0)["detected"] == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4\\+8"):
-        eng.publish_metrics()
+    before = obs.instrument_count()
+    eng.publish_metrics()
+    assert obs.instrument_count() == before
+    reg = obs.MetricsRegistry()
+    eng.publish_metrics(reg)
+    snap = reg.snapshot()
+    assert {s["labels"]["tenant"] for s in snap["tenant_detected"]["series"]
+            } == {"0", "1", "2", "3"}
+    assert obs.MetricsRegistry.value(snap, "tenant_corrected",
+                                     layer="engine", tenant="0") == 0.0
+    assert "pool_allocated" not in snap
     windowed = dataclasses.replace(cfg, group_spec=tuple(
         dataclasses.replace(s, local_window=4) for s in cfg.group_spec))
     with pytest.raises(ValueError, match="global self-attention"):
