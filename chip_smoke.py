@@ -20,13 +20,16 @@ Phases (any failure exits non-zero):
      50 and of 2 (one that bites on logits of about N(0, 1)), with
      per-slot sub-pages (S = B), at NP 1, at NP 40 (page ranges of
      unequal length), with rows that have no valid token in some ranges
-     or in all (with and without the hot page), and at NP 256 (4,096
-     tokens); the PIM MAC also beside torch._int_mm (cuBLASLt s8 x s8 ->
-     s32, its adc-0 function) and the W transpose a K-major operand would
-     cost in the wrapper; gf_matmul at a 4096-word wl1024_r08 page and a
-     wl160_r08 page freeze, beside torch.matmul fp32 and torch._int_mm;
-     fbp_cn at dc 16 (p 3), p 5 and dc 26. Every kernel but the flash
-     kernels also logs its device time from torch.profiler (from CUDA
+     or in all (with and without the hot page), at NP 256 (4,096
+     tokens), and at phase 16's decode reads at head dim 128 (olmoe's
+     16/16 heads, jamba's 32/8); the PIM MAC also beside torch._int_mm
+     (cuBLASLt s8 x s8 -> s32, its adc-0 function) and the W transpose a
+     K-major operand would cost in the wrapper; gf_matmul at a 4096-word
+     wl1024_r08 page and a wl160_r08 page freeze (and phase 16's olmoe
+     and jamba page freezes, 6,144 and 3,072 words), beside torch.matmul
+     fp32 and torch._int_mm; fbp_cn at dc 16 (p 3), p 5 and dc 26.
+     Every kernel but the flash kernels also logs its device time from
+     torch.profiler (from CUDA
      events around calls queued behind a sleep kernel where three
      profiled windows in a row recorded none), and all but the MAC their
      wrappers' host time a call;
@@ -134,6 +137,32 @@ Phases (any failure exits non-zero):
      bits, a decode of levels drifted below 0 passes, its host ms a call
      with the checks off and on, and 4 sanitized engine steps give (a)'s
      first tokens;
+ 16. the rest of the LM substrate, after phase 15's model is freed, each
+     model freed before the next: (a) reduced olmoe, arctic, falcon-mamba,
+     jamba, whisper and llama-3.2-vision with the same weights on the card
+     and the CPU: logits within 2 bf16 ulps (a row beyond only where a
+     router near-tie may have picked another expert, at most one in 16),
+     MoE routing and dispatch exactly equal on the same router logits
+     (and on logits with ties), prefill/decode consistency at the JAX
+     test's tolerances, one training step with a finite loss; (b)
+     olmoe-1b-7b at full width and depth (16 layers, 6.9 B seeded
+     parameters): phase 8's three protected serving runs (4 x 512
+     prompts, 32 steps, wl160_r08 pages of 16 tokens, D = 128): the
+     injected run gives the clean tokens and logits bit for bit with no
+     word left, `attend_protected` runs 16 times a step; the slots dropped
+     at capacity each step, the MoE's share of a clean step (CUDA events
+     around each MoE layer), peak memory; a flash prefill with every
+     layer's flash attention within a few bf16 ulps of the fp32-softmax
+     attention; (c) one 8-layer block of jamba-v0.1-52b at full width
+     (13.3 B parameters; n_groups 4 -> 1): clean and injected runs, 16
+     steps, the attention layer from protected pages and the seven mamba
+     states dense; (d) whisper-small at full width and depth (12 + 12
+     layers) over 1,500 seeded aux frames: prefill naive and flash by
+     phase 9's criterion (flash_fwd once per encoder layer and twice per
+     decoder layer, every one within a few bf16 ulps of the fp32-softmax
+     attention, one-layer copies' logits within 0.04 of an fp32-softmax
+     prefill, the full model's distances logged), then 16 greedy decode
+     steps on dense caches holding the cross K/V;
  13. the paper's BER campaign, `run_campaign(paper_schemes(wl1024_r08))`
      over nine raw BERs at the JAX bench's settings (NB-LDPC decoding on
      the card; first two draws' decode and residuals held against the
@@ -142,9 +171,10 @@ Phases (any failure exits non-zero):
      modulo checksum 1x at 1e-3; wl1024_r088's conditional residuals for
      m = 1..12 are logged.
 
-The phases run in the order 1-9, 12, 14, 15, 13, 10, 11 (phases 12, 14
-and 15 need phase 8's model, which is freed before training). Phase 2 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against
-their plain versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
+The phases run in the order 1-9, 12, 14, 15, 16, 13, 10, 11 (phases 12,
+14 and 15 need phase 8's model, which is freed before phase 16). Phase 2
+also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
+versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
 logged) at the training and prefill shapes, a ragged
 bidirectional case, a window of 256 and a softcap of 2, timed beside
@@ -156,7 +186,8 @@ Kernel launch counts are reset just before each main path, memory and
 PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9),
 PIM-protected serving (phase 12, from the precode to the third run),
 the engine (phase 14, its five runs less its two checks' launches),
-telemetry (phase 15, run (f) and the memory-mode read),
+telemetry (phase 15, run (f) and the memory-mode read), the substrate
+(phase 16, each of (b)-(d) and (b)'s flash prefill),
 the campaign (phase 13) and training (phases 10-11), and read just after
 it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
@@ -247,6 +278,19 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 4096   # global batch (cut from 256), seq_len
 TRAIN_STEPS = 6                # optimizer steps of the full-size run
 SMALL_TRAIN_STEPS = 5          # phase 10's card-vs-CPU steps
 PROFILE_ATTEMPTS = 3           # profiler windows tried before giving up
+# phase 16: the rest of the LM substrate
+SUBSTRATE_ARCHS = ("olmoe_1b_7b", "arctic_480b", "falcon_mamba_7b",
+                   "jamba_v01_52b", "whisper_small", "llama32_vision_90b")
+LOGITS_ULPS = 2 ** -5          # reduced card vs CPU logits: 2 bf16 ulps at
+                               # |logit| in [2, 4)
+MOE_ARCH = "olmoe_1b_7b"       # (b), full width and depth
+MOE_PAGE_WORDS = 6144          # wl160_r08 words of a (4, 16, 16, 128) page
+HYBRID_ARCH = "jamba_v01_52b"  # (c), one of its four 8-layer blocks
+HYBRID_STEPS = 16
+HYBRID_PAGE_WORDS = 3072       # wl160_r08 words of a (4, 16, 8, 128) page
+ENCDEC_ARCH = "whisper_small"  # (d), full width and depth
+WHISPER_PROMPT = 432           # + WHISPER_STEPS = 448, whisper's text context
+WHISPER_STEPS = 16
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -542,7 +586,8 @@ def fbp_inputs(code, words: int, gen, device):
 
 # code, words: phase 2's encodes (gf_matmul)
 GF_CASES = [("wl1024_r08", 4096), ("wl160_r08", 1536),
-            ("wl160_r08", ENGINE_PAGE_WORDS)]
+            ("wl160_r08", ENGINE_PAGE_WORDS), ("wl160_r08", MOE_PAGE_WORDS),
+            ("wl160_r08", HYBRID_PAGE_WORDS)]
 # code, words, share of words with one corrupted cell: phase 2's scans
 SCAN_CASES = [("wl1024_r08", 4096, 0.1), ("wl1024_r08", 256, 0.1),
               ("wl1024_r08", 67, 0.1), ("wl160_r08", 1536, 0.01),
@@ -550,7 +595,9 @@ SCAN_CASES = [("wl1024_r08", 4096, 0.1), ("wl1024_r08", 256, 0.1),
               ("wl160_r08_gf5", 1024, 0.1), ("wl160_r08_gf7", 1024, 0.1),
               ("wl320_r08", PIM_PREFILL_WORDS, 0.1),
               ("wl320_r08", PIM_DECODE_WORDS, 0.1),
-              ("wl160_r08", ENGINE_PAGE_WORDS, 0.1)]
+              ("wl160_r08", ENGINE_PAGE_WORDS, 0.1),
+              ("wl160_r08", MOE_PAGE_WORDS, 0.01),
+              ("wl160_r08", HYBRID_PAGE_WORDS, 0.01)]
 # code, words: phase 2's FBP updates (words x checks rows)
 FBP_CASES = [("wl1024_r08", 256), ("wl160_r08_gf5", 256),
              ("wl1024_r088", 256), ("wl320_r08", PIM_PREFILL_WORDS),
@@ -822,7 +869,11 @@ def phase_attend(device) -> list:
                                   "ragged": True}, 0.0, True, False),
              ("single_np32", {**serving, "B": 1}, 0.0, True, False),
              ("single_np256", {**serving, "B": 1, "NP": 256}, 0.0, True,
-              False)]
+              False),
+             # phase 16's decode reads at D = 128: olmoe-1b-7b, jamba
+             ("olmoe_d128", {**serving, "Hq": 16, "Hkv": 16, "D": 128},
+              0.0, True, False),
+             ("jamba_d128", {**serving, "D": 128}, 0.0, True, False)]
     # the engine sizes its ranges for max_seq's pages (BatchedPagedKV)
     ref_of = {"engine_per_slot": -(-ENGINE_MAX_SEQ // serving["T"])}
     rows = []
@@ -1240,21 +1291,7 @@ def phase_serving(device) -> tuple[dict, dict, tuple]:
             (raw["tokens"] == clean["tokens"]).float().mean())}
     log(f"  serving: {json.dumps(report)}")
 
-    if fixes["corrected"] <= 0 or fixes["uncorrectable"] != 0:
-        raise AssertionError(f"injected run: corrections {fixes}")
-    if not torch.equal(inj["tokens"], clean["tokens"]):
-        raise AssertionError("injected run: tokens differ from the clean "
-                             "run's")
-    if not torch.equal(inj["logits"], clean["logits"]):
-        err = float((inj["logits"] - clean["logits"]).abs().max())
-        raise AssertionError(f"injected run: logits differ from the clean "
-                             f"run's (max abs {err})")
-    for name in ("clean", "injected", "uncorrected"):
-        counts = [st.get("attend_protected", 0) for st in runs[name]["per_step"]]
-        if counts != [n_layers] * SERVE_STEPS:
-            raise AssertionError(f"{name} run: attend_protected launches per "
-                                 f"decode step {counts}, expected "
-                                 f"{n_layers} each")
+    _serving_checks(cfg.name, runs, n_layers, SERVE_STEPS)
     for name in ("clean", "injected", "uncorrected"):
         del runs[name]["caches"]
     report["profile_step"] = profile_decode_step(params, cfg, prompts, pkv)
@@ -2577,6 +2614,553 @@ def phase_prefill(device, cfg, params, prompts) -> tuple[dict, dict]:
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the rest of the LM substrate (MoE, mamba, encoder-decoder, cross)
+# ---------------------------------------------------------------------------
+
+
+def _moe_margins():
+    """Wrap `nn.moe.topk_route` to record each token's gap between its
+    K-th and (K+1)-th router logit, in bf16 ulps at the row's largest
+    |logit|. Returns (the list it appends to, a function that undoes the
+    wrap)."""
+    import torch
+    from repro_torch.nn import moe
+    margins, route = [], moe.topk_route
+
+    def recording(logits, k):
+        if k < logits.shape[1]:
+            top = torch.sort(logits, dim=-1, descending=True)[0]
+            ulp = torch.finfo(torch.bfloat16).eps * logits.abs().amax(-1)
+            margins.append(((top[:, k - 1] - top[:, k]) / ulp.clamp_min(
+                torch.finfo(torch.bfloat16).tiny)).cpu())
+        return route(logits, k)
+
+    moe.topk_route = recording
+    return margins, lambda: setattr(moe, "topk_route", route)
+
+
+def _routing_card_vs_cpu(device, cfg, layer, x) -> dict:
+    """The first MoE layer's routing of `x` on the card and on the CPU
+    from the same float32 router logits (the card's), and from logits with
+    constructed ties: top-k, gate weights, the sort, `keep` and the buffer
+    rows equal exactly."""
+    import torch
+    from repro_torch.nn import moe
+    logits = moe.router_logits(layer, x)
+    T, E = logits.shape
+    tied = torch.round(torch.randn((T, E), generator=torch.Generator(
+        device=device).manual_seed(SEED), device=device) * 2) / 2
+    tied[0] = 1.0
+    out = {}
+    for name, lg in (("router", logits), ("tied", tied)):
+        cap = moe.capacity(T, cfg)
+        got = moe.topk_route(lg, cfg.top_k)
+        want = moe.topk_route(lg.cpu(), cfg.top_k)
+        plan = moe.dispatch(got[0], E, cap)
+        plan_cpu = moe.dispatch(want[0], E, cap)
+        pairs = [(got[0], want[0]), (got[1], want[1])] + [
+            (a, b) for a, b in zip(plan[:5], plan_cpu[:5], strict=True)]
+        if not all(torch.equal(a.cpu(), b) for a, b in pairs):
+            raise AssertionError(f"{cfg.name}: MoE routing or dispatch on "
+                                 f"the card differs from the CPU's ({name} "
+                                 f"logits)")
+        out[name] = {"tokens": T, "capacity": cap,
+                     "dropped": int((~plan.keep).sum())}
+    return out
+
+
+def phase_substrate_reduced(device) -> dict:
+    """(a) each of SUBSTRATE_ARCHS at `.reduced()`, the same weights on the
+    card and on the CPU: logits to LOGITS_ULPS (a row beyond it only where
+    a router near-tie may have sent a token to another expert, at most one
+    in 16), MoE routing exact on the same router logits, prefill/decode
+    consistency at the JAX test's tolerances, and one training step on the
+    card with a finite loss."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    prefill)
+    report = {}
+    for arch in SUBSTRATE_ARCHS:
+        cfg = get_config(arch).reduced()
+        cpu_model = init_params(cfg, SEED, device="cpu")
+        model = copy.deepcopy(cpu_model).to(device)
+        gen = torch.Generator().manual_seed(SEED)
+        toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen)
+        aux = (0.1 * torch.randn((2, cfg.n_aux_tokens, cfg.d_model),
+                                 generator=gen) if cfg.aux_kind else None)
+        dev_aux = aux.to(device) if aux is not None else None
+        margins, undo = _moe_margins()
+        try:
+            with torch.no_grad():
+                got = forward(model, cfg, toks.to(device), aux=dev_aux)
+        finally:
+            undo()
+        with torch.no_grad():
+            want = forward(cpu_model, cfg, toks, aux=aux)
+        near_tie = torch.zeros(toks.numel(), dtype=torch.bool)
+        for m in margins:
+            near_tie |= m < 4
+        row_err = (got.cpu() - want).abs().amax(-1).reshape(-1)
+        off = row_err > LOGITS_ULPS
+        if not torch.isfinite(got).all() or bool((off & ~near_tie).any()) \
+                or int(off.sum()) > toks.numel() // 16:
+            raise AssertionError(f"{arch} reduced: card logits differ from "
+                                 f"the CPU's (rows {off.nonzero().tolist()}"
+                                 f", near ties {near_tie.nonzero().tolist()}"
+                                 f", max {float(row_err.max())})")
+        rep = {"logits_max_abs_err": float(row_err.max()),
+               "logits_max_abs_err_in_tolerance_rows":
+                   float(row_err[~off].max()),
+               "rows_beyond_tolerance_near_ties": int(off.sum())}
+        for g, spec in enumerate(cfg.group_spec):
+            if spec.moe:
+                x = model.embed[toks.to(device)].to(torch.bfloat16)
+                rep["routing"] = _routing_card_vs_cpu(
+                    device, cfg, model.block(0, g).moe,
+                    model.block(0, g).norm2(x).reshape(32, -1))
+                break
+        c = dataclasses.replace(cfg, moe_impl="dense") if cfg.n_experts \
+            else cfg
+        lgs, caches = prefill(model, c, toks.to(device), aux=dev_aux)
+        lg2, _ = decode_step(model, c, caches, toks[:, -1:].to(device), 15,
+                             aux=dev_aux)
+        diff = float((lgs[:, -1] - lg2[:, 0]).abs().max())
+        tol = 0.05 if any(s.kind == "mamba" for s in cfg.group_spec) \
+            else 1e-3
+        if not diff <= tol:
+            raise AssertionError(f"{arch} reduced on the card: decode at "
+                                 f"S-1 differs from the prefill by {diff}")
+        rep["prefill_decode_diff"] = diff
+        step, tx = build_train(cfg, lr=1e-3)
+        state = tx.init(model.leaves())
+        batch = {"tokens": toks, "labels": toks}
+        if aux is not None:
+            batch["aux"] = aux
+        state, metrics = step(model, state, batch)
+        loss = float(metrics["loss"])
+        if not 0 < loss < 20:
+            raise AssertionError(f"{arch} reduced: training loss {loss}")
+        rep["train_loss"] = loss
+        rep["train_grad_norm"] = float(metrics["grad_norm"])
+        report[arch] = rep
+        log(f"  {arch} reduced, card against CPU: {json.dumps(rep)}")
+        del model, cpu_model, state
+    return report
+
+
+def _moe_load():
+    """Wrap `nn.moe.router_logits` and `nn.moe.dispatch` to keep, for each
+    MoE layer's call (device scalars): the slots dropped at capacity, the
+    largest expert's load, and the coherence of the router's input rows,
+    |mean of the unit-length rows|^2 (1 when every token points one way,
+    about 1/T for T independent ones). Returns (the list of (dropped,
+    max load, coherence) rows, the undo)."""
+    import torch
+    from repro_torch.nn import moe
+    rows, coherence = [], []
+    router_logits, dispatch = moe.router_logits, moe.dispatch
+
+    def logits(layer, x2d):
+        u = x2d.float()
+        u = u / u.norm(dim=-1, keepdim=True).clamp_min(1e-30)
+        coherence.append(u.mean(dim=0).square().sum())
+        return router_logits(layer, x2d)
+
+    def counting(topi, n_experts, cap):
+        plan = dispatch(topi, n_experts, cap)
+        load = torch.bincount(topi.reshape(-1), minlength=n_experts)
+        rows.append(torch.stack([(~plan.keep).sum().float(),
+                                 load.max().float(), coherence[-1]]))
+        return plan
+
+    moe.router_logits, moe.dispatch = logits, counting
+
+    def undo():
+        moe.router_logits, moe.dispatch = router_logits, dispatch
+    return rows, undo
+
+
+def moe_step_share(params, cfg, prompts, pkv) -> dict:
+    """One clean decode step (after a prefill and a warm step) with CUDA
+    events around the step and around each MoE layer: the step's stream
+    ms, the MoE layers' and their share (host gaps within a layer count
+    as the layer's)."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.nn import moe
+    S = prompts.shape[1]
+    logits, caches = prefill(params, cfg, prompts, protected_kv=pkv)
+    tok = logits[:, -1:].argmax(dim=-1)
+    lg, caches = decode_step(params, cfg, caches, tok, S)
+    tok = lg[:, -1:].argmax(dim=-1)
+    events, apply = [], moe.moe_apply
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = apply(*args, **kw)
+        b.record()
+        events.append((a, b))
+        return out
+
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    moe.moe_apply = timed
+    try:
+        torch.cuda.synchronize()
+        t0.record()
+        decode_step(params, cfg, caches, tok, S + 1)
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_apply = apply
+    step_ms = t0.elapsed_time(t1)
+    moe_ms = sum(a.elapsed_time(b) for a, b in events)
+    caches.free()
+    return {"step_ms": step_ms, "moe_ms": moe_ms, "moe_layers": len(events),
+            "moe_share": moe_ms / step_ms}
+
+
+def _serving_checks(name, runs, n_attn: int, steps: int) -> dict:
+    """Phase 8's checks on a protected serving model's runs: the injected
+    run corrected words, left none, and gave the clean tokens and logits
+    bit for bit; `attend_protected` ran once per attention layer per
+    step in every run."""
+    import torch
+    clean, inj = runs["clean"], runs["injected"]
+    fixes = _layer_corrections(inj["caches"])
+    if fixes["corrected"] <= 0 or fixes["uncorrectable"] != 0:
+        raise AssertionError(f"{name} injected run: corrections {fixes}")
+    if not torch.equal(inj["tokens"], clean["tokens"]):
+        raise AssertionError(f"{name} injected run: tokens differ from the "
+                             "clean run's")
+    if not torch.equal(inj["logits"], clean["logits"]):
+        err = float((inj["logits"] - clean["logits"]).abs().max())
+        raise AssertionError(f"{name} injected run: logits differ from the "
+                             f"clean run's (max abs {err})")
+    for run, r in runs.items():
+        counts = [st.get("attend_protected", 0) for st in r["per_step"]]
+        if counts != [n_attn] * steps:
+            raise AssertionError(f"{name} {run} run: attend_protected "
+                                 f"launches per decode step {counts}, "
+                                 f"expected {n_attn} each")
+    return fixes
+
+
+def _page_words(caches) -> int:
+    layer = next(iter(caches.layers.values()))
+    return layer.k_store.page_words
+
+
+def _serve_model(name, params, cfg, prompts, pkv, steps, runs_wanted,
+                 page_words: int) -> tuple[dict, dict]:
+    """Protected serving runs of one model (phase 8's `serve_once`), the
+    clean one counting the MoE slots dropped at capacity each step and,
+    for each MoE layer of the prefill, its drops, its largest expert's
+    load and its router inputs' coherence (`_moe_load`).
+    Returns (report, the runs' launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.nn import moe
+    n_attn = sum(1 for s in cfg.group_spec if s.kind == "attn"
+                 and not s.cross and not s.local_window) * cfg.n_groups
+    n_moe = sum(1 for s in cfg.group_spec if s.moe) * cfg.n_groups
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    counts, undo = _moe_load()
+    try:
+        runs = {"clean": serve_once(params, cfg, prompts, pkv, inject=False,
+                                    steps=steps)}
+    finally:
+        undo()
+    got_words = _page_words(runs["clean"]["caches"])
+    if got_words != page_words:
+        raise AssertionError(f"{name}: pages of {got_words} words; phase 2 "
+                             f"checks {page_words}")
+    runs["injected"] = serve_once(params, cfg, prompts, pkv, inject=True,
+                                  steps=steps)
+    if "uncorrected" in runs_wanted:
+        runs["uncorrected"] = serve_once(
+            params, cfg, prompts, dataclasses.replace(pkv, corrected=False),
+            inject=True, steps=steps)
+    launches = dict(build.LAUNCHES)
+    loads = torch.stack(counts).cpu().tolist() if counts else []
+    drops = [int(r[0]) for r in loads]
+    fixes = _serving_checks(name, runs, n_attn, steps)
+    report = {"layers": cfg.n_groups * len(cfg.group_spec),
+              "attention_layers": n_attn, "moe_layers": n_moe,
+              "batch": prompts.shape[0], "prompt_tokens": prompts.shape[1],
+              "decode_steps": steps, "page_words": page_words,
+              "stored_cells": runs["injected"]["caches"].stats()[
+                  "stored_cells"],
+              "injected_cells": runs["injected"]["cells_changed"],
+              "injected_corrections": fixes,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "moe_dropped_slots_prefill": sum(drops[:n_moe]),
+              "moe_dropped_slots_per_step": [
+                  sum(drops[n_moe * (i + 1):n_moe * (i + 2)])
+                  for i in range(steps)] if n_moe else []}
+    if n_moe:
+        T = prompts.shape[0] * prompts.shape[1]
+        report["moe_prefill_per_layer"] = {
+            "tokens": T, "capacity": moe.capacity(T, cfg),
+            "mean_load": T * cfg.top_k / cfg.n_experts,
+            "dropped": drops[:n_moe],
+            "max_load": [int(r[1]) for r in loads[:n_moe]],
+            "router_input_coherence": [r[2] for r in loads[:n_moe]]}
+    for run, r in runs.items():
+        report[run] = {k: r[k] for k in (
+            "ttft_s", "decode_s", "prefill_tokens_per_s",
+            "decode_tokens_per_s", "ms_per_decode_step")}
+        report[run]["launches_per_step_mean"] = {
+            k: sum(st.get(k, 0) for st in r["per_step"]) / steps
+            for k in sorted({k for st in r["per_step"] for k in st})}
+    if "uncorrected" in runs:
+        report["uncorrected_logit_drift"] = float(
+            (runs["uncorrected"]["logits"] - runs["clean"]["logits"]).abs()
+            .max())
+    for r in runs.values():
+        r["caches"].free()
+    return report, launches
+
+
+def _flash_prefill_check(name, params, cfg, prompts, aux, n_flash: int,
+                         one_layer: bool) -> tuple[dict, dict]:
+    """Phase 9's criterion on one model: `prefill` naive and under
+    attn_impl="flash" (flash_fwd `n_flash` times), every flash attention
+    output within ULP_RTOL/ULP_ATOL of the fp32-softmax attention on the
+    same q/k/v (`exact_attend`); with `one_layer`, also one-layer copies
+    at full width (one decoder layer and one encoder layer, seeds SEED and
+    SEED + 1) whose flash logits lie within PREFILL_EXACT_ATOL of an
+    `exact_attend` prefill, and the full model's flash and naive logits'
+    distances from an `exact_attend` prefill logged (over many random
+    layers the two roundings drift apart, and which one ends closer is
+    not a property of the kernel). Returns (report, the launches of the
+    timed prefills)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params, prefill
+    from repro_torch.nn import layers
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    out, secs = {}, {}
+    build.reset_launches()
+    for run, c in (("naive", cfg), ("flash", flash_cfg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[run] = prefill(params, c, prompts, aux=aux)[0]
+        torch.cuda.synchronize()
+        secs[run] = time.perf_counter() - t0
+        if run == "naive" and build.LAUNCHES["flash_fwd"]:
+            raise AssertionError(f"{name}: the naive prefill launched "
+                                 "flash_fwd")
+    launches = dict(build.LAUNCHES)
+    attend, ratios = layers._attend, []
+    one_dist, one_naive = {}, {}
+    try:
+        layers._attend = _checked_attend(attend, ratios)
+        prefill(params, flash_cfg, prompts, aux=aux)
+        n_checked = len(ratios)
+        if one_layer:
+            layers._attend = exact_attend
+            ref = prefill(params, cfg, prompts, aux=aux)[0]
+            one = dataclasses.replace(cfg, n_groups=1, encoder_groups=min(
+                cfg.encoder_groups, 1))
+            for seed in (SEED, SEED + 1):
+                one_params = init_params(one, seed, device=prompts.device)
+                layers._attend = _checked_attend(attend, ratios)
+                got = prefill(one_params, dataclasses.replace(
+                    one, attn_impl="flash"), prompts, aux=aux)[0]
+                layers._attend = attend
+                naive = prefill(one_params, one, prompts, aux=aux)[0]
+                layers._attend = exact_attend
+                exact = prefill(one_params, one, prompts, aux=aux)[0]
+                one_dist[seed] = float((got - exact).abs().max())
+                one_naive[seed] = float((naive - exact).abs().max())
+                del one_params, got, naive, exact
+    finally:
+        layers._attend = attend
+    flash_ratio = max(r["flash"] for r in ratios)
+    report = {"naive_s": secs["naive"], "flash_s": secs["flash"],
+              "flash_fwd_launches": launches.get("flash_fwd", 0),
+              "max_abs_logit": float(out["naive"].abs().max()),
+              "flash_vs_naive": float((out["flash"] - out["naive"]).abs()
+                                      .max()),
+              "layer_ulp_ratio_flash_max": flash_ratio,
+              "layer_ulp_ratio_naive_max": max(r["naive"] for r in ratios),
+              "argmax_agree_flash_naive": float(
+                  (out["flash"].argmax(-1) == out["naive"].argmax(-1))
+                  .float().mean())}
+    if one_layer:
+        report.update(
+            flash_vs_fp32_softmax=float((out["flash"] - ref).abs().max()),
+            naive_vs_fp32_softmax=float((out["naive"] - ref).abs().max()),
+            one_layer_flash_vs_fp32_softmax=one_dist,
+            one_layer_naive_vs_fp32_softmax=one_naive)
+    if launches.get("flash_fwd", 0) != n_flash or n_checked != n_flash:
+        raise AssertionError(f"{name} flash prefill: flash_fwd launched "
+                             f"{launches.get('flash_fwd', 0)} times, "
+                             f"{n_checked} checked, expected {n_flash}")
+    if not flash_ratio <= 1 or not torch.isfinite(out["flash"]).all():
+        raise AssertionError(f"{name} flash prefill: attention outputs not "
+                             f"within a few bf16 ulps of the fp32-softmax "
+                             f"attention ({flash_ratio})")
+    if one_layer and not max(one_dist.values()) <= PREFILL_EXACT_ATOL:
+        raise AssertionError(f"{name}: one-layer flash prefill logits are "
+                             f"{one_dist} from the fp32-softmax reference")
+    return report, launches
+
+
+def phase_protected_model(device, cfg, steps: int, runs_wanted,
+                          page_words: int, flash: bool) -> tuple[dict, dict]:
+    """(b), (c): `cfg` at full width from a seeded generator on the card,
+    served from protected pages (`_serve_model`: clean, injected and the
+    `runs_wanted`) over 4 x 512 prompts for `steps` greedy steps, the MoE
+    layers' share of a clean step, and with `flash` a flash prefill by
+    the per-layer criterion. Returns (report, the runs' launches)."""
+    import torch
+    from repro_torch.models import ProtectedKVConfig, init_params
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pkv = ProtectedKVConfig(code_name="wl160_r08", page_tokens=16)
+    report, launches = _serve_model(cfg.name, params, cfg, prompts, pkv,
+                                    steps, runs_wanted, page_words)
+    report.update(arch=cfg.name, parameters=sum(
+        p.numel() for p in params.parameters()), init_s=init_s)
+    report["moe_step_share"] = moe_step_share(params, cfg, prompts, pkv)
+    if flash:
+        report["flash_prefill"], flash_launches = _flash_prefill_check(
+            cfg.name, params, cfg, prompts, None,
+            cfg.n_groups * len(cfg.group_spec), one_layer=False)
+        for k, v in flash_launches.items():
+            launches[k] = launches.get(k, 0) + v
+    del params
+    return report, launches
+
+
+def phase_encdec(device) -> tuple[dict, dict]:
+    """(d) whisper-small at full width and depth: 4 requests of
+    WHISPER_PROMPT tokens over 1,500 seeded aux frames, prefill naive and
+    flash (phase 9's criterion; flash_fwd once per encoder layer and twice
+    per decoder layer), then WHISPER_STEPS greedy decode steps on dense
+    caches holding the cross K/V."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_caches, init_params, \
+        prefill
+    cfg = get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, WHISPER_PROMPT),
+                            generator=gen, device=device)
+    aux = torch.randn((SERVE_BATCH, cfg.n_aux_tokens, cfg.d_model),
+                      generator=gen, device=device)
+    n_flash = cfg.encoder_groups + 2 * cfg.n_groups
+    report, launches = _flash_prefill_check(
+        cfg.name, params, cfg, prompts, aux, n_flash, one_layer=True)
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pre = prefill(params, cfg, prompts, aux=aux)
+    caches = init_caches(cfg, B, S + WHISPER_STEPS, device=device)
+    for pos, entry in pre.items():
+        for name, val in entry.items():
+            caches[pos][name][:, :, :val.shape[2]] = val
+    tok = logits[:, -1:].argmax(dim=-1)
+    tok.cpu()
+    ttft = time.perf_counter() - t0
+    toks, steps = [tok], []
+    t1 = time.perf_counter()
+    for i in range(WHISPER_STEPS):
+        lg, caches = decode_step(params, cfg, caches, tok, S + i)
+        tok = lg[:, -1:].argmax(dim=-1)
+        toks.append(tok)
+        steps.append(lg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    step_logits = torch.cat(steps, dim=1)
+    if step_logits.shape != (B, WHISPER_STEPS, cfg.vocab_size) or not bool(
+            torch.isfinite(step_logits).all()):
+        raise AssertionError("whisper decode: logits of shape "
+                             f"{tuple(step_logits.shape)} or not finite")
+    # decode at the last prompt position on the prefill's own caches,
+    # against the prefill's last logits (logged: the JAX test's 1e-3 is a
+    # reduced model's bound)
+    lg_last, _ = decode_step(params, cfg, pre, prompts[:, -1:], S - 1)
+    consistency = float((lg_last[:, 0] - logits[:, -1]).abs().max())
+    report.update(arch=cfg.name, parameters=sum(
+        p.numel() for p in params.parameters()), batch=B, prompt_tokens=S,
+        aux_frames=cfg.n_aux_tokens, decode_steps=WHISPER_STEPS,
+        ttft_s=ttft, ms_per_decode_step=decode_s / WHISPER_STEPS * 1e3,
+        decode_at_last_prompt_position_vs_prefill=consistency,
+        decode_tokens_per_s=B * WHISPER_STEPS / decode_s,
+        tokens=torch.cat(toks, dim=1)[0].tolist())
+    del params
+    return report, launches
+
+
+def phase_substrate(device) -> tuple[dict, dict]:
+    """Phase 16, (a)-(d), each model freed before the next. Returns
+    (report, the kernel launches of (b)-(d))."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    report = {"card": smi}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    report["reduced"] = phase_substrate_reduced(device)
+    free()
+    # (b) olmoe-1b-7b at full width and depth, (c) one of jamba's four
+    # 8-layer blocks at full width (the whole model does not fit a card)
+    moe_rep, moe_launches = phase_protected_model(
+        device, get_config(MOE_ARCH), SERVE_STEPS, ("uncorrected",),
+        MOE_PAGE_WORDS, flash=True)
+    log(f"  olmoe-1b-7b ({smi}): {json.dumps(moe_rep)}")
+    free()
+    hyb_rep, hyb_launches = phase_protected_model(
+        device, dataclasses.replace(get_config(HYBRID_ARCH), n_groups=1),
+        HYBRID_STEPS, (), HYBRID_PAGE_WORDS, flash=False)
+    hyb_rep["reduced"] = {"n_groups": "4 -> 1"}
+    log(f"  jamba-v0.1-52b, one block ({smi}): {json.dumps(hyb_rep)}")
+    free()
+    enc_rep, enc_launches = phase_encdec(device)
+    log(f"  whisper-small ({smi}): {json.dumps(enc_rep)}")
+    free()
+    for name, launches in (("olmoe-1b-7b", moe_launches),
+                           ("jamba-v0.1-52b", hyb_launches)):
+        check_path(f"{name} protected serving", launches,
+                   ("attend_protected", "gf_matmul", "scan_syndromes",
+                    "fbp_cn"))
+    check_path("whisper-small flash prefill", enc_launches, ("flash_fwd",))
+    report.update(moe=moe_rep, hybrid=hyb_rep, encdec=enc_rep,
+                  seconds=time.perf_counter() - t0)
+    launches = {k: moe_launches.get(k, 0) + hyb_launches.get(k, 0)
+                + enc_launches.get(k, 0)
+                for k in set(moe_launches) | set(hyb_launches)
+                | set(enc_launches)}
+    return report, launches
+
+
 def phase_small_training(device) -> dict:
     """Reduced granite-3-2b (2 layers, d_model 128, seq 64, batch 4; the
     shape of tests/test_system.py::test_training_learns) under
@@ -2853,6 +3437,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    log("phase 16: the rest of the LM substrate (MoE, mamba, "
+        "encoder-decoder, cross)")
+    substrate, substrate_launches = phase_substrate(device)
+    log(f"  launches on the substrate paths: {substrate_launches}")
+    log(f"  phase 16 took {substrate['seconds']:.1f} s")
+
     log("phase 13: BER campaign, wl1024_r08")
     campaign, campaign_launches = phase_campaign(device)
     log(f"  launches on the campaign path: {campaign_launches}")
@@ -2872,8 +3462,8 @@ def main() -> int:
                 "scan_syndromes", "fbp_cn"))
     launches = {k: sum(path.get(k, 0) for path in (
         codec_launches, serve_launches, prefill_launches, pim_launches,
-        engine_launches, telemetry_launches, campaign_launches,
-        train_launches))
+        engine_launches, telemetry_launches, substrate_launches,
+        campaign_launches, train_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -2892,7 +3482,8 @@ def main() -> int:
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
                     "serving": serving, "prefill": prefill_report,
                     "pim_serving": pim_serving, "engine": engine,
-                    "telemetry": telemetry, "campaign": campaign,
+                    "telemetry": telemetry, "substrate": substrate,
+                    "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
                     "launches_per_call": per_call,
@@ -2902,6 +3493,7 @@ def main() -> int:
                     "launches_pim_serving": pim_launches,
                     "launches_engine": engine_launches,
                     "launches_telemetry": telemetry_launches,
+                    "launches_substrate": substrate_launches,
                     "launches_campaign": campaign_launches,
                     "launches_training": train_launches,
                     "seconds": time.perf_counter() - t0}))

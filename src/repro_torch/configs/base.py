@@ -5,8 +5,8 @@ framework). Each architecture gets a module `repro_torch/configs/<id>.py`
 exporting `CONFIG: ArchConfig`; models are built from the config alone
 (`repro_torch.models.lm`). `attn_impl`, `remat` and `unroll_groups` are kept
 so that configs stay field for field equal to the reference's; the port
-reads `attn_impl` ("naive" or "flash"; "standin" raises), `remat` and
-`remat_policy` ("full"; "dots" raises).
+reads `attn_impl` ("naive" or "flash"; "standin", cost tooling, raises),
+`remat` and `remat_policy` ("full" or "dots").
 
 A transformer stack is described as `n_groups` repetitions of `group_spec`
 (a tuple of LayerSpec) — uniform stacks have a single-entry spec; gemma2

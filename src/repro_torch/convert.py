@@ -23,6 +23,7 @@ from .core.construction import LDPCCode
 from .device import resolve_device
 from .memory.array import StoredTensor
 from .models.lm import LM, jax_path
+from .optim import stacked_leaf
 
 CODE_FIELDS = ("p", "n", "k", "H", "G", "P", "cn_vns", "cn_coefs", "cn_mask",
                "perm_to_contrib", "perm_to_sym", "dv", "dc_max")
@@ -62,8 +63,10 @@ def stored_from_arrays(enc, dtype, shape, nbytes: int,
 def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
     """The JAX package's parameter pytree as numpy arrays
     (`jax.tree.map(np.asarray, params)`: "embed", "final_norm",
-    "lm_head" unless tied, and "groups"/"pos{i}" subtrees whose leaves are
-    stacked over `n_groups`) -> the port's `LM` on `device` (the card by
+    "lm_head" unless tied, "groups"/"pos{i}" subtrees whose leaves are
+    stacked over `n_groups` (MoE experts as (n_groups, E, d, f)), and for
+    encoder-decoder configs "encoder" (stacked over `encoder_groups`) and
+    "enc_norm") -> the port's `LM` on `device` (the card by
     default). Every parameter must be present with the model's shape. The
     precoded leaves of `repro.models.encode_params_for_pim` (`w_down_enc`,
     `w_down_alpha`, `wo_enc`, `wo_alpha`), where present, become the
@@ -110,7 +113,7 @@ def _leaf_lists(tree, model: LM, device) -> dict[str, list[torch.Tensor]]:
     out = {}
     for path, params in model.leaves().items():
         arr = np.asarray(_node(tree, path.split("/")), dtype=np.float32)
-        parts = list(arr) if path.startswith("groups/") else [arr]
+        parts = list(arr) if stacked_leaf(path) else [arr]
         if len(parts) != len(params):
             raise ValueError(f"{path}: {len(parts)} arrays for "
                              f"{len(params)} parameters")

@@ -23,7 +23,8 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, lr: float = 3e-4,
     `tx` (`optimizer_for(cfg)`, AdamW or Adafactor, under
     `warmup_cosine(lr, 200, total_steps)`) and returns the metrics
     {"loss", "grad_norm"} as 0-d tensors. `batch` holds "tokens" and
-    "labels" (B, S), numpy or tensors."""
+    "labels" (B, S), numpy or tensors, and "aux" (B, Na, d_model) for
+    the configs that take auxiliary embeddings."""
     tx = make_optimizer(optimizer_for(cfg),
                         warmup_cosine(lr, 200, total_steps))
     mb = microbatches
@@ -35,10 +36,15 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, lr: float = 3e-4,
         if tokens.shape[0] % mb:
             raise ValueError(f"batch {tokens.shape[0]} does not split into "
                              f"{mb} microbatches")
+        auxs = [None] * mb
+        if batch.get("aux") is not None:
+            auxs = torch.as_tensor(batch["aux"], device=dev).chunk(mb)
         model.zero_grad(set_to_none=True)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
-        for t, lab in zip(tokens.chunk(mb), labels.chunk(mb), strict=True):
-            part = loss_fn(model, cfg, {"tokens": t, "labels": lab})
+        for t, lab, aux in zip(tokens.chunk(mb), labels.chunk(mb), auxs,
+                               strict=True):
+            part = loss_fn(model, cfg, {"tokens": t, "labels": lab,
+                                        "aux": aux})
             part.backward()
             loss += part.detach()
         leaves = model.leaves()

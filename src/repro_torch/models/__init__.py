@@ -1,4 +1,5 @@
-"""The dense language model and its protected KV-cache serving path."""
+"""The model stacks of every config and their protected KV-cache serving
+path."""
 from .kv import (ProtectedKVCaches, ProtectedKVConfig, ProtectedKVLayer,
                  protected_overhead)
 from .lm import (LM, decode_step, encode_params_for_pim, forward,

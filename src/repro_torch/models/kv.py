@@ -355,8 +355,11 @@ class ProtectedKVLayer(KVSource):
 
 class ProtectedKVCaches:
     """Whole-model protected decode caches: a `ProtectedKVLayer` per global
-    self-attention layer, dense {"k", "v"} caches for sliding-window
-    layers. `view`/`update` are the surface `models.lm` decodes through."""
+    self-attention layer, dense entries for everything else (mamba
+    layers' conv tail and SSM state, cross K/V, sliding-window rings, an
+    encoder-decoder layer's self-attention K/V beside its cross K/V), as
+    the JAX package's `ProtectedKVCaches`. `view`/`update` are the surface
+    `models.lm` decodes through."""
 
     def __init__(self, cfg: ArchConfig, pkv: ProtectedKVConfig, batch: int,
                  max_seq: int, owner: Any = None, device=None):
@@ -374,8 +377,9 @@ class ProtectedKVCaches:
                         pkv, batch, cfg.n_kv_heads, cfg.head_dim,
                         owner=owner, device=self.device)
                 else:
-                    self.dense[(g, i)] = _block_cache(spec, cfg, batch,
-                                                      max_seq, self.device)
+                    self.dense[(g, i)] = _block_cache(
+                        spec, cfg, batch, max_seq, cfg.n_aux_tokens or 1,
+                        self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(0)
 
     @staticmethod
@@ -400,7 +404,9 @@ class ProtectedKVCaches:
     def ingest_prefill(self, caches, S: int) -> None:
         """Adopt the stacked caches a `prefill` pass produced: protected
         layers append the prompt K/V (quantize and encode, page by page);
-        dense layers copy it into their max-seq buffers."""
+        dense entries (K/V rings, cross K/V, mamba states) are copied into
+        their buffers, along the first axis past the batch where the
+        prompt's entry is shorter (the JAX package pads it)."""
         for i in range(len(self.cfg.group_spec)):
             entry = caches[f"pos{i}"]
             for g in range(self.cfg.n_groups):

@@ -1,16 +1,22 @@
-"""Layers of a dense attention-only model: RMS norm, rotary embeddings, the
-gated MLP, GQA attention (global or sliding-window) over a dense decode
-cache or a `KVSource`, and the streaming paged attention.
+"""Layers of the model stacks: RMS norm, rotary embeddings, the gated MLP,
+GQA attention (global or sliding-window self-attention over a dense decode
+cache or a `KVSource`, cross-attention over auxiliary K/V, the encoder's
+bidirectional attention), the streaming paged attention, and `Block`, one
+layer of any kind the configs use: attention, mamba (`nn.mamba`) or
+encoder-decoder, with a gated MLP, an MoE FFN (`nn.moe`), both (arctic's
+dense residual) or none.
 
 The modules hold float32 parameters in the JAX package's layout (a
 projection is `x @ w`, w of shape (in, out)) and compute in bf16 (`CDT`),
 casting each weight at use and keeping the softmax and norm sums in fp32,
 as `repro.nn.layers` does.
 
-Under `attn_impl="flash"` a full pass (prefill, training) with more than
-one query goes through `kernels.flash_attention.flash_attention` (the
-flash kernels, forward and backward), as `repro.nn.layers._attend` routes
-it; decode steps read their caches with the naive attention.
+Under `attn_impl="flash"` a full pass (prefill, training, the encoder)
+with more than one query goes through
+`kernels.flash_attention.flash_attention` (the flash kernels, forward and
+backward), causal for self-attention and bidirectional for the encoder
+and cross-attention, as `repro.nn.layers._attend` routes it; decode
+steps read their caches with the naive attention.
 
 With a `core.context.PIMContext` (`pim_ctx`) whose targets name them, the
 MLP's down projection (`mlp_down`) and attention's output projection
@@ -19,8 +25,8 @@ MLP's down projection (`mlp_down`) and attention's output projection
 `models.lm.encode_params_for_pim` fills) where present, else from the fp
 weights ternarized and encoded per call.
 
-Not ported (they raise `NotImplementedError`): cross-attention and
-`attn_impl="standin"` (cost-lowering tooling).
+Not ported, by design: `attn_impl="standin"`, the JAX package's
+cost-lowering tooling (it raises `NotImplementedError`).
 """
 from __future__ import annotations
 
@@ -122,8 +128,8 @@ def _attend(q, k, v, mask, softcap, *, impl="naive", causal=True,
     B, Sq, Hq, D = q.shape
     if impl == "standin" and Sq > 1:
         raise NotImplementedError(
-            "attn_impl='standin' is cost-lowering tooling of the JAX "
-            "package, not ported: ROADMAP Queue 1 item 9")
+            "attn_impl='standin' is the JAX package's cost-lowering "
+            "tooling, not ported by design")
     if impl == "flash" and Sq > 1:
         return flash_attention(q, k, v, causal, window,
                                float(softcap or 0.0), None)
@@ -164,7 +170,7 @@ def attend_paged(q, pages, softcap):
 
 
 class Attention(nn.Module):
-    """GQA self-attention: wq (d, Hq·D), wk/wv (d, Hkv·D), wo (Hq·D, d)."""
+    """GQA attention: wq (d, Hq·D), wk/wv (d, Hkv·D), wo (Hq·D, d)."""
 
     def __init__(self, cfg: ArchConfig, *, generator=None, device=None):
         super().__init__()
@@ -188,20 +194,48 @@ class Attention(nn.Module):
         v = (x @ self.wv.to(CDT)).reshape(shape)
         return rope(k, positions, cfg.rope_theta), v
 
+    def cross_kv(self, aux, cfg: ArchConfig):
+        """Cross-attention K/V of auxiliary embeddings (B, Na, d): each
+        (B, Na, Hkv, D) bf16, without RoPE (the JAX package's
+        `_cross_kv`)."""
+        B, Na, _ = aux.shape
+        aux = aux.to(CDT)
+        shape = (B, Na, cfg.n_kv_heads, cfg.head_dim)
+        return ((aux @ self.wk.to(CDT)).reshape(shape),
+                (aux @ self.wv.to(CDT)).reshape(shape))
+
+    def encode(self, x, cfg: ArchConfig, positions):
+        """Bidirectional self-attention (the whisper encoder's
+        `encoder_attention_apply`): (B, S, d) -> (B, S, d), RoPE'd q and
+        k, no mask, no PIM path."""
+        B, S, _ = x.shape
+        hq, dh = cfg.n_heads, cfg.head_dim
+        q = rope((x @ self.wq.to(CDT)).reshape(B, S, hq, dh), positions,
+                 cfg.rope_theta)
+        k, v = self.project_kv(x, cfg, positions)
+        out = _attend(q, k, v, None, cfg.softcap_attn, impl=cfg.attn_impl,
+                      causal=False)
+        return out.reshape(B, S, hq * dh) @ self.wo.to(CDT)
+
     def forward(self, x, spec: LayerSpec, cfg: ArchConfig, *, positions,
-                kv_cache=None, cache_pos=None, pim_ctx=None):
-        """Prefill (kv_cache None): causal full pass, returns (y, None).
-        Decode: a dense {"k", "v"} (B, Smax, Hkv, D) cache is written at
-        `cache_pos` in place (a ring of size `local_window` for sliding
-        layers) and returned; a `KVSource` appends the token's K/V and
-        serves the read through its `attend`. `wo` runs on `pim_ctx`'s
+                kv_cache=None, cache_pos=None, aux_kv=None, pim_ctx=None):
+        """Cross-attention (`spec.cross`): q (no RoPE) against the given
+        `aux_kv` = (k, v), every key visible; returns (y, None).
+        Self-attention prefill (kv_cache None): causal full pass, returns
+        (y, None). Decode: a dense {"k", "v"} (B, Smax, Hkv, D) cache is
+        written at `cache_pos` in place (a ring of size `local_window` for
+        sliding layers) and returned; a `KVSource` appends the token's K/V
+        and serves the read through its `attend`. `wo` runs on `pim_ctx`'s
         protected path where it targets "attn_o"."""
-        if spec.cross:
-            raise NotImplementedError(
-                "cross-attention is not ported yet: ROADMAP Queue 1 item 9")
         B, S, _ = x.shape
         hq, dh = cfg.n_heads, cfg.head_dim
         q = (x @ self.wq.to(CDT)).reshape(B, S, hq, dh)
+        if spec.cross:
+            k, v = aux_kv
+            out = _attend(q, k, v, None, cfg.softcap_attn,
+                          impl=cfg.attn_impl, causal=False,
+                          window=spec.local_window)
+            return self.out_proj(out.reshape(B, S, hq * dh), pim_ctx), None
         q = rope(q, positions, cfg.rope_theta)
         k, v = self.project_kv(x, cfg, positions)
         if isinstance(kv_cache, KVSource):
@@ -236,32 +270,104 @@ class Attention(nn.Module):
         return self.out_proj(out.reshape(B, S, hq * dh), pim_ctx), new_cache
 
 
+_SELF = LayerSpec(kind="attn")
+_CROSS = LayerSpec(kind="attn", cross=True)
+
+
 class Block(nn.Module):
-    """One pre-norm block of a dense model: x + attn(norm1(x)), then
-    x + mlp(norm2(x)) where the config has an FFN."""
+    """One pre-norm layer, by `spec.kind` (the JAX package's
+    `_init_block` / `_apply_block`, with its subtree names):
+
+    - "attn": `norm1`, `attn` (self-attention, or cross-attention over
+      `aux` where `spec.cross`);
+    - "mamba": `norm1`, `mamba`;
+    - "encdec" (the whisper decoder): `norm1`, `attn` (self), `norm_x`,
+      `xattn` (cross over the encoder's output);
+
+    then the FFN where the layer has one: `norm2` and `mlp` (a gated
+    MLP), `moe` (an MoE FFN), or both (`dense_residual`, arctic; only
+    the MLP takes `pim_ctx`). A mamba layer of a config without `d_ff`
+    and without MoE has none."""
 
     def __init__(self, spec: LayerSpec, cfg: ArchConfig, *, generator=None,
                  device=None):
         super().__init__()
-        if spec.kind != "attn" or spec.moe or spec.cross:
-            raise NotImplementedError(
-                f"{spec} blocks (MoE, mamba, encoder-decoder, cross) are "
-                "not ported yet: ROADMAP Queue 1 item 9")
+        from .mamba import Mamba
+        from .moe import MoE
+        kw = dict(generator=generator, device=device)
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.attn = Attention(cfg, generator=generator, device=device)
-        if cfg.d_ff > 0:
+        if spec.kind == "mamba":
+            self.mamba = Mamba(cfg, **kw)
+        else:
+            self.attn = Attention(cfg, **kw)
+        if spec.kind == "encdec":
+            self.norm_x = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+            self.xattn = Attention(cfg, **kw)
+        if spec.moe or cfg.d_ff > 0 or spec.kind == "encdec":
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act,
-                           generator=generator, device=device)
+            if spec.moe:
+                self.moe = MoE(cfg, cfg.expert_d_ff or cfg.d_ff, **kw)
+            if not spec.moe or spec.dense_residual:
+                self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+
+    def ffn(self, h, spec: LayerSpec, cfg: ArchConfig, pim_ctx=None):
+        if spec.moe:
+            y = self.moe(h, cfg)
+            if spec.dense_residual:
+                y = y + self.mlp(h, pim_ctx)
+            return y
+        return self.mlp(h, pim_ctx)
+
+    def _aux_kv(self, attn: Attention, aux, cache, cfg: ArchConfig):
+        """The cached cross K/V where the cache holds them, else `aux`'s."""
+        if cache is not None and "ck" in cache:
+            return cache["ck"], cache["cv"]
+        if aux is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "`aux` (or caches holding its K/V)")
+        return attn.cross_kv(aux, cfg)
 
     def forward(self, x, spec: LayerSpec, cfg: ArchConfig, *, positions,
-                cache=None, cache_pos=None, pim_ctx=None):
-        """Returns (x, new_cache): the dense cache written in place, or
-        None for prefill and `KVSource` caches."""
-        y, new_cache = self.attn(self.norm1(x), spec, cfg,
-                                 positions=positions, kv_cache=cache,
-                                 cache_pos=cache_pos, pim_ctx=pim_ctx)
-        x = x + y
-        if hasattr(self, "mlp"):
-            x = x + self.mlp(self.norm2(x), pim_ctx)
+                aux=None, cache=None, cache_pos=None, pim_ctx=None):
+        """Returns (x, new_cache). new_cache: a mamba layer's state (its
+        full pass's final state, or the decode step's); a self-attention
+        layer's dense cache written in place; cross K/V (`ck`, `cv`) when
+        decoding; None for prefill attention and `KVSource` caches."""
+        new_cache: dict | None = None
+        if spec.kind == "mamba":
+            state = ((cache["conv"], cache["ssm"]) if cache is not None
+                     else None)
+            y, st = self.mamba(self.norm1(x), cfg, state,
+                               decode=cache is not None)
+            x = x + y
+            new_cache = {"conv": st.conv, "ssm": st.ssm}
+        elif spec.kind == "encdec":
+            kv = ({"k": cache["k"], "v": cache["v"]} if cache is not None
+                  else None)
+            y, new_cache = self.attn(self.norm1(x), _SELF, cfg,
+                                     positions=positions, kv_cache=kv,
+                                     cache_pos=cache_pos, pim_ctx=pim_ctx)
+            x = x + y
+            aux_kv = self._aux_kv(self.xattn, aux, cache, cfg)
+            yx, _ = self.xattn(self.norm_x(x), _CROSS, cfg,
+                               positions=positions, aux_kv=aux_kv,
+                               pim_ctx=pim_ctx)
+            x = x + yx
+            if cache is not None:
+                new_cache = dict(new_cache or {}, ck=aux_kv[0],
+                                 cv=aux_kv[1])
+        elif spec.cross:
+            aux_kv = self._aux_kv(self.attn, aux, cache, cfg)
+            y, _ = self.attn(self.norm1(x), spec, cfg, positions=positions,
+                             aux_kv=aux_kv, pim_ctx=pim_ctx)
+            x = x + y
+            if cache is not None:
+                new_cache = {"ck": aux_kv[0], "cv": aux_kv[1]}
+        else:
+            y, new_cache = self.attn(self.norm1(x), spec, cfg,
+                                     positions=positions, kv_cache=cache,
+                                     cache_pos=cache_pos, pim_ctx=pim_ctx)
+            x = x + y
+        if hasattr(self, "norm2"):
+            x = x + self.ffn(self.norm2(x), spec, cfg, pim_ctx)
         return x, new_cache

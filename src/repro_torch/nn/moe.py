@@ -1,0 +1,181 @@
+"""Mixture-of-Experts FFN: the port of the JAX package's `repro.nn.moe`,
+with the one-device dispatch of `repro.nn.moe_shard`.
+
+One parameter layout, float32 as in the JAX package: `router` (d, E),
+`w_gate` / `w_up` (E, d, f) and `w_down` (E, f, d). The products run in
+bf16 (`torch.einsum` / `torch.bmm`), as the JAX package's jnp products
+do; no kernel of the TPU package computes them. `cfg.moe_impl` picks:
+
+- "dense": the oracle. Every expert processes every token; the combine
+  weighs each token's top-k outputs. O(E) compute: tests and tiny
+  configs only.
+- "sorted_ep": top-k routing, a stable sort of the (token, slot) pairs by
+  expert id, a pack into an (E, cap + 1, d) buffer whose row `cap` is
+  the scratch row of the slots dropped at capacity, grouped products, an
+  unsort and the weighted combine. Dropped slots add zero.
+- "shard_ep": runs "sorted_ep". It is the JAX package's expert-sharded
+  dispatch; at one expert shard (ep = 1: one card holds every expert, so
+  there is no all_to_all) its `_local_moe` is the same dispatch as
+  "sorted_ep" and gives the same output. The JAX package's `shard_ep`
+  without a mesh recurses between `moe_apply` and `moe_shard_apply`
+  (ROADMAP Queue 3); the port does what that docstring says, the
+  one-device path.
+
+Capacity is `max(1, int(T·K/E·capacity_factor))` for T tokens, as in the
+JAX package, so a decode step of a few tokens drops a slot whenever two
+of them pick the same expert (ROADMAP Queue 3).
+
+Two rules keep the routing and the combine exact and repeatable:
+
+- top-k takes the K largest logits with ties to the lower expert id, the
+  rule of `jax.lax.top_k`, by a stable descending sort; the dispatch
+  sorts the slots by a stable sort, as `jnp.argsort`.
+- the combine adds each token's K weighted slots one by one in bf16, in
+  the sorted (expert id) order, the order of XLA's scatter-add; no
+  atomics, so a card run repeats bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ArchConfig
+from .layers import ACTS, CDT, _param
+
+__all__ = ["MoE", "Dispatch", "router_logits", "topk_route", "route",
+           "dispatch", "combine", "capacity", "moe_dense", "moe_sorted_ep",
+           "moe_apply"]
+
+
+class MoE(nn.Module):
+    """The experts and their router (the JAX leaves `router`, `w_gate`,
+    `w_up`, `w_down`)."""
+
+    def __init__(self, cfg: ArchConfig, d_ff: int, *, generator=None,
+                 device=None):
+        super().__init__()
+        d, E = cfg.d_model, cfg.n_experts
+        self.router = _param((d, E), generator, device)
+        self.w_gate = _param((E, d, d_ff), generator, device)
+        self.w_up = _param((E, d, d_ff), generator, device)
+        self.w_down = _param((E, d_ff, d), generator, device)
+
+    def forward(self, x, cfg: ArchConfig):
+        return moe_apply(self, x, cfg)
+
+
+class Dispatch(NamedTuple):
+    """Where the T·K (token, slot) pairs go, in the sorted order."""
+    order: torch.Tensor       # (T·K,) flat slot of each sorted position
+    sorted_e: torch.Tensor    # (T·K,) its expert id
+    tok_of: torch.Tensor      # (T·K,) its token
+    keep: torch.Tensor        # (T·K,) bool: within the expert's capacity
+    safe_pos: torch.Tensor    # (T·K,) its row in the expert's buffer
+                              # (`cap`, the scratch row, when dropped)
+    cap: int
+
+
+def router_logits(moe: MoE, x2d) -> torch.Tensor:
+    """(T, d) bf16 -> (T, E) float32: the bf16 product, cast up."""
+    return (x2d @ moe.router.to(CDT)).to(torch.float32)
+
+
+def topk_route(logits, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(T, E) float32 logits -> (topi (T, k) int64, gate weights (T, k)
+    bf16): the k largest in the float total order (-0 below +0), ties to
+    the lower expert id (`jax.lax.top_k`'s rule: a stable descending
+    sort of the order-preserving integer keys), and the softmax of their
+    logits."""
+    bits = logits.to(torch.float32).view(torch.int32)
+    keys = bits ^ ((bits >> 31) & 0x7FFFFFFF)     # float total order
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True)[1][:, :k]
+    w = torch.softmax(torch.gather(logits, 1, idx), dim=-1)
+    return idx, w.to(CDT)
+
+
+def route(moe: MoE, x2d, cfg: ArchConfig):
+    """The JAX package's `_route`: (T, d) -> (topi, w)."""
+    return topk_route(router_logits(moe, x2d), cfg.top_k)
+
+
+def dispatch(topi, n_experts: int, cap: int) -> Dispatch:
+    """The sorted_ep plan of (T, K) expert ids at capacity `cap`: a
+    stable sort by expert id, each slot's position within its expert,
+    and whether it fits."""
+    T, K = topi.shape
+    flat_e = topi.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(flat_e, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts           # exclusive prefix
+    pos_in_e = torch.arange(T * K, device=topi.device) - starts[sorted_e]
+    keep = pos_in_e < cap
+    safe_pos = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, cap))
+    return Dispatch(order, sorted_e, order // K, keep, safe_pos, cap)
+
+
+def combine(w, y_slots, plan: Dispatch, T: int):
+    """The weighted combine: y[t] = sum of w·y over token t's kept slots
+    (y_slots in the sorted order, dropped ones zero), each product and
+    each add rounded to bf16, added one by one in the sorted order (the
+    JAX package's `.at[tok_of].add`, as XLA's scatter runs it)."""
+    K = w.shape[1]
+    contrib = w.reshape(-1)[plan.order][:, None] * y_slots      # bf16
+    # each token's sorted positions, ascending (a stable sort by token)
+    by_tok = torch.argsort(plan.tok_of, stable=True).reshape(T, K)
+    y = contrib[by_tok[:, 0]]
+    for j in range(1, K):
+        y = y + contrib[by_tok[:, j]]
+    return y
+
+
+def _experts(moe: MoE, buf, act):
+    """The grouped products of an (E, rows, d) buffer, bf16."""
+    g = torch.bmm(buf, moe.w_gate.to(CDT))
+    u = torch.bmm(buf, moe.w_up.to(CDT))
+    return torch.bmm(act(g) * u, moe.w_down.to(CDT))
+
+
+def capacity(T: int, cfg: ArchConfig) -> int:
+    """Slots an expert takes for T tokens (the JAX package's rule)."""
+    return max(1, int(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+
+
+def moe_dense(moe: MoE, x2d, cfg: ArchConfig):
+    """Oracle: (T, d) -> (T, d), every expert on every token."""
+    topi, w = route(moe, x2d, cfg)
+    act = ACTS[cfg.act]
+    g = torch.einsum("td,edf->tef", x2d, moe.w_gate.to(CDT))
+    u = torch.einsum("td,edf->tef", x2d, moe.w_up.to(CDT))
+    y_all = torch.einsum("tef,efd->ted", act(g) * u, moe.w_down.to(CDT))
+    T = x2d.shape[0]
+    sel = y_all[torch.arange(T, device=x2d.device)[:, None], topi]
+    return (w[..., None] * sel).sum(dim=1)
+
+
+def moe_sorted_ep(moe: MoE, x2d, cfg: ArchConfig):
+    """(T, d) -> (T, d): sort by expert, capacity buffer, grouped
+    products, combine."""
+    T, d = x2d.shape
+    E = cfg.n_experts
+    topi, w = route(moe, x2d, cfg)
+    plan = dispatch(topi, E, capacity(T, cfg))
+    cap = plan.cap
+    # pack to (E, cap + 1, d); row `cap` takes the dropped slots
+    buf = torch.zeros((E, cap + 1, d), dtype=x2d.dtype, device=x2d.device)
+    buf[plan.sorted_e, plan.safe_pos] = x2d[plan.tok_of]
+    yb = _experts(moe, buf, ACTS[cfg.act])
+    y_slots = yb[plan.sorted_e, plan.safe_pos]
+    y_slots = torch.where(plan.keep[:, None], y_slots,
+                          torch.zeros((), dtype=yb.dtype, device=yb.device))
+    return combine(w, y_slots, plan, T)
+
+
+def moe_apply(moe: MoE, x, cfg: ArchConfig):
+    """(B, S, d) bf16 -> (B, S, d) through `cfg.moe_impl`: "dense", else
+    "sorted_ep" ("shard_ep" at ep = 1 included)."""
+    fn = {"dense": moe_dense}.get(cfg.moe_impl, moe_sorted_ep)
+    B, S, d = x.shape
+    return fn(moe, x.reshape(B * S, d), cfg).reshape(B, S, d)

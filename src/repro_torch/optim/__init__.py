@@ -90,8 +90,10 @@ def _scalar(x, step):
     return 1 - torch.tensor(x, dtype=F32) ** torch.tensor(step, dtype=F32)
 
 
-def _stacked(path: str) -> bool:
-    return path.startswith("groups/")
+def stacked_leaf(path: str) -> bool:
+    """Whether a leaf path of the JAX pytree is stacked over layers (the
+    groups' and the encoder's leaves)."""
+    return path.startswith(("groups/", "encoder/"))
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +145,7 @@ def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
     sched = lr if callable(lr) else constant_lr(lr)
 
     def shape_of(path, ts):
-        return ((len(ts),) if _stacked(path) else ()) + tuple(ts[0].shape)
+        return ((len(ts),) if stacked_leaf(path) else ()) + tuple(ts[0].shape)
 
     def init(params):
         f = {}
@@ -162,7 +164,7 @@ def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
         return state
 
     def stack(path, ts):
-        return torch.stack(list(ts)) if _stacked(path) else ts[0]
+        return torch.stack(list(ts)) if stacked_leaf(path) else ts[0]
 
     @torch.no_grad()
     def update(grads, state, params):
@@ -212,7 +214,7 @@ def adafactor(lr: Callable | float, *, decay: float = 0.8, eps: float = 1e-30,
 
 
 def _split(path, x):
-    return list(x) if _stacked(path) else [x]
+    return list(x) if stacked_leaf(path) else [x]
 
 
 def make_optimizer(name: str, lr, **kw) -> Transform:

@@ -35,6 +35,7 @@ from repro_torch.memory import campaign as tcamp
 from repro_torch.memory import (PlusMinusOne, asymmetric_adjacent,
                                 paper_schemes, run_campaign,
                                 select_acceptance_row, uniform_flip)
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 LEVELS = torch.as_tensor(np.random.default_rng(0).integers(0, 3, (32, 80)),
                          dtype=torch.int32)

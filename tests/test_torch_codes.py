@@ -9,6 +9,7 @@ from repro.core import gf as jgf
 from repro_torch.convert import CODE_FIELDS, code_from_arrays
 from repro_torch.core import codes as tcodes
 from repro_torch.core import gf as tgf
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 SMALL = ["wl32_r08", "wl40_r08", "wl64_r08", "wl80_r08", "wl128_r08",
          "wl160_r08", "wl160_r08_gf5", "wl160_r08_gf7", "wl256_r08",

@@ -13,7 +13,11 @@ every field and dc, ragged row blocks, both strides and bitwise
 repeatable; GF(257) operands refused by the int8 kernels and flagged
 exactly on the exact route; the runtime sanitizer on CUDA tensors,
 `span(sync=...)` waiting for the card, and the RAS estimator and the tiny
-engine's telemetry fed from the card as from the CPU. Marked
+engine's telemetry fed from the card as from the CPU; `attend_protected`
+at head dim 128, an MoE layer's routing, dispatch and combine (bitwise
+repeatable) and the mamba scan on the card against the CPU (and bitwise
+the same with TF32 allowed).
+Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -1121,3 +1125,122 @@ def test_engine_telemetry_on_card_matches_cpu(dev):
         spans = [(e["name"], e["args"]) for e in tr.events()]
         runs.append((out, est.snapshot(), snap, spans))
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------------------
+# the MoE, mamba and encoder-decoder stacks' paths on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("heads", [(16, 16), (32, 8)])
+def test_attend_protected_head_dim_128_matches_plain(dev, heads):
+    """The decode reads of olmoe-1b-7b (16/16 heads) and jamba (32/8) at
+    head dim 128 over wl160_r08 pages of 16 tokens: a few bf16 ulps from
+    the plain version, bitwise repeatable."""
+    from repro_torch.kernels import paged_attention as pa
+    Hq, Hkv = heads
+    args, kw = _attend_operands(dev, code_name="wl160_r08", seed=5, B=4,
+                                Sq=1, Hq=Hq, Hkv=Hkv, D=128, T=16, NP=32,
+                                S=1)
+    got = pa.attend_protected(*args, **kw)
+    again = pa.attend_protected(*args, **kw)
+    want = pa.attend_protected_plain(*args, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **ULP)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def test_moe_routing_and_combine_on_card_match_cpu(dev, rng):
+    """An MoE layer (64 experts, top 8, a capacity that drops) on the card
+    and on the CPU from the same weights: the routing and dispatch of the
+    same router logits exactly, the layer's output within 4 bf16 ulps of
+    the CPU's largest and bitwise repeatable (the combine adds each
+    token's slots in a fixed order, without atomics)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.nn import moe
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(
+        n_experts=64, d_model=128, d_ff=256), top_k=8, capacity_factor=0.5)
+    layer = moe.MoE(cfg, 256, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    card = moe.MoE(cfg, 256, device=dev)
+    card.load_state_dict(layer.state_dict())
+    x = torch.from_numpy(rng.normal(size=(96, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        logits = moe.router_logits(card, x.to(dev))
+        T = x.shape[0]
+        got = moe.topk_route(logits, cfg.top_k)
+        want = moe.topk_route(logits.cpu(), cfg.top_k)
+        plan = moe.dispatch(got[0], 64, moe.capacity(T, cfg))
+        plan_cpu = moe.dispatch(want[0], 64, moe.capacity(T, cfg))
+        assert not bool(plan_cpu.keep.all())
+        for a, b in [*zip(got, want), *zip(plan[:5], plan_cpu[:5])]:
+            assert torch.equal(a.cpu(), b)
+        y = moe.moe_sorted_ep(card, x.to(dev), cfg)
+        y2 = moe.moe_sorted_ep(card, x.to(dev), cfg)
+        y_cpu = moe.moe_sorted_ep(layer, x, cfg)
+    assert torch.equal(y.view(torch.int16), y2.view(torch.int16))
+    _close_in_ulps(y, y_cpu)
+
+
+def _close_in_ulps(got, want, ulps: int = 4):
+    """got (card) within rtol 2^-6 and `ulps` bf16 ulps of the largest
+    |want| (CPU) of want."""
+    want = want.float()
+    atol = ulps * torch.finfo(torch.bfloat16).eps * float(want.abs().max())
+    torch.testing.assert_close(got.float().cpu(), want, rtol=2 ** -6,
+                               atol=atol)
+
+
+def test_mamba_scan_on_card_matches_cpu(dev, rng):
+    """The chunked scan (a ragged last chunk) and a mamba block's full pass
+    and decode step on the card against the CPU, with TF32 off for float32
+    matmuls; then the full pass again with TF32 allowed, bitwise the
+    same."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import mamba as m
+    assert not torch.backends.cuda.matmul.allow_tf32
+    Bb, L, di, ds = 2, 45, 64, 16
+    ins = [rng.normal(size=(Bb, L, di)),
+           0.05 + 0.1 * rng.random((Bb, L, di)),
+           -0.5 - rng.random((di, ds)), rng.normal(size=(Bb, L, ds)),
+           rng.normal(size=(Bb, L, ds)), np.ones(di),
+           rng.normal(size=(Bb, di, ds))]
+    ins = [torch.from_numpy(a.astype(np.float32)) for a in ins]
+    y, h = m.ssm_chunked(*[t.to(dev) for t in ins], 16)
+    y_cpu, h_cpu = m.ssm_chunked(*ins, 16)
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h.cpu(), h_cpu, rtol=1e-5, atol=1e-5)
+
+    cfg = get_config("falcon_mamba_7b").reduced(d_model=128)
+    block = m.Mamba(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu")
+    with torch.no_grad():               # outputs of about 0.02, not 1e-3
+        for w in (block.in_proj, block.x_proj, block.dt_proj_w):
+            w.mul_(8)
+    card = m.Mamba(cfg, device=dev)
+    card.load_state_dict(block.state_dict())
+    x = torch.from_numpy(rng.normal(size=(2, 33, cfg.d_model)).astype(
+        np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        out, st_out = m.mamba_apply(card, x[:, :32].to(dev), cfg)
+        out_cpu, st_cpu = m.mamba_apply(block, x[:, :32], cfg)
+        step, st = m.mamba_apply(card, x[:, 32:].to(dev), cfg, st_out,
+                                 decode=True)
+        step_cpu, st_cpu = m.mamba_apply(block, x[:, 32:], cfg, st_cpu,
+                                         decode=True)
+    for a, b in ((out, out_cpu), (step, step_cpu)):
+        _close_in_ulps(a, b)
+    torch.testing.assert_close(st.ssm.cpu(), st_cpu.ssm, rtol=1e-2,
+                               atol=1e-3 * float(st_cpu.ssm.abs().max()))
+    # the dt projection runs in float64: the caller's TF32 flag changes
+    # no bit of the block's output or state
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            out_tf32, st_tf32 = m.mamba_apply(card, x[:, :32].to(dev), cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(out_tf32, out)
+    assert torch.equal(st_tf32.ssm, st_out.ssm)
+    assert torch.equal(st_tf32.conv, st_out.conv)

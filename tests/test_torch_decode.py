@@ -16,6 +16,7 @@ from repro.core import np_encode_words
 from repro_torch.core import decode_integers as tdecode
 from repro_torch.core import decode_stream as tstream
 from repro_torch.core import get_code as tget
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _received(code, rng, B, rate):

@@ -25,6 +25,7 @@ this data); the port's mirrors of the JAX cases keep the weights times 3.
 
 The JAX engine's eight cases are mirrored on the port; injection draws
 from torch generators there, so injected runs are checked by behaviour
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 (tokens as the clean run's, corrections attributed, nothing left).
 By design the port passes the kernel's page count as it is, where the
 JAX engine pads it to a power of two (`np_bucket`) with exact no-op pages

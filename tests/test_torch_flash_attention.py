@@ -28,6 +28,7 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels.ops import flash_attention as jflash
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import flash_attention as fa
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 CASES = [
     # B, Sq, Skv, Hq, Hkv, D, causal, window, softcap

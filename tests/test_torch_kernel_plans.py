@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.core import get_code
 from repro_torch.kernels import build, gf_matmul, paged_attention as pa
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("C", [1, 6, 8, 32, 33, 64, 100, 205, 256, 257, 343])

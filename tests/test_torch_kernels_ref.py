@@ -18,6 +18,7 @@ from repro_torch.core import encode as tencode
 from repro_torch.core import llv as tllv
 from repro_torch.core.codes import get_code as tget
 from repro_torch.kernels import LAUNCHES, build, fbp, gf_matmul, pim_mac
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 T = torch.as_tensor
 

@@ -2,6 +2,7 @@
 against the JAX package's on identical cells: both arrays hold the same
 code (the reference's arrays carried across with `code_from_arrays`) and
 import the same numpy-corrupted words. Read-back bytes, `ControllerStats`,
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 repaired storage and sweep/drain reports must match for all three
 policies. The port's channel models are checked on their error rates."""
 import jax.numpy as jnp

@@ -62,6 +62,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import ras as obs_ras
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import ServingEngine
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 TINY = dict(n_groups=2, d_model=32, n_heads=2, d_ff=64, vocab=128)
 ENGINE_CODE = "wl160_r08"

@@ -20,6 +20,7 @@ from repro.memory import paged as jpaged
 from repro_torch.convert import CODE_FIELDS, code_from_arrays
 from repro_torch.core import decode_pipelined
 from repro_torch.memory import paged, uniform_flip
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 STAT_SKIP = ("scrub_seconds", "scrub_bandwidth_cells_per_s")
 

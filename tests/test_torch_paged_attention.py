@@ -35,6 +35,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.paged_attention import (attend_protected,
                                                  attend_protected_plain,
                                                  dequant_gf_page)
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 ULP = dict(rtol=2 ** -7, atol=2 ** -10)
 

@@ -40,6 +40,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.launch import serve
 from repro_torch.models import (decode_step, encode_params_for_pim, forward,
                                 init_caches, init_params, loss_fn, prefill)
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 REDUCED = dict(n_groups=2, d_model=128, n_heads=4, d_ff=256)
 

@@ -38,6 +38,7 @@ from repro_torch.memory import (MemoryController, PooledStore, PoolExhausted,
                                 uniform_flip)
 from repro_torch.memory.paged import PagedProtectedStore
 from repro_torch.models import ProtectedKVConfig, ProtectedKVLayer
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 CODE = "wl160_r08"
 ULP = dict(rtol=2 ** -7, atol=2 ** -10)

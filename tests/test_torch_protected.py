@@ -15,6 +15,7 @@ from repro.core import protected as jprot
 from repro_torch.core import get_code as tget
 from repro_torch.core import pim as tpim
 from repro_torch.core import protected as tprot
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 
 def _case(name, adc, rng, n_in=64, blocks=3, B=8):

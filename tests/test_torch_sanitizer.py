@@ -34,6 +34,7 @@ from repro_torch.core import get_code
 from repro_torch.core.decode import decode_integers
 from repro_torch.kernels.gf_matmul import gf_matmul, scan_syndromes
 from repro_torch.models import ProtectedKVConfig, ProtectedKVLayer
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 CHECKIFY_SUFFIX = " (`check` failed)"
 

@@ -35,6 +35,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.models import (ProtectedKVCaches, ProtectedKVConfig,
                                 ProtectedKVLayer, decode_step, init_caches,
                                 init_params, prefill, protected_overhead)
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 ULP = dict(rtol=2 ** -7, atol=2 ** -10)
 LOGITS_ATOL = 2 * 2 ** -7
@@ -322,11 +323,11 @@ def test_init_params_distributions_and_overhead():
 
 
 def test_unported_model_parts_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        init_params(get_config("olmoe_1b_7b").reduced(), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        init_params(get_config("falcon_mamba_7b").reduced(), 0,
-                    device="cpu")
+    """What is still not ported raises: the PIM backward (Queue 1 item
+    10) and the standin attention (by design). MoE and mamba models,
+    once raising here, build (tests/test_torch_archs.py)."""
+    for name in ("olmoe_1b_7b", "falcon_mamba_7b"):
+        assert init_params(get_config(name).reduced(), 0, device="cpu")
     cfg = get_config("paper_pim").reduced(**REDUCED)
     params = init_params(cfg, 0, device="cpu")
     toks = torch.zeros((1, 3), dtype=torch.int64)
@@ -336,7 +337,7 @@ def test_unported_model_parts_raise():
         loss_fn(params, cfg, {"tokens": toks, "labels": toks},
                 pim_ctx=PIMContext(cfg.pim))
     standin = dataclasses.replace(cfg, attn_impl="standin")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="not ported by design"):
         prefill(params, standin, toks)
 
 

@@ -54,6 +54,7 @@ from repro_torch.distributed.fault import RestartManager, StragglerWatchdog
 from repro_torch.launch import train
 from repro_torch.launch.cells import optimizer_for
 from repro_torch.models import forward, init_params, loss_fn
+from _torch_threads import torch_threads_per_worker  # noqa: F401
 
 REDUCED = dict(n_groups=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128)
 LOGITS_ATOL = 2 ** -6
@@ -118,8 +119,9 @@ def test_forward_loss_and_grads_match_jax(rng, name, impl):
 
 def test_flash_equals_naive_and_remat_changes_nothing(rng):
     """Flash against naive logits within 0.05 (the JAX package's own
-    model-level bound); remat on and off give the same loss and
-    gradients exactly (recomputation repeats the same operations)."""
+    model-level bound); remat on ("full" and "dots") and off give the
+    same loss and gradients exactly (recomputation repeats the same
+    operations)."""
     _, cfg = _configs("gemma2_27b")
     model = init_params(cfg, 0, device="cpu")
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 64)))
@@ -136,8 +138,11 @@ def test_flash_equals_naive_and_remat_changes_nothing(rng):
         loss_fn(model, c, batch).backward()
         grads.append([p.grad.clone() for p in model.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*grads, strict=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        loss_fn(model, dataclasses.replace(cfg, remat_policy="dots"), batch)
+    model.zero_grad()
+    c = dataclasses.replace(cfg, attn_impl="flash", remat_policy="dots")
+    loss_fn(model, c, batch).backward()
+    assert all(torch.equal(a, p.grad)
+               for a, p in zip(grads[0], model.parameters(), strict=True))
 
 
 def _grads_and_state(rng, jparams, kind):
