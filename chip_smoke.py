@@ -163,6 +163,19 @@ Phases (any failure exits non-zero):
      attention, one-layer copies' logits within 0.04 of an fp32-softmax
      prefill, the full model's distances logged), then 16 greedy decode
      steps on dense caches holding the cross K/V;
+ 17. the PIM-protected training pass, after phase 15 frees its model:
+     paper-pim-2b at full width and depth again (a fresh seeded model,
+     not precoded, attn_impl="flash"), phase 8's prompts as tokens and
+     their next tokens as labels, `loss_fn(..., pim_ctx=...).backward()`
+     with mlp_down and attn_o on wl320_r08: (a) fault-free under remat
+     "full"; (b) PIM output errors at 2e-5, which must flag words and,
+     where every flagged word is corrected, give (a)'s loss and every
+     gradient bit for bit (else a loss within 1e-3 relative, the words
+     left logged); (c) (a) with remat off, which must give (a)'s loss,
+     gradients and `stats()` exactly, each protected call counted once;
+     (d) no `pim_ctx`, the dense pass. Every gradient finite; ms a pass
+     (median of 3) of (a), (c) and (d), the kernels' launches a pass,
+     peak memory and one profiled pass of (a) (busy share);
  13. the paper's BER campaign, `run_campaign(paper_schemes(wl1024_r08))`
      over nine raw BERs at the JAX bench's settings (NB-LDPC decoding on
      the card; first two draws' decode and residuals held against the
@@ -171,8 +184,14 @@ Phases (any failure exits non-zero):
      modulo checksum 1x at 1e-3; wl1024_r088's conditional residuals for
      m = 1..12 are logged.
 
-The phases run in the order 1-9, 12, 14, 15, 16, 13, 10, 11 (phases 12,
-14 and 15 need phase 8's model, which is freed before phase 16). Phase 2
+ 18. the port's four examples (`scripts/quickstart_torch.py`,
+     `memory_mode_torch.py`, `serve_protected_torch.py` and
+     `train_small_torch.py --steps 20`), each in its own process on the
+     card, started together: each must exit 0; their seconds are logged.
+
+The phases run in the order 1-9, 12, 14, 15, 17, 16, 13, 10, 11, 18
+(phases 12, 14 and 15 need phase 8's model, which is freed before phase
+17). Phase 2
 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
 versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
@@ -186,7 +205,8 @@ Kernel launch counts are reset just before each main path, memory and
 PIM mode (phases 3-4), serving (phase 8), flash prefill (phase 9),
 PIM-protected serving (phase 12, from the precode to the third run),
 the engine (phase 14, its five runs less its two checks' launches),
-telemetry (phase 15, run (f) and the memory-mode read), the substrate
+telemetry (phase 15, run (f) and the memory-mode read), PIM training
+(phase 17, its four runs), the substrate
 (phase 16, each of (b)-(d) and (b)'s flash prefill),
 the campaign (phase 13) and training (phases 10-11), and read just after
 it: every kernel must have run on its path. Each entry-point call of phases
@@ -291,6 +311,15 @@ HYBRID_PAGE_WORDS = 3072       # wl160_r08 words of a (4, 16, 8, 128) page
 ENCDEC_ARCH = "whisper_small"  # (d), full width and depth
 WHISPER_PROMPT = 432           # + WHISPER_STEPS = 448, whisper's text context
 WHISPER_STEPS = 16
+# phase 17: the PIM-protected training pass of the serving model
+PIM_TRAIN_REPS = 3             # timed passes of runs (a), (c) and (d)
+PIM_TRAIN_LOSS_RTOL = 1e-3     # (b) against (a) where (b) leaves words
+PIM_TRAIN_KERNELS = ("pim_mac", "gf_matmul", "scan_syndromes", "fbp_cn",
+                     "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# phase 18: the port's examples (scripts/*_torch.py), all at once
+EXAMPLES = (("quickstart", ()), ("memory_mode", ()),
+            ("serve_protected", ()), ("train_small", ("--steps", "20")))
+EXAMPLES_TIMEOUT = 300         # seconds an example may take
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -3118,10 +3147,7 @@ def phase_substrate(device) -> tuple[dict, dict]:
     import torch
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     report = {"card": smi}
 
     def free():
@@ -3340,6 +3366,204 @@ def phase_full_training(device) -> dict:
     return report
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase_pim_training(device, prompts) -> tuple[dict, dict]:
+    """The training pass of paper-pim-2b at full width and depth (a fresh
+    `init_params` from SEED, not precoded: every protected call ternarizes
+    and encodes its weight) under attn_impl="flash", on phase 8's prompts
+    as tokens with their next tokens as labels: `loss_fn(...,
+    pim_ctx=...).backward()` through the mlp_down and attn_o projections
+    of `cfg.pim` (wl320_r08). Runs: (a) `PIMContext(cfg.pim)`, remat
+    "full"; (b) its `with_faults(SEED, PIM_FAULT_RATE)`, one pass; (c) (a)
+    with remat off; (d) no `pim_ctx`, the dense pass. (a), (c) and (d)
+    run PIM_TRAIN_REPS times (median ms a pass). Gates: (b) flags words,
+    and gives (a)'s loss and every gradient bit for bit where it leaves
+    none (else its loss within PIM_TRAIN_LOSS_RTOL of (a)'s, the words
+    left logged); (c) gives (a)'s loss, gradients and `stats()` exactly,
+    each protected call counted once; every gradient finite. Returns
+    (report, the launches of the runs); one pass of (a) is profiled after
+    the count is read."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMContext
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params, loss_fn
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), attn_impl="flash")
+    assert cfg.remat and cfg.remat_policy == "full"
+    n_layers = cfg.n_groups * len(cfg.group_spec)
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(SEED))
+    tokens = prompts
+    labels = torch.full_like(tokens, -1)
+    labels[:, :-1] = tokens[:, 1:]
+    batch = {"tokens": tokens, "labels": labels}
+    report = {"arch": cfg.name, "card": card_name(), "layers": n_layers,
+              "parameters": sum(p.numel() for p in model.parameters()),
+              "batch": tuple(tokens.shape), "code": cfg.pim.code_name,
+              "fault_rate_b": PIM_FAULT_RATE}
+
+    def one_pass(c, ctx):
+        """(loss, ms, launches) of one loss_fn + backward."""
+        model.zero_grad(set_to_none=True)
+        before = dict(build.LAUNCHES)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss = loss_fn(model, c, batch, pim_ctx=ctx)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        return loss.detach(), ms, {
+            k: n - before.get(k, 0) for k, n in build.LAUNCHES.items()
+            if n != before.get(k, 0)}
+
+    def grads():
+        return [p.grad.clone() for p in model.parameters()]
+
+    def finite(name):
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not torch.isfinite(p.grad).all()]
+        if bad:
+            raise AssertionError(f"PIM training ({name}): no or non-finite "
+                                 f"gradient in {bad[:4]}")
+
+    def run(name, c, make_ctx, reps):
+        ms, ctx = [], None
+        for _ in range(reps):
+            ctx = make_ctx()
+            loss, t, per_pass = one_pass(c, ctx)
+            ms.append(t)
+        finite(name)
+        rec = {"loss": float(loss), "ms_per_pass": ms,
+               "ms_median": statistics.median(ms),
+               "launches_per_pass": per_pass}
+        if ctx is not None:
+            rec["stats"] = ctx.stats()
+        report[name] = rec
+        log(f"  ({name}) {json.dumps(rec)}")
+        return loss, ctx
+
+    base = PIMContext(cfg.pim)
+    build.reset_launches()
+    loss_a, ctx_a = run("a_pim_remat", cfg, lambda: PIMContext(cfg.pim),
+                        PIM_TRAIN_REPS)
+    grads_a = grads()
+    loss_b, ctx_b = run("b_pim_faults", cfg,
+                        lambda: base.with_faults(SEED, PIM_FAULT_RATE), 1)
+    st_b = ctx_b.stats()
+    if st_b["detected_words"] <= 0:
+        raise AssertionError(f"PIM training (b): no word flagged: {st_b}")
+    if st_b["uncorrected_words"] == 0:
+        same = torch.equal(loss_b, loss_a) and all(
+            torch.equal(p.grad, g)
+            for p, g in zip(model.parameters(), grads_a, strict=True))
+        if not same:
+            raise AssertionError("PIM training (b): every flagged word "
+                                 "corrected, but the loss or a gradient "
+                                 "differs from (a)'s")
+        report["b_pim_faults"]["bit_identical_to_a"] = True
+    else:
+        log(f"  (b) left {st_b['uncorrected_words']} words uncorrected")
+        if not abs(float(loss_b) - float(loss_a)) <= \
+                PIM_TRAIN_LOSS_RTOL * abs(float(loss_a)):
+            raise AssertionError(f"PIM training (b): loss {float(loss_b)} "
+                                 f"against (a)'s {float(loss_a)}")
+    loss_c, ctx_c = run("c_pim_no_remat", dataclasses.replace(
+        cfg, remat=False), lambda: PIMContext(cfg.pim), PIM_TRAIN_REPS)
+    if not (torch.equal(loss_c, loss_a) and all(
+            torch.equal(p.grad, g)
+            for p, g in zip(model.parameters(), grads_a, strict=True))):
+        raise AssertionError("PIM training (c): remat off differs from (a)")
+    if ctx_c.stats() != ctx_a.stats() or \
+            ctx_a.stats()["calls"] != 2 * n_layers:
+        raise AssertionError(f"PIM training: stats (a) {ctx_a.stats()}, "
+                             f"(c) {ctx_c.stats()}, expected "
+                             f"{2 * n_layers} calls")
+    del grads_a
+    run("d_dense", cfg, lambda: None, PIM_TRAIN_REPS)
+    launches = dict(build.LAUNCHES)
+
+    prof, by_kernel = busy_report(profiled_device(
+        lambda: one_pass(cfg, PIMContext(cfg.pim))), "pass_wall_ms_profiled",
+        10)
+    if prof["device_busy_ms"] is not None:
+        prof["device_busy_share"] = (prof["device_busy_ms"]
+                                     / prof["pass_wall_ms_profiled"])
+    report["profile_pass_a"] = prof
+    log(f"  profiled pass of (a): {json.dumps(prof)}")
+    model.zero_grad(set_to_none=True)
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["seconds"] = time.perf_counter() - t0
+    log(f"  PIM training ({report['card']}): ms a pass (a) "
+        f"{report['a_pim_remat']['ms_median']:.1f}, (c) "
+        f"{report['c_pim_no_remat']['ms_median']:.1f}, (d) dense "
+        f"{report['d_dense']['ms_median']:.1f}; busy share "
+        f"{prof.get('device_busy_share', 'not measured')}; peak "
+        f"{report['peak_memory_gb']:.1f} GB; {report['seconds']:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def phase_examples() -> dict:
+    """The port's four examples (`scripts/*_torch.py`), each in its own
+    process on the card, all started together: each must exit 0 (the
+    quickstart and the memory-mode example also end with their "OK:"
+    line). Returns each one's seconds and last line."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    report, procs = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            for name, args in EXAMPLES:
+                extra = ("--ckpt-dir", d) if name == "train_small" else ()
+                out = open(os.path.join(d, f"{name}.log"), "w")
+                procs[name] = (out, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, str(ROOT / "scripts" /
+                                         f"{name}_torch.py"), *args, *extra],
+                    cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+            running = dict(procs)
+            while running:
+                for name, (out, start, proc) in list(running.items()):
+                    if proc.poll() is not None:
+                        report[name] = {"rc": proc.returncode,
+                                        "seconds": time.perf_counter()
+                                        - start}
+                        out.close()
+                        del running[name]
+                    elif time.perf_counter() - start > EXAMPLES_TIMEOUT:
+                        raise AssertionError(f"example {name} ran past "
+                                             f"{EXAMPLES_TIMEOUT} s")
+                time.sleep(0.1)
+        finally:
+            for out, _start, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+        for name, _args in EXAMPLES:
+            with open(os.path.join(d, f"{name}.log")) as f:
+                text = f.read().strip().splitlines()
+            report[name]["last_line"] = text[-1] if text else ""
+            if report[name]["rc"] != 0:
+                raise AssertionError(f"example {name} exited "
+                                     f"{report[name]['rc']}:\n"
+                                     + "\n".join(text[-20:]))
+    for name in ("quickstart", "memory_mode"):
+        if not report[name]["last_line"].startswith("OK:"):
+            raise AssertionError(f"example {name}: {report[name]}")
+    return report
+
+
 def check_path(name: str, launches: dict, kernels) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
@@ -3433,9 +3657,16 @@ def main() -> int:
     check_path("telemetry", telemetry_launches,
                ("attend_protected", "gf_matmul", "scan_syndromes",
                 "fbp_cn"))
+    prompts = serve_model[2]
     del serve_model                    # free the serving model's 6.9 GB
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("phase 17: PIM-protected training pass, paper-pim-2b")
+    pim_training, pim_train_launches = phase_pim_training(device, prompts)
+    del prompts
+    log(f"  launches on the PIM training path: {pim_train_launches}")
+    check_path("PIM training", pim_train_launches, PIM_TRAIN_KERNELS)
 
     log("phase 16: the rest of the LM substrate (MoE, mamba, "
         "encoder-decoder, cross)")
@@ -3460,10 +3691,13 @@ def main() -> int:
     check_path("training", train_launches,
                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gf_matmul",
                 "scan_syndromes", "fbp_cn"))
+    log("phase 18: the port's examples")
+    examples = phase_examples()
+    log(f"  examples: {json.dumps(examples)}")
     launches = {k: sum(path.get(k, 0) for path in (
         codec_launches, serve_launches, prefill_launches, pim_launches,
-        engine_launches, telemetry_launches, substrate_launches,
-        campaign_launches, train_launches))
+        engine_launches, telemetry_launches, pim_train_launches,
+        substrate_launches, campaign_launches, train_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -3475,14 +3709,12 @@ def main() -> int:
                 **{k: rows[name][0][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}} for name in KERNELS]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     log(json.dumps({"memory": memory, "pim": pim, "profile": profile,
                     "serving": serving, "prefill": prefill_report,
                     "pim_serving": pim_serving, "engine": engine,
-                    "telemetry": telemetry, "substrate": substrate,
+                    "telemetry": telemetry, "pim_training": pim_training,
+                    "substrate": substrate, "examples": examples,
                     "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
@@ -3493,6 +3725,7 @@ def main() -> int:
                     "launches_pim_serving": pim_launches,
                     "launches_engine": engine_launches,
                     "launches_telemetry": telemetry_launches,
+                    "launches_pim_training": pim_train_launches,
                     "launches_substrate": substrate_launches,
                     "launches_campaign": campaign_launches,
                     "launches_training": train_launches,

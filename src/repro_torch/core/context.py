@@ -17,6 +17,7 @@ MAC is `pim_mac`, and the check and the decoder run `scan_syndromes` and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -41,9 +42,17 @@ class PIMContext:
     tensors), which is what the flag selects in the JAX package.
 
     `stats()` counts the words this context checked, flagged and left
-    uncorrected over its `matmul` calls. A call only keeps its flags; they
-    are summed on the device every FOLD calls and by `stats()`, so
-    counting adds no launch to most calls.
+    uncorrected over its `matmul` calls (those made `uncounted()` aside).
+    A call only keeps its flags; they are summed on the device every FOLD
+    calls and by `stats()`, so counting adds no launch to most calls.
+
+    `matmul` is differentiable as `jax.grad` differentiates the JAX
+    package's: the ternary and integer steps are rounded and cast to
+    integers, so the gradient reaches `x` only through the activation
+    scale `s` (one-hot at max|x|, split evenly over ties) and `W` only
+    through the ternary scale `alpha` (sign(W) on the kept entries over
+    their count). The encode, MAC, check and decode run on integers that
+    carry no gradient, and need no backward kernel.
     """
 
     FOLD = 64                   # calls whose flags are summed together
@@ -166,12 +175,25 @@ class PIMContext:
         y = res.y[:, :n_out].to(torch.float32) * (s * alpha)
         return y.reshape(orig_shape[:-1] + (n_out,)).to(orig_dtype)
 
+    @contextlib.contextmanager
+    def uncounted(self):
+        """`matmul` calls made inside are left out of `stats()`: a remat
+        backward recomputes calls that its forward pass counted."""
+        counting, self._counting = self._counting, False
+        try:
+            yield self
+        finally:
+            self._counting = counting
+
     def _reset_counts(self) -> None:
+        self._counting = True
         self._calls = self._words = 0
         self._flagged = (0, 0)      # detected, uncorrected words folded
         self._pending = []          # (detected, uncorrected) of later calls
 
     def _count(self, res) -> None:
+        if not self._counting:
+            return
         self._calls += 1
         self._words += res.detected.numel()
         self._pending.append((res.detected.reshape(-1),

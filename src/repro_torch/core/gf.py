@@ -13,9 +13,10 @@ import numpy as np
 import torch
 
 __all__ = [
-    "is_prime", "gf_inv", "mul_table", "inv_table",
+    "is_prime", "gf_add", "gf_sub", "gf_mul", "gf_inv", "gf_neg",
+    "mul_table", "inv_table", "perm_table",
     "gf_matmul_np", "gf_rref", "gf_mat_inv", "gf_rank", "centered_lift",
-    "symbol_dtype",
+    "to_field", "symbol_dtype",
 ]
 
 
@@ -23,6 +24,27 @@ def is_prime(p: int) -> bool:
     if p < 2:
         return False
     return all(p % d for d in range(2, int(p ** 0.5) + 1))
+
+
+# ---------------------------------------------------------------------------
+# scalar / array ops (ints, numpy arrays and torch tensors alike: `%` takes
+# the divisor's sign in all three)
+# ---------------------------------------------------------------------------
+
+def gf_add(a, b, p: int):
+    return (a + b) % p
+
+
+def gf_sub(a, b, p: int):
+    return (a - b) % p
+
+
+def gf_mul(a, b, p: int):
+    return (a * b) % p
+
+
+def gf_neg(a, p: int):
+    return (-a) % p
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,6 +71,17 @@ def mul_table(p: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def inv_table(p: int) -> np.ndarray:
     return np.asarray(_inv_list(p), dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def perm_table(p: int) -> np.ndarray:
+    """perm_table(p)[h, k] = (h * k) % p.
+
+    Used to permute LLV vectors along the GF axis when messages travel an edge
+    with coefficient h (paper Eq. 6): msg_out[(h*k) % p] = msg_in[k], i.e.
+    msg_out[k] = msg_in[(h^{-1} * k) % p].
+    """
+    return mul_table(p).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +137,11 @@ def gf_mat_inv(mat: np.ndarray, p: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # integer <-> field helpers (the "arithmetic" part of the arithmetic code)
 # ---------------------------------------------------------------------------
+
+def to_field(x, p: int):
+    """Map integers (possibly negative, e.g. differential weights) to GF(p)."""
+    return x % p
+
 
 def symbol_dtype(p: int) -> torch.dtype:
     """The narrowest signed integer dtype that holds every symbol of GF(p),

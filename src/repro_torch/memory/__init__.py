@@ -31,7 +31,8 @@ from .channel import (Channel, Compose, LevelTransition, PlusMinusOne,
                       asymmetric_adjacent, uniform_flip, validate_transition)
 from .controller import (ControllerStats, MemoryController, ScrubController,
                          WritebackController, make_controller)
-from .packing import desymbolize_u8, digits_per_byte, symbolize_u8
+from .packing import (desymbolize_bytes, desymbolize_u8, digits_per_byte,
+                      symbolize_bytes, symbolize_u8)
 from .paged import (PagedProtectedStore, QuantizedTensor, dequantize_tensor,
                     quantize_tensor, words_for_tensor)
 from .pool import PooledStore, PoolExhausted, ProtectedPagePool
@@ -44,7 +45,8 @@ __all__ = [
     "validate_transition",
     "ControllerStats", "MemoryController", "ScrubController",
     "WritebackController", "make_controller",
-    "desymbolize_u8", "digits_per_byte", "symbolize_u8",
+    "desymbolize_bytes", "desymbolize_u8", "digits_per_byte",
+    "symbolize_bytes", "symbolize_u8",
     "PagedProtectedStore", "QuantizedTensor", "dequantize_tensor",
     "quantize_tensor", "words_for_tensor",
     "PoolExhausted", "PooledStore", "ProtectedPagePool",

@@ -15,11 +15,14 @@ configs run a bidirectional encoder stack (`encoder`, `enc_norm`,
 PIM protection (the paper's technique) plugs in through `pim_ctx`, a
 `core.context.PIMContext`: every block's `mlp_down` and `attn_o`
 projections that its targets name run on the protected PIM path, in
-`forward` (inference), `prefill` and `decode_step` (the MoE experts and
-the encoder are not protected, as in the JAX package).
-`encode_params_for_pim` precodes those weights once, as the JAX package's
-deploy-time transform does. A backward through the protected projections
-is not ported (ROADMAP Queue 1 item 10).
+`forward` and `loss_fn` (the training pass too), `prefill` and
+`decode_step` (the MoE experts and the encoder are not protected, as in
+the JAX package). The backward through a protected projection is the
+JAX package's own gradient: it flows through the activation and ternary
+scales only (`PIMContext.matmul`). `encode_params_for_pim` precodes
+those weights once, as the JAX package's deploy-time transform does; a
+precoded projection never reads its float weight, whose gradient stays
+None (the JAX package gives zeros), and its `*_alpha` buffer gets none.
 
 Entry points: `init_params` / `forward` / `loss_fn` / `init_caches` /
 `prefill` / `decode_step`. `forward` and `loss_fn` are the training pass:
@@ -28,7 +31,10 @@ runs under `torch.utils.checkpoint`, the counterpart of the JAX package's
 `jax.checkpoint` over the group body: remat_policy "full" saves nothing,
 "dots" saves the outputs of the un-batched products (`aten.mm`, what
 `x @ W` lowers to) and recomputes the rest
-(`dots_with_no_batch_dims_saveable`).
+(`dots_with_no_batch_dims_saveable`). `pim_ctx` reaches every
+recomputed group; a recomputation draws a faulted context's faults
+again (each call seeds its own generator) and is left out of its
+`stats()`, which count each forward call once.
 `prefill(..., protected_kv=ProtectedKVConfig(...))` returns a
 `ProtectedKVCaches` manager whose global-attention K/V live in NB-LDPC
 protected paged stores (mamba states, cross K/V and sliding-window rings
@@ -240,6 +246,21 @@ def _remat(cfg: ArchConfig, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+def _counted_once(fn, pim_ctx):
+    """fn, whose calls after the first (a remat backward's
+    recomputations) run with `pim_ctx`, if any, uncounted."""
+    calls = 0
+
+    def once(*args):
+        nonlocal calls
+        calls += 1
+        if calls == 1 or pim_ctx is None:
+            return fn(*args)
+        with pim_ctx.uncounted():
+            return fn(*args)
+    return once
+
+
 def _run_group(params: LM, cfg: ArchConfig, g: int, x, positions, aux=None,
                pim_ctx=None):
     for i, spec in enumerate(cfg.group_spec):
@@ -274,13 +295,9 @@ def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
     K/V source for cross configs). Returns logits (B, S, V) float32. With
     `cfg.remat` and grad enabled, each group's (and encoder layer's)
     activations are recomputed in the backward pass by
-    `cfg.remat_policy`. With `pim_ctx` it is an inference pass: under
-    grad it raises."""
-    if pim_ctx is not None and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "a backward through the PIM-protected projections (pim_ctx) is "
-            "not ported: ROADMAP Queue 1 item 10; run forward with pim_ctx "
-            "under torch.no_grad()")
+    `cfg.remat_policy`. `pim_ctx` protects its target projections, in
+    the recomputation too; the gradient through them is the JAX
+    package's, through the scales."""
     remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=params.device)
@@ -289,7 +306,8 @@ def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
         aux = _run_encoder(params, cfg, aux, remat)
     for g in range(cfg.n_groups):
         if remat:
-            x = _remat(cfg, _run_group, params, cfg, g, x, positions, aux)
+            x = _remat(cfg, _counted_once(_run_group, pim_ctx), params,
+                       cfg, g, x, positions, aux, pim_ctx)
         else:
             x = _run_group(params, cfg, g, x, positions, aux, pim_ctx)
     return _head_logits(params, cfg, x)

@@ -839,6 +839,75 @@ def test_pim_context_on_card_matches_cpu(dev, mode, rng):
         assert {"scan_syndromes", "fbp_cn"} <= ran
 
 
+def test_pim_training_pass_on_card_matches_cpu(dev, monkeypatch):
+    """Reduced paper_pim (wl40_r08) computing in float32 (`CDT` of
+    `nn.layers` and `models.lm` monkeypatched): `loss_fn` with `pim_ctx`
+    and its backward under remat, on the card and on the CPU from the
+    same weights. Every gradient is within 1e-4 of its leaf's largest
+    value; each protected call's integer output on the card equals the
+    CPU run's, and the plain CPU run of the card's own integer operands;
+    the encode, MAC and scan kernels ran, twice a call (the forward pass
+    and the recomputation), while `stats()` counts each call once."""
+    import dataclasses
+    import repro_torch.models.lm as tlm
+    import repro_torch.nn.layers as tlayers
+    from repro_torch.configs import get_config
+    from repro_torch.core import PIMContext
+    from repro_torch.core import context as tcontext
+    from repro_torch.models import init_params, loss_fn
+    monkeypatch.setattr(tlayers, "CDT", torch.float32)
+    monkeypatch.setattr(tlm, "CDT", torch.float32)
+    cfg = get_config("paper_pim").reduced(n_groups=2, d_model=128,
+                                          n_heads=4, d_ff=256)
+    cfg = dataclasses.replace(cfg, pim=dataclasses.replace(
+        cfg.pim, code_name="wl40_r08"))
+    assert cfg.remat
+    real = tcontext.protected_pim_matmul
+    calls = []
+
+    def spy(x, W_enc, *args, **kw):
+        res = real(x, W_enc, *args, **kw)
+        calls.append((x, W_enc, args, kw, res.y))
+        return res
+    monkeypatch.setattr(tcontext, "protected_pim_matmul", spy)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16))
+    start = init_params(cfg, 0, device="cpu")
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        model = init_params(cfg, 0, device="cpu")
+        model.load_state_dict(start.state_dict())
+        model.to(d)
+        ctx = PIMContext(cfg.pim)
+        calls.clear()
+        n0 = dict(LAUNCHES)
+        batch = {"tokens": torch.as_tensor(toks, device=d)}
+        batch["labels"] = batch["tokens"]
+        loss = loss_fn(model, cfg, batch, pim_ctx=ctx)
+        loss.backward()
+        grads = {k: p.grad.float().cpu()
+                 for k, p in model.named_parameters()}
+        out[name] = (float(loss.detach()), grads, list(calls), ctx.stats(),
+                     {k: v - n0.get(k, 0) for k, v in LAUNCHES.items()})
+    (cl, cg, ccalls, cst, _), (gl, gg, gcalls, gst, ran) = \
+        out["cpu"], out["cuda"]
+    assert gl == pytest.approx(cl, rel=1e-5)
+    for k, want in cg.items():
+        scale = float(want.abs().max())
+        assert float((gg[k] - want).abs().max()) <= 1e-4 * scale, k
+    assert gst == cst and gst["calls"] == 4
+    assert len(gcalls) == len(ccalls) == 8       # forward + recomputation
+    for (x, W_enc, args, kw, y), (*_c, cy) in zip(gcalls, ccalls,
+                                                   strict=True):
+        assert torch.equal(y.cpu(), cy)
+        plain = real(x.cpu(), W_enc.cpu(), *args,
+                     **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                        for k, v in kw.items()}).y
+        assert torch.equal(y.cpu(), plain)
+    assert ran.get("pim_mac", 0) == 8, ran
+    assert ran.get("gf_matmul", 0) >= 8 and ran.get("scan_syndromes", 0) >= 8
+
+
 def test_nbldpc_residuals_on_card_match_cpu(dev):
     """The campaign's residuals of identical corrupted words: the card's
     decode (FBP and the scan kernels) equals the CPU's, float for float;

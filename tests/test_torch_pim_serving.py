@@ -336,7 +336,9 @@ def test_protected_prefill_and_decode_match_jax(model, rng):
 
 def test_forward_with_pim_ctx_is_inference_only(model, rng):
     """`forward` with `pim_ctx` equals the prefill's logits; under grad
-    (a training step) it raises, naming the roadmap item."""
+    (a training step, remat on) the loss equals the inference pass's and
+    its backward runs, counting each protected call once (the gradients
+    themselves: tests/test_torch_pim_training.py)."""
     _, _, cfg, params = model
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 6)))
     ctx = PIMContext(cfg.pim)
@@ -345,8 +347,15 @@ def test_forward_with_pim_ctx_is_inference_only(model, rng):
     want, _ = prefill(params, cfg, toks, pim_ctx=ctx)
     assert torch.equal(lg, want)
     batch = {"tokens": toks, "labels": toks}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        loss_fn(params, cfg, batch, pim_ctx=ctx)
+    with torch.no_grad():
+        inference = loss_fn(params, cfg, batch, pim_ctx=ctx)
+    train_ctx = PIMContext(cfg.pim)
+    loss = loss_fn(params, cfg, batch, pim_ctx=train_ctx)
+    assert cfg.remat and torch.equal(loss.detach(), inference)
+    loss.backward()
+    assert torch.isfinite(params.embed.grad).all()
+    params.zero_grad(set_to_none=True)
+    assert train_ctx.stats()["calls"] == 4      # 2 layers x 2 projections
 
 
 def test_protected_kv_decode_with_pim_ctx(model, rng):

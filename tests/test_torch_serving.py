@@ -323,9 +323,10 @@ def test_init_params_distributions_and_overhead():
 
 
 def test_unported_model_parts_raise():
-    """What is still not ported raises: the PIM backward (Queue 1 item
-    10) and the standin attention (by design). MoE and mamba models,
-    once raising here, build (tests/test_torch_archs.py)."""
+    """What is not ported raises: the standin attention (by design).
+    MoE and mamba models, and the backward through the PIM-protected
+    projections, once raising here, build and run
+    (tests/test_torch_archs.py, tests/test_torch_pim_training.py)."""
     for name in ("olmoe_1b_7b", "falcon_mamba_7b"):
         assert init_params(get_config(name).reduced(), 0, device="cpu")
     cfg = get_config("paper_pim").reduced(**REDUCED)
@@ -333,9 +334,10 @@ def test_unported_model_parts_raise():
     toks = torch.zeros((1, 3), dtype=torch.int64)
     from repro_torch.core import PIMContext
     from repro_torch.models import loss_fn
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        loss_fn(params, cfg, {"tokens": toks, "labels": toks},
-                pim_ctx=PIMContext(cfg.pim))
+    loss = loss_fn(params, cfg, {"tokens": toks, "labels": toks},
+                   pim_ctx=PIMContext(cfg.pim))
+    loss.backward()
+    assert torch.isfinite(loss) and params.embed.grad is not None
     standin = dataclasses.replace(cfg, attn_impl="standin")
     with pytest.raises(NotImplementedError, match="not ported by design"):
         prefill(params, standin, toks)
