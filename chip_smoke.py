@@ -34,8 +34,9 @@ Phases (any failure exits non-zero):
      profiled windows in a row recorded none), and all but the MAC their
      wrappers' host time a call;
   3. memory mode: a 64 MiB float32 tensor in a `ProtectedMemoryArray` on
-     wl1024_r08 (writeback policy): write, inject uniform flips, read back
-     exactly, inject again, scrub, re-scrub clean;
+     wl1024_r08 (writeback policy, unsharded on every host): write,
+     inject uniform flips, read back exactly, inject again, scrub,
+     re-scrub clean;
   4. PIM mode at the full width of the `paper-pim-2b` configuration
      (wl320_r08, n_iters 4, damping 0.3, row parallelism 64): the
      mlp_down (8192 -> 2048) and attn_o (2048 -> 2048) projections over 256
@@ -188,10 +189,29 @@ Phases (any failure exits non-zero):
      `memory_mode_torch.py`, `serve_protected_torch.py` and
      `train_small_torch.py --steps 20`), each in its own process on the
      card, started together: each must exit 0; their seconds are logged.
+ 19. the device mesh (`repro_torch.distributed.sharding`): every visible
+     card when there are two or more, else four shards on the one card
+     (a line names which, and the devices). (a) right after phase 15:
+     phase 3's 64 MiB writeback array (same tensor, same flips) read and
+     scrubbed with `use_sharded=True` over the mesh: the read-back, the
+     flagged and corrected counts, the scrub's and the clean re-scan's
+     equal to phase 3's unsharded run; one sharded scan adds one scan launch a shard
+     and one one-iteration sharded decode one FBP and one scan launch a
+     shard; (b) phase 14's run (c) with `ProtectedKVConfig(mesh=...)`
+     (the engine's pool holds every 384-word page as row shards): every
+     tenant's tokens and correction counts, the injected cells and the
+     scrub reports equal to run (c)'s; (c) right after phase 16:
+     olmoe-1b-7b (phase 16's seeded weights and prompts) served with
+     `moe_impl="shard_ep"` under a (data 1, model S) mesh, prefill and 32
+     greedy steps: each MoE layer's output at the prefill and at every
+     step within four bf16 ulps of its largest (2^-5 of max |ref|) of the
+     one-shard `sorted_ep` on the same input, with the same dropped
+     slots; the tokens against phase 16's logged, then a run without the
+     checks timed.
 
-The phases run in the order 1-9, 12, 14, 15, 17, 16, 13, 10, 11, 18
-(phases 12, 14 and 15 need phase 8's model, which is freed before phase
-17). Phase 2
+The phases run in the order 1-9, 12, 14, 15, 19 (a, b), 17, 16, 19 (c),
+13, 10, 11, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model, which
+is freed before phase 17). Phase 2
 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
 versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
@@ -208,8 +228,8 @@ the engine (phase 14, its five runs less its two checks' launches),
 telemetry (phase 15, run (f) and the memory-mode read), PIM training
 (phase 17, its four runs), the substrate
 (phase 16, each of (b)-(d) and (b)'s flash prefill),
-the campaign (phase 13) and training (phases 10-11), and read just after
-it: every kernel must have run on its path. Each entry-point call of phases
+the campaign (phase 13), training (phases 10-11) and the mesh (phase 19,
+(a)-(b) and (c) each), and read just after it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
 decode step. The last lines are the card's name and power limit, one JSON
@@ -320,6 +340,9 @@ PIM_TRAIN_KERNELS = ("pim_mac", "gf_matmul", "scan_syndromes", "fbp_cn",
 EXAMPLES = (("quickstart", ()), ("memory_mode", ()),
             ("serve_protected", ()), ("train_small", ("--steps", "20")))
 EXAMPLES_TIMEOUT = 300         # seconds an example may take
+MESH_SHARDS_ONE_CARD = 4       # phase 19's shards when one card is visible
+MOE_EP_SHARE = 2 ** -5         # phase 19 (c): four bf16 ulps of a layer's
+                               # largest output
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -962,8 +985,9 @@ def phase_memory(device, per_call: dict) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     t = torch.randn(MEMORY_MIB * 2 ** 18, generator=gen, device=device)
     expect = t.cpu().numpy()
+    # unsharded on every host: phase 19 (a) holds the sharded run to it
     mem = ProtectedMemoryArray("wl1024_r08", controller="writeback",
-                               device=device, key=SEED)
+                               device=device, key=SEED, use_sharded=False)
     times = {}
 
     def timed(name, fn):
@@ -1632,7 +1656,7 @@ def check_fused_read(eng) -> dict:
 def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
                capacity=None, inject_at=None, scrub_every=0, check_at=None,
                profile_at=None, check_scrub=True, profile_cpu=False,
-               setup=None, stop_after=None) -> dict:
+               setup=None, stop_after=None, mesh=None) -> dict:
     """Serve `prompts` (tenants `tenants`, all by default) through a
     `ServingEngine` at ENGINE_SLOTS slots and ENGINE_MAX_SEQ, ENGINE_NEW
     greedy tokens each. Options: the pool's capacity; `uniform_flip(3,
@@ -1642,15 +1666,17 @@ def run_engine(params, cfg, prompts, *, tenants=None, protected=True,
     step `check_at`; step `profile_at` under torch.profiler (host ops too
     with `profile_cpu`, and the names of the `engine.*` ranges it saw
     kept); `setup(engine)` called before the first step; stop after
-    `stop_after` steps. Returns tokens, step reports and times, TTFT,
-    launches by step, pool and scrub figures."""
+    `stop_after` steps; the default pool's pages sharded over `mesh`.
+    Returns tokens, step reports and times, TTFT, launches by step, pool
+    and scrub figures."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.memory import (ProtectedPagePool, uniform_flip,
                                     words_for_tensor)
     from repro_torch.models import ProtectedKVConfig
     from repro_torch.serving import ServingEngine
-    pkv = ProtectedKVConfig("wl160_r08", page_tokens=16, n_iters=8)
+    pkv = ProtectedKVConfig("wl160_r08", page_tokens=16, n_iters=8,
+                            mesh=mesh)
     kw = dict(max_active=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
               protected=protected, scrub_every=scrub_every,
               scrub_max_pages=ENGINE_SCRUB_PAGES)
@@ -2039,7 +2065,8 @@ def telemetry_memory(device) -> dict:
     t = torch.randn(TELEMETRY_MIB * 2 ** 18, generator=gen, device=device)
     expect = t.cpu().numpy()
     mem = ProtectedMemoryArray("wl1024_r08", controller="writeback",
-                               device=device, key=SEED + 15)
+                               device=device, key=SEED + 15,
+                               use_sharded=False)
     st = mem.write("t", t)
     words, cells = int(st.enc.shape[0]), int(st.enc.numel())
     changed = mem.inject(uniform_flip(3, TELEMETRY_FLIP))
@@ -2925,6 +2952,7 @@ def _serve_model(name, params, cfg, prompts, pkv, steps, runs_wanted,
     fixes = _serving_checks(name, runs, n_attn, steps)
     report = {"layers": cfg.n_groups * len(cfg.group_spec),
               "attention_layers": n_attn, "moe_layers": n_moe,
+              "tokens": runs["clean"]["tokens"].tolist(),
               "batch": prompts.shape[0], "prompt_tokens": prompts.shape[1],
               "decode_steps": steps, "page_words": page_words,
               "stored_cells": runs["injected"]["caches"].stats()[
@@ -3564,6 +3592,229 @@ def phase_examples() -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# the device mesh
+# ---------------------------------------------------------------------------
+
+
+def mesh_devices() -> tuple[list, str]:
+    """Phase 19's devices: every visible card when there are two or more,
+    else MESH_SHARDS_ONE_CARD shards on the one card; and which it was."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} cards, one shard each")
+    return ([torch.device("cuda", 0)] * MESH_SHARDS_ONE_CARD,
+            f"one card, {MESH_SHARDS_ONE_CARD} shards on it")
+
+
+def mesh_memory(device, mesh, want: dict) -> dict:
+    """(a) phase 3's array, tensor and flips, read and scrubbed over
+    `mesh`; `want` is phase 3's report."""
+    import numpy as np
+    import torch
+    from repro_torch.core import get_code
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import build
+    from repro_torch.memory import ProtectedMemoryArray, uniform_flip
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t = torch.randn(MEMORY_MIB * 2 ** 18, generator=gen, device=device)
+    expect = t.cpu().numpy()
+    mem = ProtectedMemoryArray("wl1024_r08", controller="writeback",
+                               device=device, key=SEED, use_sharded=True,
+                               mesh=mesh)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    st = timed("write_s", lambda: mem.write("t", t))
+    changed = mem.inject(uniform_flip(3, 1e-4))
+    before = dict(build.LAUNCHES)
+    out = timed("read_s", lambda: mem.read("t"))
+    read_launches = {k: v - before.get(k, 0)
+                     for k, v in build.LAUNCHES.items()
+                     if v - before.get(k, 0)}
+    s = mem.stats
+    changed2 = mem.inject(uniform_flip(3, 1e-4))
+    rep = timed("scrub_s", lambda: mem.scrub())
+    clean = timed("rescrub_s", lambda: mem.scrub())
+    got = {"words": st.enc.shape[0], "cells_changed": changed,
+           "read_flagged": s.detected, "read_corrected": s.corrected,
+           "cells_changed_2": changed2, "scrub_flagged": rep["flagged"],
+           "scrub_corrected": rep["corrected"],
+           "rescrub_flagged": clean["flagged"]}
+    if not np.array_equal(out.view(np.uint8), expect.view(np.uint8)):
+        raise AssertionError("sharded memory read-back differs from the "
+                             "written bytes")
+    differ = {k: (v, want[k]) for k, v in got.items() if v != want[k]}
+    if differ or s.uncorrectable or rep["uncorrectable"]:
+        raise AssertionError(f"sharded memory run against phase 3's "
+                             f"(got, want): {differ}, uncorrectable "
+                             f"{s.uncorrectable} + {rep['uncorrectable']}")
+    # one launch a shard: a sharded scan, and a one-iteration decode
+    code = get_code("wl1024_r08")
+    S = len(sharding.axis_devices(mesh))
+    words = st.enc[:4 * S].to(torch.int32)
+    before = dict(build.LAUNCHES)
+    sharding.scan_syndromes_sharded(code, st.enc, mesh=mesh)
+    sharding.decode_sharded(code, words, mesh=mesh, n_iters=1)
+    torch.cuda.synchronize()
+    made = {k: build.LAUNCHES[k] - before.get(k, 0)
+            for k in ("scan_syndromes", "fbp_cn")}
+    if made != {"scan_syndromes": 2 * S, "fbp_cn": S}:
+        raise AssertionError(f"sharded scan + one-iteration decode over "
+                             f"{S} shards launched {made}")
+    del mem
+    return {**got, **times, "read_launches": read_launches,
+            "phase3_read_s": want["read_s"],
+            "phase3_scrub_s": want["scrub_s"],
+            "launches_one_scan_one_decode": made}
+
+
+def mesh_engine(cfg, params, mesh, want: dict) -> dict:
+    """(b) phase 14's run (c) with the pool's pages sharded over `mesh`;
+    `want` is run (c)'s tokens, tenant stats, injection and scrubs."""
+    r = run_engine(params, cfg, engine_prompts(cfg),
+                   inject_at=ENGINE_INJECT_STEP,
+                   scrub_every=ENGINE_SCRUB_EVERY, check_scrub=False,
+                   mesh=mesh)
+    check_injected_run("sharded", r, want["tokens"])
+    if r["tenant_stats"] != want["tenant_stats"]:
+        raise AssertionError(f"sharded engine run: tenant stats "
+                             f"{r['tenant_stats']}, run (c) "
+                             f"{want['tenant_stats']}")
+    if r["inject"] != want["inject"] or \
+            r["scrub_reports"] != want["scrub_reports"]:
+        raise AssertionError("sharded engine run: injection or scrubs "
+                             "differ from run (c)'s")
+    out = engine_summary(r)
+    out["tenant_stats"] = r["tenant_stats"]
+    return out
+
+
+def mesh_phase_ab(device, cfg, params, memory: dict, engine_c: dict
+                  ) -> tuple[dict, dict, list]:
+    """Phase 19 (a) and (b). Returns (report, launches, devices)."""
+    import torch
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import build
+    devices, kind = mesh_devices()
+    smi = card_name()
+    log(f"  mesh: {kind}: {[str(d) for d in devices]} ({smi})")
+    mesh = Mesh(devices, ("data",))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    report = {"card": smi, "mesh": kind,
+              "devices": [str(d) for d in devices],
+              "memory": mesh_memory(device, mesh, memory)}
+    log(f"  (a) memory mode over the mesh ({smi}): "
+        f"{json.dumps(report['memory'])}")
+    report["engine"] = mesh_engine(cfg, params, mesh, engine_c)
+    log(f"  (b) engine run (c) over the mesh ({smi}): "
+        f"{json.dumps(report['engine'])}")
+    torch.cuda.synchronize()
+    report["seconds"] = time.perf_counter() - t0
+    return report, dict(build.LAUNCHES), devices
+
+
+def mesh_moe(device, devices, phase16: dict) -> tuple[dict, dict]:
+    """(c) olmoe-1b-7b served expert-parallel over a (data 1, model S)
+    mesh, each MoE layer gated against the one-shard sorted_ep; `phase16`
+    is phase 16's olmoe report. Returns (report, launches)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, use_rules
+    from repro_torch.kernels import build
+    from repro_torch.models import ProtectedKVConfig, init_params
+    from repro_torch.nn import moe, moe_shard
+    smi = card_name()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), moe_impl="shard_ep")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=device)
+    mesh = Mesh(np.array(devices, dtype=object).reshape(1, -1),
+                ("data", "model"))
+    pkv = ProtectedKVConfig(code_name="wl160_r08", page_tokens=16)
+    rows, seen = [], []
+    shard_apply, dispatch = moe_shard.moe_shard_apply, moe.dispatch
+
+    def counting(topi, n_experts, cap):
+        plan = dispatch(topi, n_experts, cap)
+        seen.append((~plan.keep).sum())
+        return plan
+
+    def checked(layer, x, c):
+        seen.clear()
+        y = shard_apply(layer, x, c)
+        ep_drops = sum(seen)
+        seen.clear()
+        ref = moe.moe_sorted_ep(layer, x.reshape(-1, x.shape[-1]), c)
+        rows.append(torch.stack([
+            (y.reshape(ref.shape).float() - ref.float()).abs().max(),
+            ref.float().abs().max(), ep_drops.float(), seen[0].float()]))
+        return y
+
+    build.reset_launches()
+    moe.dispatch, moe_shard.moe_shard_apply = counting, checked
+    try:
+        with use_rules(mesh):
+            run = serve_once(params, cfg, prompts, pkv, inject=False,
+                             steps=SERVE_STEPS)
+    finally:
+        moe.dispatch, moe_shard.moe_shard_apply = dispatch, shard_apply
+    launches = dict(build.LAUNCHES)
+    with use_rules(mesh):
+        timed = serve_once(params, cfg, prompts, pkv, inject=False,
+                           steps=SERVE_STEPS)
+    got = torch.stack(rows).cpu().tolist()
+    n_moe = cfg.n_groups * sum(1 for s in cfg.group_spec if s.moe)
+    if len(got) != n_moe * (SERVE_STEPS + 1):
+        raise AssertionError(f"olmoe shard_ep: {len(got)} MoE layer calls "
+                             f"checked, expected {n_moe * (SERVE_STEPS + 1)}")
+    share = max(e / m for e, m, _, _ in got)
+    bad = [i for i, (e, m, a, b) in enumerate(got)
+           if not e <= MOE_EP_SHARE * m or a != b]
+    tokens = run["tokens"].tolist()
+    equal = sum(a == b for r1, r2 in zip(tokens, phase16["tokens"])
+                for a, b in zip(r1, r2)) / (len(tokens) * len(tokens[0]))
+    report = {"card": smi, "arch": cfg.name, "mesh": dict(mesh.shape),
+              "moe_layer_calls": len(got), "max_err_share": share,
+              "bound_share": MOE_EP_SHARE,
+              "dropped_prefill": sum(int(r[2]) for r in got[:n_moe]),
+              "dropped_per_step_max": max(
+                  sum(int(r[2]) for r in got[n_moe * (i + 1):
+                                             n_moe * (i + 2)])
+                  for i in range(SERVE_STEPS)),
+              "tokens_equal_share_phase16": equal,
+              "checked": {k: run[k] for k in ("ttft_s",
+                                              "ms_per_decode_step")},
+              "timed": {k: timed[k] for k in (
+                  "ttft_s", "ms_per_decode_step", "decode_tokens_per_s")},
+              "phase16_sorted_ep": {k: phase16["clean"][k] for k in (
+                  "ttft_s", "ms_per_decode_step", "decode_tokens_per_s")},
+              "seconds": time.perf_counter() - t0}
+    for r in (run, timed):
+        r["caches"].free()
+    del params
+    if bad:
+        raise AssertionError(f"olmoe shard_ep: MoE layer calls {bad[:8]} "
+                             f"beyond {MOE_EP_SHARE} of their largest "
+                             f"output or with other drops: "
+                             f"{[got[i] for i in bad[:8]]}")
+    return report, launches
+
+
 def check_path(name: str, launches: dict, kernels) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
@@ -3650,11 +3901,21 @@ def main() -> int:
                ("attend_protected", "gf_matmul", "scan_syndromes",
                 "fbp_cn"))
     log("phase 15: telemetry and the sanitizer, paper-pim-2b")
+    engine_c = {k: engine_runs["injected"][k] for k in (
+        "tokens", "tenant_stats", "inject", "scrub_reports")}
     telemetry, telemetry_launches = phase_telemetry(
         device, *serve_model[:2], engine_runs, engine, instruments)
     del engine_runs
     log(f"  launches on the telemetry path: {telemetry_launches}")
     check_path("telemetry", telemetry_launches,
+               ("attend_protected", "gf_matmul", "scan_syndromes",
+                "fbp_cn"))
+    log("phase 19 (a, b): the device mesh: memory mode, the engine")
+    mesh_report, mesh_launches, mesh_devs = mesh_phase_ab(
+        device, *serve_model[:2], memory, engine_c)
+    del engine_c
+    log(f"  launches on the mesh paths: {mesh_launches}")
+    check_path("mesh (a, b)", mesh_launches,
                ("attend_protected", "gf_matmul", "scan_syndromes",
                 "fbp_cn"))
     prompts = serve_model[2]
@@ -3673,6 +3934,19 @@ def main() -> int:
     substrate, substrate_launches = phase_substrate(device)
     log(f"  launches on the substrate paths: {substrate_launches}")
     log(f"  phase 16 took {substrate['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 19 (c): the device mesh: expert-parallel olmoe-1b-7b")
+    mesh_report["moe"], mesh_moe_launches = mesh_moe(
+        device, mesh_devs, substrate["moe"])
+    log(f"  (c) olmoe-1b-7b shard_ep ({mesh_report['moe']['card']}): "
+        f"{json.dumps(mesh_report['moe'])}")
+    log(f"  launches on the expert-parallel path: {mesh_moe_launches}")
+    check_path("mesh (c)", mesh_moe_launches,
+               ("attend_protected", "gf_matmul", "scan_syndromes"))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("phase 13: BER campaign, wl1024_r08")
     campaign, campaign_launches = phase_campaign(device)
@@ -3697,7 +3971,8 @@ def main() -> int:
     launches = {k: sum(path.get(k, 0) for path in (
         codec_launches, serve_launches, prefill_launches, pim_launches,
         engine_launches, telemetry_launches, pim_train_launches,
-        substrate_launches, campaign_launches, train_launches))
+        substrate_launches, campaign_launches, train_launches,
+        mesh_launches, mesh_moe_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -3715,6 +3990,7 @@ def main() -> int:
                     "pim_serving": pim_serving, "engine": engine,
                     "telemetry": telemetry, "pim_training": pim_training,
                     "substrate": substrate, "examples": examples,
+                    "mesh": mesh_report,
                     "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
@@ -3729,6 +4005,8 @@ def main() -> int:
                     "launches_substrate": substrate_launches,
                     "launches_campaign": campaign_launches,
                     "launches_training": train_launches,
+                    "launches_mesh": mesh_launches,
+                    "launches_mesh_moe": mesh_moe_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

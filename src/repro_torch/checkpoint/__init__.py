@@ -18,9 +18,9 @@ package's `repro.checkpoint`, in the same on-disk format.
 
 Restored leaves take the template leaf's kind: a tensor leaf comes back as
 a tensor on that tensor's device, anything else as a numpy array. The
-elastic re-placement of the JAX package (`shardings=`) is for meshes and
-is not ported. The protected array lives on `device` (the card unless the
-caller asks for the CPU).
+JAX package's `shardings=` (restoring onto a mesh) comes with
+data-parallel training over a mesh (ROADMAP Queue 1). The protected array
+lives on `device` (the card unless the caller asks for the CPU).
 """
 from __future__ import annotations
 

@@ -70,7 +70,7 @@ class ArchConfig:
     top_k: int = 0
     expert_d_ff: int = 0
     capacity_factor: float = 1.25
-    moe_impl: str = "sorted_ep"   # sorted_ep | dense (oracle)
+    moe_impl: str = "sorted_ep"   # sorted_ep | shard_ep | dense (oracle)
     # --- attention ---
     rope_theta: float = 10000.0
     softcap_attn: float = 0.0

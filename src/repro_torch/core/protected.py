@@ -157,17 +157,63 @@ def protected_pim_matmul_budgeted(x, W_enc, code: LDPCCode,
     return ProtectedResult(data, detected, uncorrected)
 
 
+def np_prod_mesh(mesh) -> int:
+    """Total device count of a mesh (the product of its shape's values;
+    anything with a `shape` mapping will do)."""
+    size = 1
+    for v in mesh.shape.values():
+        size *= int(v)
+    return size
+
+
+def _chunk_runner(code: LDPCCode, *, mesh, chunk_size: int, **kw):
+    """The decode of one chunk, fanned over `mesh` (`distributed.
+    sharding.decode_sharded`) when one is given; shared by
+    `decode_stream` and `decode_pipelined`. Every chunk is split over the
+    mesh, so a `chunk_size` that the device count does not divide
+    raises here, at the call."""
+    if mesh is None:
+        return lambda y: decode_integers(code, y, observe=False, **kw)
+    mesh_size = int(np_prod_mesh(mesh))
+    if chunk_size % mesh_size != 0:
+        raise ValueError(
+            f"chunk_size={chunk_size} is not a multiple of the mesh "
+            f"size {mesh_size}; every padded chunk is shard_map'd over "
+            "the mesh, so pick a chunk_size divisible by the device "
+            "count")
+    from ..distributed.sharding import (decode_shards, decode_sharded,
+                                        gather_decode)
+    kw.pop("device")
+
+    def run(y):
+        if isinstance(y, tuple):          # row blocks already in place
+            return gather_decode(decode_shards(code, y, **kw), y[0].device)
+        return decode_sharded(code, y, mesh=mesh, **kw)
+    return run
+
+
 def decode_stream(code: LDPCCode, stream, *, chunk_size: int = 256,
                   n_iters: int = 8, llv_scale: float = 4.0,
                   llv_mode: str = "manhattan", early_exit: bool = True,
-                  damping: float = 0.0, device=None):
+                  damping: float = 0.0, device=None, mesh=None):
     """Streaming chunked decode for workloads larger than one batch.
 
     `stream` is either a single (B, n) integer tensor or array — chunked
     internally into `chunk_size`-word slices — or any iterable of (b_i, n)
     chunks. Yields one `(y_corrected, DecodeResult)` pair per chunk, in
     order. Rows decode independently, so a chunk needs no padding.
+
+    With `mesh` (a `distributed.sharding.Mesh` with a "data" axis) each
+    chunk is fanned over the mesh's devices through `decode_sharded`;
+    `chunk_size` must then be a multiple of the mesh size, checked at the
+    call, not at the first chunk. A chunk may then also be a tuple of row
+    blocks that already lie on the mesh's devices (a sharded page): each
+    block decodes where it lies, gathered onto the first block's device.
     """
+    run = _chunk_runner(code, mesh=mesh, chunk_size=chunk_size,
+                        n_iters=n_iters, llv_scale=llv_scale,
+                        llv_mode=llv_mode, early_exit=early_exit,
+                        damping=damping, device=device)
     if hasattr(stream, "shape"):
         arr = stream
         stream = (arr[i:i + chunk_size]
@@ -175,13 +221,12 @@ def decode_stream(code: LDPCCode, stream, *, chunk_size: int = 256,
 
     def gen():
         for y in stream:
-            if y.shape[0] > chunk_size:
-                raise ValueError(f"chunk of {y.shape[0]} words exceeds "
+            rows = (sum(b.shape[0] for b in y) if isinstance(y, tuple)
+                    else y.shape[0])
+            if rows > chunk_size:
+                raise ValueError(f"chunk of {rows} words exceeds "
                                  f"chunk_size={chunk_size}")
-            yield decode_integers(code, y, n_iters=n_iters,
-                                  llv_scale=llv_scale, llv_mode=llv_mode,
-                                  early_exit=early_exit, damping=damping,
-                                  device=device, observe=False)
+            yield run(y)
     return gen()
 
 
@@ -189,13 +234,14 @@ def decode_pipelined(code: LDPCCode, pages, *, depth: int = 1, **kw):
     """Double-buffered paged decode, the corrected-read pipeline behind
     `memory.paged.PagedProtectedStore.decode_stream`.
 
-    `decode_stream` (same arguments and results: one `(y_corrected,
-    DecodeResult)` per page, in order), but page i+1's decode is dispatched
-    before page i's result is yielded, with `depth` pages ahead. On the
-    card this reorders the work and does not overlap it: the decoder's
-    early-exit check reads one byte back from the card per iteration, so
-    page i+1's decode has finished on the host's side before page i is
-    yielded. Overlap needs an asynchronous exit check (ROADMAP Queue 3).
+    `decode_stream` (same arguments, `mesh=` included, and results: one
+    `(y_corrected, DecodeResult)` per page, in order), but page i+1's
+    decode is dispatched before page i's result is yielded, with `depth`
+    pages ahead. On the card this reorders the work and does not overlap
+    it: the decoder's early-exit check reads one byte back from the card
+    per iteration, so page i+1's decode has finished on the host's side
+    before page i is yielded. Overlap needs an asynchronous exit check
+    (ROADMAP Queue 2, host-bound paths).
     """
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
@@ -214,4 +260,4 @@ def decode_pipelined(code: LDPCCode, pages, *, depth: int = 1, **kw):
 __all__ = ["ProtectionConfig", "ProtectedResult", "protected_pim_matmul",
            "protected_pim_matmul_budgeted", "prepare_weights",
            "strip_padding", "decode_stream", "decode_pipelined",
-           "DecodeResult"]
+           "np_prod_mesh", "DecodeResult"]

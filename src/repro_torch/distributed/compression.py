@@ -4,9 +4,10 @@ of the JAX package's `repro.distributed.compression`.
 A tensor is sent as int8 and one float32 scale (absmax / 127); error
 feedback adds the residual of each round back before the next
 quantization, so the time average of the dequantized values converges to
-the true ones. `compressed_psum`, the JAX package's collective over a pod
-mesh axis, has no use on one card and is not ported (ROADMAP, "Not to be
-ported").
+the true ones. `compressed_psum`, the JAX package's all-reduce of
+compressed gradients over a mesh axis, comes with data-parallel training
+over a mesh (ROADMAP Queue 1); the port's meshes
+(`distributed.sharding`) carry no training collective yet.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ counterparts of the JAX package's `distributed/fault.py`.
   `threshold x` the EWMA is flagged, counted and handed to an injectable
   policy hook.
 
-`elastic_shardings` (re-placement onto another mesh) is for meshes and is
-not ported; restores come back on the template's devices.
+`elastic_shardings` (re-placement onto another mesh) comes with
+data-parallel training over a mesh (ROADMAP Queue 1); restores come back
+on the template's devices.
 """
 from __future__ import annotations
 

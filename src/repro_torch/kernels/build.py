@@ -9,8 +9,9 @@ and flags, so an edited source is rebuilt at its next use and an unchanged
 one is loaded as it is.
 
 Each C entry point takes raw device pointers, sizes and a `cudaStream_t`
-(PyTorch's current stream) and returns `cudaGetLastError()`; `check`
-raises on anything but 0. `LAUNCHES` counts kernel launches per kernel
+(PyTorch's current stream) and returns `cudaGetLastError()`; `launch`
+calls one with its operands' device current and raises on anything but
+0. `LAUNCHES` counts kernel launches per kernel
 name: a wrapper adds one where it launches its kernel, and nowhere else.
 The wrappers' shared operand helpers (`route`, `exact_matmul`,
 `int8_operand`) live here too.
@@ -153,15 +154,30 @@ def check(err: int, name: str) -> None:
                            f"cudaError {err}")
 
 
-def stream_handle(device) -> int:
-    """PyTorch's current `cudaStream_t` on `device` (a device or a CUDA
-    device index), as an int. The raw query (as Triton's launcher makes
-    it) costs about a microsecond, where building a `torch.cuda.Stream`
-    object costs about ten, a quarter of a small kernel's host time."""
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call the C entry point `entry` with `args` and PyTorch's current
+    `cudaStream_t` on `device` (a CUDA device or its index), with `device`
+    the CUDA runtime's current device: the C side launches, and sets
+    shared-memory attributes, on the current device, so an operand on
+    another card would otherwise get that card's stream refused. The
+    caller's current device is restored; the switch is skipped when
+    `device` is already current. Raises when the launch fails, else adds
+    one to `LAUNCHES[name]`. The raw stream query (as Triton's launcher
+    makes it) costs about a microsecond, where building a
+    `torch.cuda.Stream` object costs about ten."""
     index = device if isinstance(device, int) else device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    fn = getattr(library(), entry)
+    prev = torch._C._cuda_getDevice()
+    if prev == index:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        torch.cuda.set_device(index)
+        try:
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        finally:
+            torch.cuda.set_device(prev)
+    check(err, name)
+    LAUNCHES[name] += 1
 
 
 @functools.cache

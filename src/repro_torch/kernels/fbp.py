@@ -102,11 +102,8 @@ def fbp_cn(m_hat: torch.Tensor, p: int) -> torch.Tensor:
     out = torch.empty_like(m)
     if N == 0:
         return out
-    err = build.library().rt_fbp_cn(m.data_ptr(), out.data_ptr(), N, dc, p,
-                                    build.sm_count(m.device),
-                                    build.stream_handle(m.device))
-    build.check(err, "fbp_cn")
-    build.LAUNCHES["fbp_cn"] += 1
+    build.launch("fbp_cn", "rt_fbp_cn", m.device, m.data_ptr(),
+                 out.data_ptr(), N, dc, p, build.sm_count(m.device))
     return out
 
 

@@ -242,12 +242,10 @@ def flash_fwd(q, k, v, *, g: int, scale: float, causal: bool,
     o = torch.empty_like(q)
     lse = torch.empty((BH, Sq), dtype=torch.float32, device=q.device)
     g, causal, window, scale, softcap = _scalars(**kw)
-    err = build.library().rt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), BH, Sq, k.shape[1], D, g, causal, window, scale,
-        softcap, build.stream_handle(q.device))
-    build.check(err, "flash_fwd")
-    build.LAUNCHES["flash_fwd"] += 1
+    build.launch(
+        "flash_fwd", "rt_flash_fwd", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, Sq, k.shape[1], D,
+        g, causal, window, scale, softcap)
     return o, lse
 
 
@@ -263,12 +261,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, g: int, scale: float,
     BH, Sq, D = q.shape
     dq = torch.empty_like(q)
     g, causal, window, scale, softcap = _scalars(**kw)
-    err = build.library().rt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), BH, Sq, k.shape[1],
-        D, g, causal, window, scale, softcap, build.stream_handle(q.device))
-    build.check(err, "flash_bwd_dq")
-    build.LAUNCHES["flash_bwd_dq"] += 1
+    build.launch(
+        "flash_bwd_dq", "rt_flash_bwd_dq", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), BH, Sq, k.shape[1], D, g, causal,
+        window, scale, softcap)
     return dq
 
 
@@ -284,13 +281,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, g: int, scale: float,
     BH, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     g, causal, window, scale, softcap = _scalars(**kw)
-    err = build.library().rt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-        Sq, k.shape[1], D, g, causal, window, scale, softcap,
-        build.stream_handle(q.device))
-    build.check(err, "flash_bwd_dkv")
-    build.LAUNCHES["flash_bwd_dkv"] += 1
+    build.launch(
+        "flash_bwd_dkv", "rt_flash_bwd_dkv", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, k.shape[1],
+        D, g, causal, window, scale, softcap)
     return dk, dv
 
 

@@ -144,11 +144,9 @@ def gf_launch(a8: torch.Tensor, bk: torch.Tensor, p: int, tile: int,
     out = a8.new_empty((M, N), dtype=torch.int32)
     if M == 0 or N == 0:
         return out
-    err = build.library().rt_gf_matmul(
-        a8.data_ptr(), bk.data_ptr(), out.data_ptr(), M, N, K, K16, p, tile,
-        grid, build.stream_handle(a8.get_device()))
-    build.check(err, "gf_matmul")
-    build.LAUNCHES["gf_matmul"] += 1
+    build.launch("gf_matmul", "rt_gf_matmul", a8.get_device(),
+                 a8.data_ptr(), bk.data_ptr(), out.data_ptr(), M, N, K, K16,
+                 p, tile, grid)
     return out
 
 
@@ -233,9 +231,7 @@ def scan_launch(y8: torch.Tensor, h8: torch.Tensor, p: int, tile: int,
         y8 = F.pad(y8, (0, K - y8.shape[1]))
     if y8.data_ptr() % 16:
         y8 = y8.clone()
-    err = build.library().rt_scan_syndromes(
-        y8.data_ptr(), h8.data_ptr(), flags.data_ptr(), M, C, K, p, tile,
-        grid, build.stream_handle(y8.get_device()))
-    build.check(err, "scan_syndromes")
-    build.LAUNCHES["scan_syndromes"] += 1
+    build.launch("scan_syndromes", "rt_scan_syndromes", y8.get_device(),
+                 y8.data_ptr(), h8.data_ptr(), flags.data_ptr(), M, C, K, p,
+                 tile, grid)
     return flags

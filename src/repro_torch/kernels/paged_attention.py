@@ -307,14 +307,12 @@ def _attend_protected(q, kpages, vpages, kscales, vscales, valid, hot_k,
     # each range's partial acc (R x D), m and l (R each), R = G·Sq
     part = torch.empty((B * Hkv, nsplit, (Hq // Hkv) * Sq, D + 2),
                        dtype=torch.float32, device=q.device)
-    err = build.library().rt_attend_protected(
+    build.launch(
+        "attend_protected", "rt_attend_protected", q.device,
         q.data_ptr(), kpages.data_ptr(), vpages.data_ptr(),
         kscales.data_ptr(), vscales.data_ptr(), valid.data_ptr(),
         hot_k.data_ptr(), hot_v.data_ptr(), hot_valid.data_ptr(),
         out.data_ptr(), part.data_ptr(), B, Sq, Hq, Hkv, D, T, Bsub, S, NP,
         W, n, k_info, p, int(bool(with_hot)), nsplit, rp, pg,
-        float(softcap or 0.0),
-        build.stream_handle(q.device))
-    build.check(err, "attend_protected")
-    build.LAUNCHES["attend_protected"] += 1
+        float(softcap or 0.0))
     return out

@@ -139,9 +139,7 @@ def pim_mac(x: torch.Tensor, w: torch.Tensor, *, row_parallelism: int = 0,
     unit = math.lcm(R, STAGE) if clip and K else STAGE
     kper = k_split(B, N, K, unit, build.sm_count(x.device))
     out = torch.empty((B, N), dtype=torch.int32, device=x.device)
-    err = build.library().rt_pim_mac(
-        x8.data_ptr(), w8.data_ptr(), out.data_ptr(), B, N, K, w8.shape[1],
-        R, adc_levels, kper, build.stream_handle(x.device))
-    build.check(err, "pim_mac")
-    build.LAUNCHES["pim_mac"] += 1
+    build.launch("pim_mac", "rt_pim_mac", x.device, x8.data_ptr(),
+                 w8.data_ptr(), out.data_ptr(), B, N, K, w8.shape[1], R,
+                 adc_levels, kper)
     return out

@@ -2,9 +2,11 @@
 `settings_for` of the JAX package's `launch/cells.py`.
 
 The rest of that module (microbatch counts, FSDP and remat switches, input
-ShapeDtypeStructs, sharding rules, the cell grid of the TPU dry runs) is
-mesh tooling that one card does not need: the trainer takes its
-microbatch count from its caller and remat from `cfg.remat`.
+ShapeDtypeStructs, `rules_for_cell`, the cell grid of the TPU dry runs) is
+the TPU dry runs' cell tooling: the trainer takes its microbatch count
+from its caller and remat from `cfg.remat`. The logical-axis rules and a
+cell's sharding of the dense layers come with the tensor-parallel slice
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 

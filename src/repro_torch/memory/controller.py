@@ -22,6 +22,8 @@ pipeline (pages are scanned a window ahead, flagged rows from many pages
 are queued and decoded together) or, with `coalesce=False`, the per-page
 baseline it is measured against. Per-policy counters (detected / corrected
 / uncorrectable / writebacks / scrub bandwidth) live in `ControllerStats`.
+With `use_sharded` the scan and the decoder fan out over a device mesh
+(`distributed.sharding`), as the JAX controller's do over its devices.
 
 Every read and sweep also feeds the ambient observability layer
 (`repro_torch.obs`), where the JAX controller does: correction counters
@@ -40,6 +42,7 @@ import torch
 from ..core.construction import LDPCCode
 from ..device import resolve_device
 from ..core.gf import symbol_dtype
+from ..distributed.sharding import data_mesh, scan_syndromes_sharded
 from ..kernels.gf_matmul import field_route, scan_syndromes_routed
 from ..obs import metrics as obs_metrics
 from ..obs import ras as obs_ras
@@ -117,15 +120,37 @@ class ControllerStats:
 
 
 class MemoryController:
-    """`basic` policy: correct-on-read, storage untouched."""
+    """`basic` policy: correct-on-read, storage untouched.
+
+    `use_sharded` fans the device scan and the decoder over a mesh
+    (`distributed.sharding.scan_syndromes_sharded` / `decode_sharded`):
+    `mesh`, or every visible card (`data_mesh()`). By default it is on
+    when a mesh is given or more than one card is visible, and never for
+    CPU tensors, as the JAX controller's default is on with more than one
+    device; a mesh with `use_sharded=False` raises. Every word is independent, so the results and `stats` equal
+    the unsharded controller's bit for bit. Codes past the scan kernel's
+    int8 symbols or int32 bound keep the exact scan (`_scan_route`)."""
 
     policy = "basic"
 
     def __init__(self, *, n_iters: int = 10, damping: float = 0.3,
                  llv_scale: float = 4.0, llv_mode: str = "manhattan",
                  chunk_size: int = 256, page_words: int | None = None,
-                 device=None):
+                 device=None, use_sharded: bool | None = None, mesh=None):
         self.device = resolve_device(device)
+        if use_sharded is None:
+            use_sharded = mesh is not None or (
+                self.device.type == "cuda" and torch.cuda.device_count() > 1)
+        elif mesh is not None and not use_sharded:
+            raise ValueError("a mesh with use_sharded=False: the "
+                             "unsharded controller has no mesh")
+        self.use_sharded = use_sharded
+        self.mesh = None
+        if use_sharded:
+            self.mesh = data_mesh() if mesh is None else mesh
+            if self.mesh.device.type != self.device.type:
+                raise ValueError(f"controller on {self.device}, mesh on "
+                                 f"{self.mesh.device.type} devices")
         self.n_iters = n_iters
         self.damping = damping
         self.llv_scale = llv_scale
@@ -142,7 +167,7 @@ class MemoryController:
         return RepairQueue(code, chunk_size=self.chunk_size,
                            n_iters=self.n_iters, damping=self.damping,
                            llv_scale=self.llv_scale, llv_mode=self.llv_mode,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh)
 
     @staticmethod
     def _scan_route(code: LDPCCode) -> str:
@@ -151,9 +176,12 @@ class MemoryController:
         past int8 or n (p - 1)^2 >= 2^31), decided by the code alone."""
         return field_route(code.n, code.p)
 
-    @staticmethod
-    def _scan(code: LDPCCode, enc: torch.Tensor) -> torch.Tensor:
-        """(B, n) stored words -> (B,) flags, on the words' device."""
+    def _scan(self, code: LDPCCode, enc: torch.Tensor) -> torch.Tensor:
+        """(B, n) stored words -> (B,) flags, on the words' device; over
+        the mesh when the controller is sharded and the code takes the
+        kernel."""
+        if self.mesh is not None and self._scan_route(code) == "kernel":
+            return scan_syndromes_sharded(code, enc, mesh=self.mesh)
         ht = code.tensor("H.T", enc.device, symbol_dtype(code.p))
         return scan_syndromes_routed(enc, ht, code.p)
 

@@ -32,13 +32,24 @@ protected KV cache (`models/kv.py`): absmax int8 quantization, then base-p
 symbolization (`memory/packing.py`), exactly as the JAX package's
 `repro.memory.paged` does, so pages written by either decode in the other.
 
+With `mesh` (a `distributed.sharding.Mesh` with a "data" axis) every page
+is stored as row shards, rows [k·W/S, (k+1)·W/S) on the axis's device k
+(`shard_page`), as the JAX store's pages are sharded row-wise: the scan
+and the decode of a page run shard by shard, each on its own device, and
+the repair queue decodes its flagged rows over the mesh
+(`decode_sharded`). `page(i)` gathers a page onto the store's device, the
+mesh's first (the compute device, where the fused attention reads it);
+a write (an append, a scrub's repairs) replaces the page's shards, and
+`inject` draws each page's faults on the compute device with the store's
+generator, so a sharded store holds, reads and corrupts exactly what the
+unsharded one does. `page_words` must be a multiple of the mesh size.
+
 Pages are replaced, never written in place, so a tensor handed out by
 `page(i)` keeps its contents when the store changes (as with the JAX
-package's immutable arrays). The JAX store's `mesh` sharding and kernel
-`policy` have no counterpart: the port runs on one card and its wrappers
-pick kernel or plain version by the tensors' device. The four storage
-primitives (`page`, `_set_page`, `_append_page`, `_iter_pages`) are what a
-pool-backed store overrides.
+package's immutable arrays). The JAX store's kernel `policy` has no
+counterpart: the wrappers pick kernel or plain version by the tensors'
+device. The storage primitives (`page`, `_stored`, `_set_page`,
+`_append_page`, `_iter_pages`) are what a pool-backed store overrides.
 """
 from __future__ import annotations
 
@@ -51,12 +62,13 @@ import torch.nn.functional as F
 
 from ..core.codes import get_code
 from ..core.construction import LDPCCode
-from ..core.decode import decode_integers
 from ..core.encode import encode_words
-from ..core.protected import decode_pipelined
+from ..core.protected import decode_pipelined, np_prod_mesh
 from ..device import as_tensor, generator, resolve_device
 from ..core.gf import symbol_dtype
-from ..kernels.gf_matmul import scan_syndromes_routed
+from ..distributed.sharding import (axis_devices, decode_shards,
+                                    gather_decode, gather_rows, scan_shards,
+                                    shard_page)
 from ..obs import metrics as obs_metrics
 from ..obs import ras as obs_ras
 from .channel import Channel
@@ -124,20 +136,33 @@ def dequantize_tensor(words: torch.Tensor, meta: QuantizedTensor,
 
 
 class PagedProtectedStore:
-    """Fixed-shape (page_words, n) GF-level pages on one device, with
-    device encode, per-page syndrome flags and corrected reads. Pages are
-    int8 while p <= 128 (`symbol_dtype(p)` past it); encode and scan go to
-    the kernels or, for fields past int8 or the int32 bound, to the exact
-    product (`gf_matmul.field_route`)."""
+    """Fixed-shape (page_words, n) GF-level pages on one device, or row
+    shards over a mesh, with device encode, per-page syndrome flags and
+    corrected reads. Pages are int8 while p <= 128 (`symbol_dtype(p)` past
+    it); encode and scan go to the kernels or, for fields past int8 or the
+    int32 bound, to the exact product (`gf_matmul.field_route`)."""
 
     def __init__(self, code: str | LDPCCode = "wl1024_r08", *,
-                 page_words: int = 256, n_iters: int = 10,
+                 page_words: int = 256, mesh=None, n_iters: int = 10,
                  damping: float = 0.3, llv_scale: float = 4.0,
                  llv_mode: str = "manhattan", key: int = 0, device=None):
         self.code = get_code(code) if isinstance(code, str) else code
         self.dtype = symbol_dtype(self.code.p)
         if page_words <= 0:
             raise ValueError(f"page_words must be positive, got {page_words}")
+        if mesh is not None:
+            mesh_size = np_prod_mesh(mesh)
+            if page_words % mesh_size != 0:
+                raise ValueError(
+                    f"page_words={page_words} is not a multiple of the mesh "
+                    f"size {mesh_size}; pages are shard_map'd row-wise, so "
+                    "pick a page size divisible by the device count")
+            if device is None:
+                device = mesh.device
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"store on {device}, mesh on "
+                                 f"{mesh.device.type} devices")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.page_words = page_words
         self.n_iters = n_iters
@@ -165,18 +190,50 @@ class PagedProtectedStore:
     def n_cells(self) -> int:
         return self._n_words * self.code.n
 
-    # -- storage primitives (a pool-backed store overrides these four) -------
+    # -- page layout: a tensor, or a tuple of row shards over the mesh ------
+
+    def _split(self, page: torch.Tensor):
+        """A (page_words, n) page in the store's layout."""
+        return page if self.mesh is None else shard_page(page, self.mesh)
+
+    def _join(self, stored) -> torch.Tensor:
+        """A stored page as one tensor on the store's device."""
+        if isinstance(stored, torch.Tensor):
+            return stored
+        return gather_rows(stored, self.device)
+
+    @staticmethod
+    def _parts(stored) -> tuple:
+        """A stored page's row blocks, each on its own device (a tensor,
+        such as one poked in as `store._pages[i] = ...`, is one block)."""
+        return (stored,) if isinstance(stored, torch.Tensor) else stored
+
+    def _zeros(self):
+        """A zeroed page in the store's layout, each shard made on its
+        own device."""
+        if self.mesh is None:
+            return torch.zeros((self.page_words, self.code.n),
+                               dtype=self.dtype, device=self.device)
+        devices = axis_devices(self.mesh)
+        rows = self.page_words // len(devices)
+        return tuple(torch.zeros((rows, self.code.n), dtype=self.dtype,
+                                 device=d) for d in devices)
+
+    # -- storage primitives (a pool-backed store overrides these) -------------
 
     def page(self, i: int) -> torch.Tensor:
+        return self._join(self._pages[i])
+
+    def _stored(self, i: int):
+        """Page `i` in the store's layout (its shards)."""
         return self._pages[i]
 
     def _set_page(self, i: int, page: torch.Tensor) -> None:
-        self._pages[i] = page
+        self._pages[i] = self._split(page)
 
     def _append_page(self) -> None:
         """Grow storage by one zeroed page."""
-        self._pages.append(torch.zeros((self.page_words, self.code.n),
-                                       dtype=self.dtype, device=self.device))
+        self._pages.append(self._zeros())
 
     def _iter_pages(self) -> Iterator[torch.Tensor]:
         for i in range(self.n_pages):
@@ -189,25 +246,33 @@ class PagedProtectedStore:
 
     # -- the kernels' calls ---------------------------------------------------
 
-    def _scan(self, page: torch.Tensor) -> torch.Tensor:
-        """(page_words,) bool nonzero-syndrome flags of one page."""
-        ht = self.code.tensor("H.T", page.device, self.dtype)
-        return scan_syndromes_routed(page, ht, self.code.p)
+    def _scan(self, stored) -> torch.Tensor:
+        """(page_words,) bool nonzero-syndrome flags of one stored page,
+        one scan per shard on the shard's device, gathered onto the
+        store's device."""
+        flags = scan_shards(self.code, self._parts(stored))
+        return flags[0] if len(flags) == 1 else gather_rows(flags,
+                                                            self.device)
 
-    def _decode(self, page: torch.Tensor):
-        """(y_corrected, DecodeResult) of a whole page, early exit on."""
-        return decode_integers(
-            self.code, page, n_iters=self.n_iters, damping=self.damping,
-            llv_scale=self.llv_scale, llv_mode=self.llv_mode,
-            early_exit=True, observe=False)
+    def _decode(self, stored):
+        """(y_corrected, DecodeResult) of a whole stored page, early exit
+        on, one decode per shard on the shard's device, gathered onto the
+        store's device."""
+        outs = decode_shards(
+            self.code, self._parts(stored), n_iters=self.n_iters,
+            damping=self.damping, llv_scale=self.llv_scale,
+            llv_mode=self.llv_mode, early_exit=True)
+        return outs[0] if len(outs) == 1 else gather_decode(outs,
+                                                            self.device)
 
     def _repair_queue(self) -> RepairQueue:
-        """The queue this store's coalesced scrubs drain through."""
+        """The queue this store's coalesced scrubs drain through (over
+        the mesh, when the store has one)."""
         if self._repair_q is None:
             self._repair_q = RepairQueue(
                 self.code, chunk_size=self.page_words, n_iters=self.n_iters,
                 damping=self.damping, llv_scale=self.llv_scale,
-                llv_mode=self.llv_mode, device=self.device)
+                llv_mode=self.llv_mode, device=self.device, mesh=self.mesh)
         return self._repair_q
 
     # -- write path ---------------------------------------------------------
@@ -291,7 +356,8 @@ class PagedProtectedStore:
         """(n_words,) bool per-word nonzero-syndrome flags."""
         if not self.n_pages:
             return torch.zeros(0, dtype=torch.bool, device=self.device)
-        flags = torch.cat([self._scan(pg) for pg in self._iter_pages()])
+        flags = torch.cat([self._scan(self._stored(i))
+                           for i in range(self.n_pages)])
         return flags[:self._n_words]
 
     def iter_corrected(self, *, scan_first: bool = True,
@@ -306,19 +372,20 @@ class PagedProtectedStore:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
 
-        def dispatch(page):
+        def dispatch(i):
+            stored = self._stored(i)
             if scan_first:
-                nf = int(self._scan(page).sum())
-                if not nf:
-                    return page                  # clean: levels ARE symbols
+                nf = int(self._scan(stored).sum())
+                if not nf:                       # clean: levels ARE symbols
+                    return self._join(stored)
                 self.stats.detected += nf
-            return self._decode(page)[1].symbols
+            return self._decode(stored)[1].symbols
 
         pending = []
-        for page in self._iter_pages():
+        for i in range(self.n_pages):
             self.stats.reads += 1
             self.stats.words_read += self.page_words
-            pending.append(dispatch(page))
+            pending.append(dispatch(i))
             if len(pending) > depth:
                 yield pending.pop(0)
         yield from pending
@@ -327,10 +394,10 @@ class PagedProtectedStore:
         """Scan-gated corrected read of page `i`, with the correction
         accounting (detected / corrected / uncorrectable) on `stats`, and
         the telemetry attributed to the store's `owner`."""
-        page = self.page(i)
+        stored = self._stored(i)
         self.stats.reads += 1
         self.stats.words_read += self.page_words
-        flags = self._scan(page)
+        flags = self._scan(stored)
         nf = int(flags.sum())
         est = obs_ras.current()
         owner = getattr(self, "owner", None)
@@ -339,9 +406,9 @@ class PagedProtectedStore:
             est.observe_scan(nf, self.page_words, n_symbols=self.code.n,
                              region=region)
         if not nf:
-            return page
+            return self._join(stored)
         self.stats.detected += nf
-        _y, res = self._decode(page)
+        _y, res = self._decode(stored)
         bad = int((flags & res.detect_fail).sum())
         self.stats.uncorrectable += bad
         self.stats.corrected += nf - bad
@@ -363,7 +430,8 @@ class PagedProtectedStore:
         if not self.n_pages:
             return torch.zeros((0, self.code.n), dtype=self.dtype,
                                device=self.device)
-        outs = [self._decode(pg)[1].symbols for pg in self._iter_pages()]
+        outs = [self._decode(self._stored(i))[1].symbols
+                for i in range(self.n_pages)]
         return torch.cat(outs)[:self._n_words]
 
     def read_words(self, start: int, stop: int, *,
@@ -392,15 +460,21 @@ class PagedProtectedStore:
                                corrected=corrected)[:, :self.code.k]
 
     def decode_stream(self, **kw) -> Iterator:
-        """`core.decode_pipelined` over the stored pages: one
+        """`core.decode_pipelined` over the stored pages (over the store's
+        mesh by default, each page's shards decoded where they lie): one
         `(y_corrected, DecodeResult)` per page, for callers that need the
         decode's metadata."""
         kw.setdefault("chunk_size", self.page_words)
+        kw.setdefault("mesh", self.mesh)
         kw.setdefault("n_iters", self.n_iters)
         kw.setdefault("damping", self.damping)
         kw.setdefault("llv_scale", self.llv_scale)
         kw.setdefault("llv_mode", self.llv_mode)
-        return decode_pipelined(self.code, self._iter_pages(), **kw)
+        pages = self._iter_pages()
+        if self.mesh is not None and kw["mesh"] is self.mesh:
+            pages = (tuple(self._parts(self._stored(i)))
+                     for i in range(self.n_pages))
+        return decode_pipelined(self.code, pages, **kw)
 
     # -- scrub --------------------------------------------------------------
 
@@ -427,13 +501,14 @@ class PagedProtectedStore:
     def _scrub_baseline(self, idxs: list[int]) -> dict:
         flagged_words = repaired = 0
         for i in idxs:
-            page = self.page(i)
-            flags = self._scan(page)
+            stored = self._stored(i)
+            flags = self._scan(stored)
             nf = int(flags.sum())
             if not nf:
                 continue
             flagged_words += nf
-            _y, res = self._decode(page)
+            _y, res = self._decode(stored)
+            page = self._join(stored)
             good = flags & ~res.detect_fail
             self._set_page(i, torch.where(good[:, None], res.symbols, page))
             repaired += int(good.sum())
@@ -444,7 +519,8 @@ class PagedProtectedStore:
         if not idxs:
             return {"pages": 0, "flagged_words": 0, "repaired_words": 0,
                     "coalesced": True}
-        masks = torch.stack([self._scan(self.page(i)) for i in idxs]).cpu()
+        masks = torch.stack([self._scan(self._stored(i))
+                             for i in idxs]).cpu()
         queue = self._repair_queue()
         flagged_words = 0
         for i, mask in zip(idxs, masks, strict=True):

@@ -31,9 +31,12 @@ and per-owner counters into the metrics registry, and each scanned page's
 flags and each decoded page's iterations into the RAS estimator under its
 owner's region (free when neither is installed).
 
-The JAX pool's `mesh` (page sharding) and kernel `policy` are not ported:
-the port runs on one card, and its wrappers pick kernel or plain version
-by the tensors' device. The pool takes `device=` instead.
+With `mesh`, every block is stored as row shards over the mesh, as the
+template store lays out its pages (`memory.paged`): the scrubs scan and
+decode shard by shard, each on its own device, `page(pid)` gathers a
+block onto the pool's device (the mesh's first) and writes replace a
+block's shards. The JAX pool's kernel `policy` is not ported: the
+wrappers pick kernel or plain version by the tensors' device.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from collections.abc import Iterator
 import torch
 
 from ..core.construction import LDPCCode
-from ..device import as_tensor, generator, resolve_device
+from ..device import as_tensor, generator
 from ..obs import metrics as obs_metrics
 from ..obs import ras as obs_ras
 from .controller import ControllerStats
@@ -64,23 +67,27 @@ class ProtectedPagePool:
 
     def __init__(self, code: str | LDPCCode = "wl1024_r08", *,
                  page_words: int = 256, capacity_pages: int = 64,
-                 n_iters: int = 10, damping: float = 0.3,
+                 mesh=None, n_iters: int = 10, damping: float = 0.3,
                  llv_scale: float = 4.0, llv_mode: str = "manhattan",
                  device=None):
         if capacity_pages <= 0:
             raise ValueError(
                 f"capacity_pages must be positive, got {capacity_pages}")
-        self.device = resolve_device(device)
-        # the template store carries the code, its checks, the scanner, the
-        # decoder and the repair queue every PooledStore delegates to
+        # the template store carries the code, its checks, the page
+        # layout, the scanner, the decoder and the repair queue every
+        # PooledStore delegates to
         self._template = PagedProtectedStore(
-            code, page_words=page_words, n_iters=n_iters, damping=damping,
-            llv_scale=llv_scale, llv_mode=llv_mode, device=self.device)
+            code, page_words=page_words, mesh=mesh, n_iters=n_iters,
+            damping=damping, llv_scale=llv_scale, llv_mode=llv_mode,
+            device=device)
+        self.device = self._template.device
+        self.mesh = mesh
         self.code = self._template.code
         self.dtype = self._template.dtype
         self.page_words = page_words
         self.capacity_pages = capacity_pages
-        self._storage: list[torch.Tensor | None] = [None] * capacity_pages
+        # a page: a tensor, or a tuple of row shards over the mesh
+        self._storage: list = [None] * capacity_pages
         self._refcount = [0] * capacity_pages
         self._owner: list[object | None] = [None] * capacity_pages
         self._stamp = [0] * capacity_pages     # last touch (engine step)
@@ -122,22 +129,25 @@ class ProtectedPagePool:
                 if self._storage[pid] is not None]
 
     def copy(self, pids=None, device=None) -> ProtectedPagePool:
-        """A new pool on `device` (this pool's by default) with this pool's
-        code and decoder, holding copies of pages `pids` (every allocated
-        page by default) under the same pids, owners, stamps and scan
-        state, one reference each. Its cursor, totals and generator start
-        fresh; scrubbing it leaves this pool as it is."""
+        """A new pool with this pool's code and decoder, holding copies of
+        pages `pids` (every allocated page by default) under the same
+        pids, owners, stamps and scan state, one reference each: on this
+        pool's device and mesh by default, else unsharded on `device`.
+        Its cursor, totals and generator start fresh; scrubbing it leaves
+        this pool as it is."""
         tpl = self._template
         out = ProtectedPagePool(
             self.code, page_words=self.page_words,
-            capacity_pages=self.capacity_pages, n_iters=tpl.n_iters,
+            capacity_pages=self.capacity_pages,
+            mesh=self.mesh if device is None else None, n_iters=tpl.n_iters,
             damping=tpl.damping, llv_scale=tpl.llv_scale,
             llv_mode=tpl.llv_mode,
             device=self.device if device is None else device)
         out.flag_alpha = self.flag_alpha
         held = set(self.allocated() if pids is None else pids)
         for pid in held:
-            out._storage[pid] = self.page(pid).to(out.device, copy=True)
+            out._storage[pid] = out._template._split(
+                self.page(pid).to(out.device, copy=True))
             out._refcount[pid] = 1
             out._owner[pid] = self._owner[pid]
             out._stamp[pid] = self._stamp[pid]
@@ -156,9 +166,7 @@ class ProtectedPagePool:
             raise PoolExhausted(
                 f"pool exhausted: all {self.capacity_pages} pages allocated")
         pid = self._free.pop()
-        self._storage[pid] = torch.zeros(
-            (self.page_words, self.code.n), dtype=self.dtype,
-            device=self.device)
+        self._storage[pid] = self._template._zeros()
         self._refcount[pid] = 1
         self._owner[pid] = owner
         self._stamp[pid] = 0
@@ -188,18 +196,23 @@ class ProtectedPagePool:
 
     # -- page access --------------------------------------------------------
 
-    def page(self, pid: int) -> torch.Tensor:
+    def _stored(self, pid: int):
+        """Page `pid` in the pool's layout (its shards)."""
         pg = self._storage[pid]
         if pg is None:
             raise ValueError(f"page {pid} is not allocated")
         return pg
+
+    def page(self, pid: int) -> torch.Tensor:
+        """Page `pid` as one tensor on the pool's device."""
+        return self._template._join(self._stored(pid))
 
     def set_page(self, pid: int, page: torch.Tensor) -> None:
         """Replace page `pid` (pages are replaced, never written in place,
         so a tensor handed out earlier keeps its contents)."""
         if self._storage[pid] is None:
             raise ValueError(f"page {pid} is not allocated")
-        self._storage[pid] = page
+        self._storage[pid] = self._template._split(page)
 
     def touch(self, pid: int, step: int) -> None:
         """Record that `pid` was accessed at engine step `step` (the
@@ -313,17 +326,18 @@ class ProtectedPagePool:
         flagged_words = repaired = 0
         by_owner: dict[object, dict] = {}
         for pid in selected:
-            page = self._storage[pid]
-            flags = self._template._scan(page)
+            stored = self._storage[pid]
+            flags = self._template._scan(stored)
             nf = int(flags.sum())
             owner = self._note_page_scan(pid, nf, est)
             if not nf:
                 continue
             flagged_words += nf
-            _y, res = self._template._decode(page)
+            _y, res = self._template._decode(stored)
             good = flags & ~res.detect_fail
-            self._storage[pid] = torch.where(good[:, None], res.symbols,
-                                             page).to(self.dtype)
+            page = self._template._join(stored)
+            self._storage[pid] = self._template._split(torch.where(
+                good[:, None], res.symbols, page).to(self.dtype))
             ok = int(good.sum())
             repaired += ok
             if est.enabled:
@@ -356,14 +370,14 @@ class ProtectedPagePool:
                 continue
             flagged_words += int(rows.numel())
             rows = rows.to(self.device)
-            page = self._storage[pid]
+            page = self.page(pid)
 
             def writeback(syms, ok, pid=pid, rows=rows, page=page):
                 good = rows[ok]
                 if good.numel():
                     new = page.clone()
                     new[good] = syms[ok].to(self.dtype)
-                    self._storage[pid] = new
+                    self._storage[pid] = self._template._split(new)
 
             queue.enqueue(page[rows], writeback, owner=owner,
                           provenance=("pool", pid, rows))
@@ -394,11 +408,13 @@ class ProtectedPagePool:
         for pid in self.allocated():
             if want is not None and self._owner[pid] not in want:
                 continue
-            page = self._storage[pid]
+            # drawn on the pool's device, so a sharded pool takes the
+            # unsharded pool's faults
+            page = self.page(pid)
             new = channel.apply(gen, page, t=t, n_reads=n_reads).to(
                 self.dtype)
             changed += (new != page).sum()
-            self._storage[pid] = new
+            self._storage[pid] = self._template._split(new)
         return int(changed)
 
 
@@ -415,9 +431,9 @@ class PooledStore(PagedProtectedStore):
     def __init__(self, pool: ProtectedPagePool, *, owner=None, key: int = 0):
         tpl = pool._template
         super().__init__(pool.code, page_words=pool.page_words,
-                         n_iters=tpl.n_iters, damping=tpl.damping,
-                         llv_scale=tpl.llv_scale, llv_mode=tpl.llv_mode,
-                         key=key, device=pool.device)
+                         mesh=pool.mesh, n_iters=tpl.n_iters,
+                         damping=tpl.damping, llv_scale=tpl.llv_scale,
+                         llv_mode=tpl.llv_mode, key=key, device=pool.device)
         self.pool = pool
         self.owner = owner
         self.block_table: list[int] = []
@@ -431,6 +447,9 @@ class PooledStore(PagedProtectedStore):
 
     def page(self, i: int) -> torch.Tensor:
         return self.pool.page(self.block_table[i])
+
+    def _stored(self, i: int):
+        return self.pool._stored(self.block_table[i])
 
     def _set_page(self, i: int, page: torch.Tensor) -> None:
         pid = self.block_table[i]
@@ -502,11 +521,11 @@ class PooledStore(PagedProtectedStore):
 
     # -- the template's scanner, decoder and queue ----------------------------
 
-    def _scan(self, page: torch.Tensor) -> torch.Tensor:
-        return self.pool._template._scan(page)
+    def _scan(self, stored) -> torch.Tensor:
+        return self.pool._template._scan(stored)
 
-    def _decode(self, page: torch.Tensor):
-        return self.pool._template._decode(page)
+    def _decode(self, stored):
+        return self.pool._template._decode(stored)
 
     def _repair_queue(self):
         # one queue for every tenant: cross-tenant repairs share a drain

@@ -37,6 +37,7 @@ from ..core.construction import LDPCCode
 from ..core.decode import decode_integers
 from ..core.gf import symbol_dtype
 from ..device import resolve_device
+from ..distributed.sharding import decode_sharded
 from ..obs import metrics as obs_metrics
 from ..obs import ras as obs_ras
 
@@ -61,9 +62,10 @@ class RepairQueue:
     def __init__(self, code: LDPCCode, *, chunk_size: int = 256,
                  n_iters: int = 10,
                  damping: float = 0.3, llv_scale: float = 4.0,
-                 llv_mode: str = "manhattan", device=None):
+                 llv_mode: str = "manhattan", device=None, mesh=None):
         self.code = code
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.chunk_size = int(chunk_size)
         self.n_iters = n_iters
         self.damping = damping
@@ -73,7 +75,8 @@ class RepairQueue:
         self._pending = 0
 
     def decode_batch(self, words: torch.Tensor):
-        """Decode (B, n) flagged level-words in `chunk_size` chunks.
+        """Decode (B, n) flagged level-words in `chunk_size` chunks, each
+        fanned over `mesh` (`decode_sharded`) when the queue has one.
         Returns (symbols (B, n) in symbol_dtype(p), fail (B,) bool,
         iterations (B,) int32), tensors on the queue's device."""
         words = words.to(self.device)
@@ -83,12 +86,18 @@ class RepairQueue:
                                 device=self.device),
                     torch.zeros(0, dtype=torch.bool, device=self.device),
                     torch.zeros(0, dtype=torch.int32, device=self.device))
+        kw = dict(n_iters=self.n_iters, llv_scale=self.llv_scale,
+                  llv_mode=self.llv_mode, damping=self.damping,
+                  early_exit=True)
         syms, fail, iters = [], [], []
         for chunk in torch.split(words, self.chunk_size):
-            _y, res = decode_integers(
-                self.code, chunk.to(torch.int32), n_iters=self.n_iters,
-                llv_scale=self.llv_scale, llv_mode=self.llv_mode,
-                damping=self.damping, early_exit=True, observe=False)
+            chunk = chunk.to(torch.int32)
+            if self.mesh is None:
+                _y, res = decode_integers(self.code, chunk, observe=False,
+                                          **kw)
+            else:
+                _y, res = decode_sharded(self.code, chunk, mesh=self.mesh,
+                                         **kw)
             syms.append(res.symbols)
             fail.append(res.detect_fail)
             iters.append(res.iterations)

@@ -28,8 +28,11 @@ manager and ingests the prompt K/V, `decode_step` serves through it.
 
 With `pool` (a `memory.pool.ProtectedPagePool`) every layer's stores are
 `PooledStore`s: block tables into the shared pool instead of private
-pages, returned to its free list by `free()`. The JAX package's `mesh`
-has no counterpart (one card here).
+pages, returned to its free list by `free()`. With `mesh` (a
+`distributed.sharding.Mesh` with a "data" axis) the private stores, and
+the serving engine's default pool, keep every page as row shards over
+the mesh's devices (`memory.paged`); the fused read gathers the pages
+onto the layer's device.
 
 Under `repro_torch.obs`, each freeze is a `kv.freeze` span and bumps
 `kv_pages_frozen`, and each injection records a `kv.inject` instant and
@@ -80,6 +83,7 @@ class ProtectedKVConfig:
                                    # stores take their pages from this
                                    # shared pool (block tables) instead of
                                    # private grow-only storage
+    mesh: Any = None               # shard pages across a device mesh
 
 
 def _block_until_done(t: torch.Tensor) -> torch.Tensor:
@@ -124,7 +128,7 @@ class ProtectedKVLayer(KVSource):
             self.v_store = PooledStore(pool, owner=owner)
         else:
             self.k_store, self.v_store = (
-                PagedProtectedStore(code, page_words=wpu,
+                PagedProtectedStore(code, page_words=wpu, mesh=pkv.mesh,
                                     n_iters=pkv.n_iters, damping=pkv.damping,
                                     device=self.device)
                 for _ in range(2))

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN: the port of the JAX package's `repro.nn.moe`,
-with the one-device dispatch of `repro.nn.moe_shard`.
+"""Mixture-of-Experts FFN: the port of the JAX package's `repro.nn.moe`.
 
 One parameter layout, float32 as in the JAX package: `router` (d, E),
 `w_gate` / `w_up` (E, d, f) and `w_down` (E, f, d). The products run in
@@ -13,13 +12,14 @@ do; no kernel of the TPU package computes them. `cfg.moe_impl` picks:
   expert id, a pack into an (E, cap + 1, d) buffer whose row `cap` is
   the scratch row of the slots dropped at capacity, grouped products, an
   unsort and the weighted combine. Dropped slots add zero.
-- "shard_ep": runs "sorted_ep". It is the JAX package's expert-sharded
-  dispatch; at one expert shard (ep = 1: one card holds every expert, so
-  there is no all_to_all) its `_local_moe` is the same dispatch as
-  "sorted_ep" and gives the same output. The JAX package's `shard_ep`
-  without a mesh recurses between `moe_apply` and `moe_shard_apply`
-  (ROADMAP Queue 3); the port does what that docstring says, the
-  one-device path.
+- "shard_ep": expert parallelism, `nn.moe_shard.moe_shard_apply`, under
+  an active mesh with a `model` axis (`distributed.sharding.use_rules`):
+  the experts split over the `model` axis's devices, one exchange out to
+  them and one back. Without such a mesh it runs "sorted_ep", the
+  one-device dispatch, which is `_local_moe` at ep = 1. (The JAX
+  package's `shard_ep` without a mesh recurses between `moe_apply` and
+  `moe_shard_apply`, ROADMAP Queue 3; the port does what that docstring
+  says.)
 
 Capacity is `max(1, int(T·K/E·capacity_factor))` for T tokens, as in the
 JAX package, so a decode step of a few tokens drops a slot whenever two
@@ -78,8 +78,9 @@ class Dispatch(NamedTuple):
 
 
 def router_logits(moe: MoE, x2d) -> torch.Tensor:
-    """(T, d) bf16 -> (T, E) float32: the bf16 product, cast up."""
-    return (x2d @ moe.router.to(CDT)).to(torch.float32)
+    """(T, d) bf16 -> (T, E) float32: the bf16 product, cast up. The
+    router is replicated onto the tokens' device."""
+    return (x2d @ moe.router.to(x2d.device, CDT)).to(torch.float32)
 
 
 def topk_route(logits, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -131,11 +132,12 @@ def combine(w, y_slots, plan: Dispatch, T: int):
     return y
 
 
-def _experts(moe: MoE, buf, act):
-    """The grouped products of an (E, rows, d) buffer, bf16."""
-    g = torch.bmm(buf, moe.w_gate.to(CDT))
-    u = torch.bmm(buf, moe.w_up.to(CDT))
-    return torch.bmm(act(g) * u, moe.w_down.to(CDT))
+def _experts(buf, w_gate, w_up, w_down, act):
+    """The grouped products of an (E, rows, d) buffer with E experts'
+    weights, bf16."""
+    g = torch.bmm(buf, w_gate.to(CDT))
+    u = torch.bmm(buf, w_up.to(CDT))
+    return torch.bmm(act(g) * u, w_down.to(CDT))
 
 
 def capacity(T: int, cfg: ArchConfig) -> int:
@@ -166,7 +168,7 @@ def moe_sorted_ep(moe: MoE, x2d, cfg: ArchConfig):
     # pack to (E, cap + 1, d); row `cap` takes the dropped slots
     buf = torch.zeros((E, cap + 1, d), dtype=x2d.dtype, device=x2d.device)
     buf[plan.sorted_e, plan.safe_pos] = x2d[plan.tok_of]
-    yb = _experts(moe, buf, ACTS[cfg.act])
+    yb = _experts(buf, moe.w_gate, moe.w_up, moe.w_down, ACTS[cfg.act])
     y_slots = yb[plan.sorted_e, plan.safe_pos]
     y_slots = torch.where(plan.keep[:, None], y_slots,
                           torch.zeros((), dtype=yb.dtype, device=yb.device))
@@ -174,8 +176,11 @@ def moe_sorted_ep(moe: MoE, x2d, cfg: ArchConfig):
 
 
 def moe_apply(moe: MoE, x, cfg: ArchConfig):
-    """(B, S, d) bf16 -> (B, S, d) through `cfg.moe_impl`: "dense", else
-    "sorted_ep" ("shard_ep" at ep = 1 included)."""
+    """(B, S, d) bf16 -> (B, S, d) through `cfg.moe_impl`: "dense",
+    "shard_ep" (`moe_shard_apply`), else "sorted_ep"."""
+    if cfg.moe_impl == "shard_ep":
+        from .moe_shard import moe_shard_apply
+        return moe_shard_apply(moe, x, cfg)
     fn = {"dense": moe_dense}.get(cfg.moe_impl, moe_sorted_ep)
     B, S, d = x.shape
     return fn(moe, x.reshape(B * S, d), cfg).reshape(B, S, d)

@@ -529,8 +529,8 @@ class ServingEngine:
                 pool = ProtectedPagePool(
                     code, page_words=wpu,
                     capacity_pages=self._default_capacity(cfg, max_active),
-                    n_iters=self.pkv.n_iters, damping=self.pkv.damping,
-                    device=self.device)
+                    mesh=self.pkv.mesh, n_iters=self.pkv.n_iters,
+                    damping=self.pkv.damping, device=self.device)
             if pool.device.type != self.device.type:
                 raise ValueError(f"pool on {pool.device}, parameters on "
                                  f"{self.device}")

@@ -1313,3 +1313,180 @@ def test_mamba_scan_on_card_matches_cpu(dev, rng):
     assert torch.equal(out_tf32, out)
     assert torch.equal(st_tf32.ssm, st_out.ssm)
     assert torch.equal(st_tf32.conv, st_out.conv)
+
+
+def test_kernels_launch_on_a_card_that_is_not_current(dev, rng):
+    """Each of the eight kernels on operands on `cuda:1` while `cuda:0` is
+    current: the launch runs on the operands' card (its stream, its
+    shared-memory attributes) and equals the plain version there, one
+    launch a kernel; the caller's current card is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: every launch here is on the "
+                    "card that is not current")
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    one = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    a = torch.as_tensor(rng.integers(0, 3, (300, 160)), dtype=torch.int8,
+                        device=one)
+    b = torch.as_tensor(rng.integers(0, 3, (160, 32)), dtype=torch.int8,
+                        device=one)
+    m = (rng.standard_normal((1000, 16, 3)) * 4).astype(np.float32)
+    m = torch.as_tensor(m - m.max(axis=-1, keepdims=True), device=one)
+    x = torch.as_tensor(rng.integers(-7, 8, (70, 256)), dtype=torch.int8,
+                        device=one)
+    w = torch.as_tensor(rng.integers(-1, 2, (256, 90)), dtype=torch.int8,
+                        device=one)
+    kw = dict(row_parallelism=64, adc_levels=6)
+    # the page operands are encoded (gf_matmul) before the count starts
+    args, akw = _attend_operands(one, code_name="wl160_r08", seed=3,
+                                 **ATTEND_SHAPES[0])
+    (q, k, v, do), fkw = _flash_operands(one, FLASH_SHAPES[1])
+    assert torch.cuda.current_device() == 0
+    n0 = dict(LAUNCHES)
+    assert torch.equal(gf_matmul.gf_matmul(a, b, 3),
+                       gf_matmul.gf_matmul_plain(a, b, 3))
+    assert torch.equal(gf_matmul.scan_syndromes(a, b, 3),
+                       gf_matmul.scan_syndromes_plain(a, b, 3))
+    assert torch.equal(fbp.fbp_cn(m, 3).view(torch.int32),
+                       fbp.fbp_cn_plain(m, 3).view(torch.int32))
+    assert torch.equal(pim_mac.pim_mac(x, w, **kw),
+                       pim_mac.pim_mac_plain(x, w, **kw))
+    torch.testing.assert_close(pa.attend_protected(*args, **akw).float(),
+                               pa.attend_protected_plain(*args, **akw)
+                               .float(), **ULP)
+    o, lse = fa.flash_fwd(q, k, v, **fkw)
+    torch.testing.assert_close(o.float(), fa.flash_fwd_plain(
+        q, k, v, **fkw)[0].float(), **ULP)
+    delta = fa.flash_delta(o, do)
+    _within(fa.flash_bwd_dq(q, k, v, do, lse, delta, **fkw),
+            fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, **fkw),
+            FLASH_BWD_BOUND)
+    for got, want in zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, **fkw),
+                         fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                **fkw), strict=True):
+        _within(got, want, FLASH_BWD_BOUND)
+    torch.cuda.synchronize(one)
+    assert torch.cuda.current_device() == 0
+    made = {k: LAUNCHES[k] - n0.get(k, 0) for k in KERNELS}
+    assert made == dict.fromkeys(KERNELS, 1), made
+
+
+def test_four_shard_mesh_on_one_card(dev, rng):
+    """A mesh that names the card four times: the sharded decode and scan
+    equal the unsharded ones bit for bit, with one scan launch a shard,
+    and expert-parallel MoE equals the one-device dispatch within 4 bf16
+    ulps of its largest output (the grouped products run at other
+    shapes)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.nn import moe
+    code = get_code("wl160_r08")
+    mesh = sharding.Mesh([dev] * 4, ("data",))
+    y = np_encode_words(rng.integers(0, 3, (301, code.k)), code)
+    hit = rng.random(y.shape) < 0.02
+    y[hit] += 1
+    y = torch.as_tensor(y, device=dev)
+    kw = dict(n_iters=8, damping=0.3, early_exit=True)
+    got, want = (sharding.decode_sharded(code, y, mesh=mesh, **kw),
+                 decode_integers(code, y, **kw))
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1], want[1], strict=True):
+        assert torch.equal(a, b)
+    levels = torch.remainder(y, 3).to(torch.int8)
+    n0 = LAUNCHES["scan_syndromes"]
+    flags = sharding.scan_syndromes_sharded(code, levels, mesh=mesh)
+    assert LAUNCHES["scan_syndromes"] == n0 + 4
+    assert torch.equal(flags, gf_matmul.scan_syndromes(
+        levels, code.tensor("H.T", dev, torch.int8), 3))
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(
+        n_experts=64, d_model=128, d_ff=256), top_k=8, capacity_factor=1.25)
+    layer = moe.MoE(cfg, 256, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    x = torch.from_numpy(rng.normal(size=(2, 48, cfg.d_model)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    ep = sharding.Mesh(np.full((1, 4), dev, dtype=object), ("data",
+                                                            "model"))
+    with torch.no_grad():
+        with sharding.use_rules(ep):
+            y_ep = moe.moe_apply(layer, x, dataclasses.replace(
+                cfg, moe_impl="shard_ep"))
+        y_one = moe.moe_sorted_ep(layer, x.reshape(96, -1), cfg)
+    _close_in_ulps(y_ep.reshape(96, -1), y_one.cpu())
+
+
+def test_mesh_over_every_card_matches_unsharded(dev, rng):
+    """A mesh over every visible card, one shard a card: a writeback array
+    under the controller's default (sharded on two or more cards) equals
+    an unsharded one on the same words and flips (the read-back, the
+    counts, the scrub and the storage), a sharded scan launching once a
+    card; and expert-parallel MoE with two data groups on different
+    cards equals each group's one-device dispatch within 4 bf16 ulps of
+    its largest output, each group keeping its placement of the experts
+    across calls."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.memory import ProtectedMemoryArray, uniform_flip
+    from repro_torch.nn import moe
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices: each shard of the mesh lies "
+                    "on a card of its own")
+    t = torch.randn(2 ** 20, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    arrays = [ProtectedMemoryArray("wl1024_r08", controller="writeback",
+                                   device=dev, key=7, **kw)
+              for kw in ({}, {"use_sharded": False})]
+    ctrl = arrays[0].controller
+    assert ctrl.use_sharded and ctrl.mesh.size == n
+    assert not arrays[1].controller.use_sharded
+    for a in arrays:
+        a.write("t", t)
+        a.inject(uniform_flip(3, 1e-4))
+    enc = [a.stored("t").enc for a in arrays]
+    assert torch.equal(enc[0], enc[1])
+    want = t.cpu().numpy().view(np.uint8)
+    for a in arrays:
+        assert np.array_equal(a.read("t").view(np.uint8), want)
+    assert arrays[0].stats.correction_counts() == \
+        arrays[1].stats.correction_counts()
+    assert arrays[0].stats.detected > 0
+    for a in arrays:
+        a.inject(uniform_flip(3, 1e-4))
+    reps = [a.scrub() for a in arrays]
+    for key in ("flagged", "corrected", "uncorrectable"):
+        assert reps[0][key] == reps[1][key], key
+    assert reps[0]["flagged"] > 0 and reps[0]["uncorrectable"] == 0
+    assert torch.equal(arrays[0].stored("t").enc, arrays[1].stored("t").enc)
+    code = get_code("wl1024_r08")
+    n0 = LAUNCHES["scan_syndromes"]
+    sharding.scan_syndromes_sharded(code, enc[0], mesh=ctrl.mesh)
+    torch.cuda.synchronize()
+    assert LAUNCHES["scan_syndromes"] == n0 + n
+    # expert parallel: two data groups on different cards where n is even
+    groups = 2 if n % 2 == 0 else 1
+    ep = sharding.Mesh(np.array([torch.device("cuda", i) for i in range(n)],
+                                dtype=object).reshape(groups, -1),
+                       ("data", "model"))
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b").reduced(
+        n_experts=64, d_model=128, d_ff=256), top_k=8, capacity_factor=1.25)
+    layer = moe.MoE(cfg, 256, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    x = torch.from_numpy(rng.normal(size=(2, 48, cfg.d_model)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    shard_ep = dataclasses.replace(cfg, moe_impl="shard_ep")
+    with torch.no_grad():
+        with sharding.use_rules(ep):
+            y_ep = moe.moe_apply(layer, x, shard_ep)
+            placed = {devs: hit[1] for devs, hit in layer._placed.items()}
+            again = moe.moe_apply(layer, x, shard_ep)
+        tok = 96 // groups
+        y_one = torch.cat([moe.moe_sorted_ep(
+            layer, x.reshape(96, -1)[g * tok:(g + 1) * tok], cfg)
+            for g in range(groups)])
+    assert len(placed) == groups and torch.equal(again, y_ep)
+    assert all(layer._placed[devs][1] is p for devs, p in placed.items())
+    _close_in_ulps(y_ep.reshape(96, -1), y_one.cpu())
