@@ -208,10 +208,31 @@ Phases (any failure exits non-zero):
      one-shard `sorted_ep` on the same input, with the same dropped
      slots; the tokens against phase 16's logged, then a run without the
      checks timed.
+ 20. data-parallel training (FSDP, `launch.train.run(mesh=...)` under
+     `rules_for_cell`) on phase 19's devices, after phase 11: (a)
+     granite-3-2b at full width and depth (flash, remat "full", AdamW,
+     seq 4096), 2 rows a shard, 3 steps, held to the unsharded trainer on
+     one card at microbatches = shards (run first from the same seeded
+     weights, freed before the mesh run): each step's loss and grad norm
+     within 1e-5 (step 0) and 1e-4 relative, the largest parameter
+     difference and bitwise equality logged, flash_fwd twice and each
+     backward kernel once per layer on every shard; ms a step, tokens/s,
+     each card's peak memory and placed bytes; (b) `compressed_psum` over
+     `data` on each shard's own gradient of (a)'s embedding, final norm
+     and first and last layers, two rounds: every error within
+     sum(scale_i) / (2n) plus fp32 rounding, the int8 and fp32 bytes;
+     (c) phase 10's reduced granite over the mesh with an NB-LDPC
+     protected checkpoint, storage faults injected, restored onto half
+     the shards and onto no mesh bit for bit, one resumed step on each;
+     (d) with four cards, olmoe-1b-7b at full width and depth over them,
+     one row of 4,096 tokens a card, 3 steps: finite losses, each card
+     at most 26% of the parameters and AdamW states (the states the
+     trainer makes, placed and measured), drops at capacity and peak
+     memory.
 
 The phases run in the order 1-9, 12, 14, 15, 19 (a, b), 17, 16, 19 (c),
-13, 10, 11, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model, which
-is freed before phase 17). Phase 2
+13, 10, 11, 20, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
+which is freed before phase 17). Phase 2
 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
 versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
 within 5e-3 of the largest, each gradient's error relative to its largest
@@ -228,8 +249,9 @@ the engine (phase 14, its five runs less its two checks' launches),
 telemetry (phase 15, run (f) and the memory-mode read), PIM training
 (phase 17, its four runs), the substrate
 (phase 16, each of (b)-(d) and (b)'s flash prefill),
-the campaign (phase 13), training (phases 10-11) and the mesh (phase 19,
-(a)-(b) and (c) each), and read just after it: every kernel must have run on its path. Each entry-point call of phases
+the campaign (phase 13), training (phases 10-11), the mesh (phase 19,
+(a)-(b) and (c) each) and data-parallel training (phase 20), and read
+just after it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
 decode step. The last lines are the card's name and power limit, one JSON
@@ -241,6 +263,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -343,6 +366,17 @@ EXAMPLES_TIMEOUT = 300         # seconds an example may take
 MESH_SHARDS_ONE_CARD = 4       # phase 19's shards when one card is visible
 MOE_EP_SHARE = 2 ** -5         # phase 19 (c): four bf16 ulps of a layer's
                                # largest output
+# phase 20: data-parallel training (FSDP) over mesh_devices()
+FSDP_ROWS = TRAIN_BATCH        # (a) rows a shard: phase 11's load a card
+FSDP_STEPS = 3
+FSDP_RTOL0, FSDP_RTOL = 1e-5, 1e-4   # (a) step 0's, later steps' loss and
+                                     # grad norm against the unsharded run
+FSDP_MOE_ARCH = "olmoe_1b_7b"  # (d), on FSDP_MOE_CARDS cards
+FSDP_MOE_CARDS = 4
+FSDP_CARD_SHARE = 0.26         # (d) a card's share of the parameters and
+                               # optimizer states at most
+FSDP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gf_matmul",
+                "scan_syndromes", "fbp_cn")
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -2792,7 +2826,7 @@ def phase_substrate_reduced(device) -> dict:
             raise AssertionError(f"{arch} reduced on the card: decode at "
                                  f"S-1 differs from the prefill by {diff}")
         rep["prefill_decode_diff"] = diff
-        step, tx = build_train(cfg, lr=1e-3)
+        step, tx, _ = build_train(cfg, lr=1e-3)
         state = tx.init(model.leaves())
         batch = {"tokens": toks, "labels": toks}
         if aux is not None:
@@ -3359,7 +3393,7 @@ def phase_full_training(device) -> dict:
         if not torch.isfinite(torch.tensor(h["loss"])):
             raise AssertionError(f"step {h['step']}: loss {h['loss']}")
 
-    train_step, tx = build_train(flash_cfg, lr=3e-3,
+    train_step, tx, _ = build_train(flash_cfg, lr=3e-3,
                                  total_steps=TRAIN_STEPS)
     opt = tx.init(model.leaves())
     extra = next(TokenPipeline(dcfg, step=TRAIN_STEPS))
@@ -3815,6 +3849,405 @@ def mesh_moe(device, devices, phase16: dict) -> tuple[dict, dict]:
     return report, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: data-parallel training over a mesh (FSDP)
+# ---------------------------------------------------------------------------
+
+
+def fsdp_mesh(devices):
+    """A (data, model 1) mesh, one data shard a device of `devices`."""
+    import numpy as np
+    from repro_torch.distributed.sharding import Mesh
+    return Mesh(np.array([[d] for d in devices], dtype=object),
+                ("data", "model"))
+
+
+def fsdp_rules(mesh, cfg, arch: str, batch: int, seq: int) -> dict:
+    """`rules_for_cell`'s rules of a train shape, as the JAX driver's."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import rules_for_cell, settings_for
+    shape = ShapeSpec("custom", seq, batch, "train")
+    return rules_for_cell(mesh, cfg, shape, settings_for(arch, shape))
+
+
+def placed_bytes(tree) -> tuple[dict, int]:
+    """(bytes each device holds of the placed tensors in `tree`, a tree of
+    dicts and lists, by device; bytes of those tensors whole)."""
+    from repro_torch.distributed.sharding import Placed
+    held: dict[str, int] = {}
+    whole = 0
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, Placed):
+            size = node.local.flat[0].element_size()
+            whole += math.prod(node.shape) * size
+            for t in node.distinct():
+                held[str(t.device)] = held.get(str(t.device), 0) + \
+                    t.numel() * size
+    return held, whole
+
+
+def state_bytes(cfg, mesh, rules, placed) -> tuple[dict, int]:
+    """`placed_bytes` of the optimizer state `launch.train.run` trains
+    `placed` with (its `tx.init` of the placed leaves, made here and
+    freed)."""
+    from repro_torch.launch.steps import build_train
+    state = build_train(cfg, mesh=mesh, rules=rules)[1].init(
+        placed.leaves())
+    out = placed_bytes(state)
+    del state
+    return out
+
+
+def fsdp_dense(device, devices) -> tuple[dict, object, dict]:
+    """(a) granite-3-2b at full width and depth, flash, remat "full",
+    AdamW, seq 4096: FSDP_STEPS steps of `launch.train.run` over the mesh
+    (FSDP_ROWS rows a shard, `rules_for_cell`'s rules), held to the
+    unsharded trainer on `device` at microbatches = shards (microbatch i
+    is shard i's rows), run first from the same seeded weights and freed
+    before the mesh run. Returns (report, the placed model, the batch
+    after the last step)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="flash")
+    n = len(devices)
+    mesh = fsdp_mesh(devices)
+    batch = FSDP_ROWS * n
+    rules = fsdp_rules(mesh, cfg, TRAIN_ARCH, batch, TRAIN_SEQ)
+    n_layers = cfg.n_groups * len(cfg.group_spec)
+    kw = dict(steps=FSDP_STEPS, batch=batch, seq=TRAIN_SEQ, seed=SEED,
+              save_every=FSDP_STEPS + 1, log_every=1,
+              log=lambda m: log("    " + m))
+    report = {"arch": cfg.name, "layers": n_layers, "shards": n,
+              "batch": batch, "seq": TRAIN_SEQ, "rules_fsdp": rules["fsdp"]}
+
+    torch.cuda.reset_peak_memory_stats(device)
+    ref_model = init_params(cfg, SEED, device=device)
+    with tempfile.TemporaryDirectory() as d:
+        ref = run(cfg, params=ref_model, device=device, microbatches=n,
+                  ckpt_dir=d, **kw)
+    report["reference_peak_gb"] = torch.cuda.max_memory_allocated(
+        device) / 1e9
+    want = {name: p.detach().cpu() for name, p in
+            ref_model.named_parameters()}
+    del ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for dev in dict.fromkeys(devices):
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    placed = place_params(init_params(cfg, SEED, device=devices[0]),
+                          param_shardings(cfg, mesh, rules))
+    torch.cuda.synchronize()
+    report["place_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        hist = run(cfg, params=placed, mesh=mesh, rules=rules, ckpt_dir=d,
+                   **kw)
+    report["peak_gb_by_card"] = {
+        str(dev): torch.cuda.max_memory_allocated(dev) / 1e9
+        for dev in dict.fromkeys(devices)}
+    report["param_bytes_by_card"] = placed_bytes(placed.placed)[0]
+    report["state_bytes_by_card"] = state_bytes(cfg, mesh, rules, placed)[0]
+    report["steps"] = [
+        {"step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
+         "reference_loss": r["loss"], "reference_grad_norm": r["grad_norm"],
+         "ms": h["seconds"] * 1e3, "reference_ms": r["seconds"] * 1e3,
+         "tokens_per_s": batch * TRAIN_SEQ / h["seconds"],
+         "launches_by_shard": h["launches_by_shard"]}
+        for h, r in zip(hist, ref, strict=True)]
+    per_shard = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                 "flash_bwd_dkv": n_layers}
+    for i, (h, r) in enumerate(zip(hist, ref, strict=True)):
+        rtol = FSDP_RTOL0 if i == 0 else FSDP_RTOL
+        for key in ("loss", "grad_norm"):
+            if not abs(h[key] - r[key]) <= rtol * abs(r[key]):
+                raise AssertionError(f"step {i}: mesh {key} {h[key]} "
+                                     f"against the unsharded {r[key]}")
+        for k, got in enumerate(h["launches_by_shard"]):
+            got = {name: got.get(name, 0) for name in per_shard}
+            if got != per_shard:
+                raise AssertionError(f"step {i} shard {k}: flash launches "
+                                     f"{got}, expected {per_shard}")
+    largest, equal, total = 0.0, 0, 0
+    for name, p in placed.placed.items():
+        got = p.gather(devices[0]).detach().cpu()
+        largest = max(largest, float((got - want[name]).abs().max()))
+        equal += int((got == want[name]).sum())
+        total += got.numel()
+    report["param_max_abs_diff"] = largest
+    report["params_bitwise_equal"] = equal == total
+    report["params_equal_share"] = equal / total
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=batch, seed=SEED)
+    return report, placed, next(TokenPipeline(dcfg, step=FSDP_STEPS))
+
+
+def fsdp_psum(cfg, placed, batch) -> dict:
+    """(b) `compressed_psum` over `data` on (a)'s real gradients: each
+    shard's own gradient (its loss part's backward alone) of the
+    embedding, the final norm and the first and last layers' tensors,
+    two rounds, the second on the first round's residuals. Each leaf's
+    error against the exact mean of (gradient + residual) must stay
+    within sum(scale_i) / (2n) plus fp32 rounding."""
+    import torch
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.sharding import axis_devices
+    from repro_torch.models import loss_fn
+    mesh = placed.mesh
+    devices = axis_devices(mesh, "data")
+    n = len(devices)
+    last = cfg.n_groups * len(cfg.group_spec) - 1
+    names = [k for k in placed.placed if k in ("embed", "final_norm.scale")
+             or k.startswith(("blocks.0.", f"blocks.{last}."))]
+    rows = batch["tokens"].shape[0] // n
+    count = max(int((batch["labels"] >= 0).sum()), 1)
+    grads = {k: [] for k in names}
+    for k, dev in enumerate(devices):
+        placed.zero_grad()
+        sb = {key: torch.as_tensor(v[k * rows:(k + 1) * rows], device=dev)
+              for key, v in batch.items()}
+        loss_fn(placed.skeleton, cfg, sb, weights=placed.weights(dev),
+                count=count).backward()
+        with torch.no_grad():
+            # a replicated leaf's copy on another card took no gradient
+            # from this shard
+            for name in names:
+                grads[name].append(placed.placed[name].map(
+                    lambda t: torch.zeros_like(t) if t.grad is None
+                    else t.grad).gather(dev))
+    placed.zero_grad()
+    worst, numel = 0.0, 0
+    t0 = time.perf_counter()
+    for name in names:
+        xs = grads[name]
+        numel += xs[0].numel()
+        efs = [compression.init_ef(x) for x in xs]
+        for _round in range(2):
+            inputs = [x + ef.residual for x, ef in zip(xs, efs, strict=True)]
+            outs, efs = compression.compressed_psum(xs, efs, mesh)
+            exact = sum(x.double().to(devices[0]) for x in inputs) / n
+            scales = [float(torch.clamp_min(x.abs().max(), 1e-12)) / 127
+                      for x in inputs]
+            bound = sum(scales) / (2 * n) + n * 2 ** -22 * 127 * max(scales)
+            for out in outs:
+                err = float((out.double().to(devices[0]) - exact).abs().max())
+                worst = max(worst, err / bound)
+                if not err <= bound:
+                    raise AssertionError(f"compressed_psum {name}: error "
+                                         f"{err} over the bound {bound}")
+    torch.cuda.synchronize()
+    pairs = n * (n - 1)
+    crossing = sum(1 for i in range(n) for j in range(n)
+                   if devices[i] != devices[j])
+    return {"tensors": len(names), "elements": numel,
+            "rounds": 2, "largest_error_over_bound": worst,
+            "seconds": time.perf_counter() - t0,
+            "int8_bytes_all_pairs": pairs * (numel + 4 * len(names)),
+            "fp32_bytes_all_pairs": pairs * 4 * numel,
+            "device_pairs_crossed": crossing,
+            "int8_bytes_crossing_devices": crossing * (numel
+                                                       + 4 * len(names))}
+
+
+def leaf_arrays(tree, prefix: str = "") -> dict:
+    """A tree of dicts and lists -> {path: numpy array of its leaf}, a
+    placed leaf read whole."""
+    import numpy as np
+    import torch
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(leaf_arrays(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().cpu().numpy()}
+    if hasattr(tree, "sharding"):
+        return {prefix: tree.numpy()}
+    return {prefix: np.asarray(tree)}
+
+
+def fsdp_elastic(device, devices) -> dict:
+    """(c) phase 10's reduced granite over the mesh, 3 steps, an
+    NB-LDPC-protected checkpoint at step 2, storage faults injected, then
+    restored onto half the shards and onto no mesh: every leaf bit for
+    bit (the restore also checks each leaf against the saved checksum),
+    and one more step of a run resumed from it on each."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint, optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import build_train
+    from repro_torch.launch.train import run
+    from repro_torch.memory import uniform_flip
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH).reduced(
+        n_groups=2, d_model=128, n_heads=4, d_ff=512), attn_impl="flash")
+    n = len(devices)
+    mesh, half = fsdp_mesh(devices), fsdp_mesh(devices[:n // 2])
+    rules = fsdp_rules(mesh, cfg, TRAIN_ARCH, 4, 64)
+    rules_half = fsdp_rules(half, cfg, TRAIN_ARCH, 4, 64)
+    kw = dict(batch=4, seq=64, lr=5e-3, seed=SEED, protect=True,
+              log=lambda m: None)
+    placed = place_params(init_params(cfg, SEED, device=devices[0]),
+                          param_shardings(cfg, mesh, rules))
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "mesh")
+        hist = run(cfg, steps=3, params=placed, mesh=mesh, rules=rules,
+                   ckpt_dir=ck, save_every=2, **kw)
+        changed = checkpoint.inject_storage_faults(
+            ck, uniform_flip(3, 1e-4), key=SEED, device=devices[0])
+        (p_sh, o_sh, _), _ = build_train(cfg, mesh=half, rules=rules_half)[
+            2](half, rules_half)
+        leaves = placed.leaves()
+        on_half, manifest = checkpoint.restore_checkpoint(
+            ck, {"params": leaves, "opt": optim.adamw(1.0).init(leaves)},
+            shardings={"params": p_sh, "opt": o_sh}, device=devices[0])
+        whole = placed.gather(device).leaves()
+        on_none, _ = checkpoint.restore_checkpoint(
+            ck, {"params": whole, "opt": optim.adamw(1.0).init(whole)},
+            device=device)
+        got, ref = leaf_arrays(on_half), leaf_arrays(on_none)
+        trained = leaf_arrays({"params": leaves})
+        exact = got.keys() == ref.keys() and all(
+            np.array_equal(v, ref[k]) and (k not in trained or
+                                           np.array_equal(v, trained[k]))
+            for k, v in got.items())
+        if any(p.sharding.mesh is not half for ps in on_half[
+                "params"].values() for p in ps):
+            raise AssertionError("a leaf restored onto another mesh")
+        del on_half, on_none, whole
+        resumed = {}
+        for name, m, r, dev in (("half", half, rules_half, None),
+                                ("none", None, None, device)):
+            rd = os.path.join(d, name)
+            shutil.copytree(ck, rd)
+            resumed[name] = run(cfg, steps=3, mesh=m, rules=r, device=dev,
+                                ckpt_dir=rd, save_every=100, **kw)
+    stats = manifest["correction_stats"]
+    report = {"losses": [h["loss"] for h in hist], "injected_cells": changed,
+              "restore_corrected": stats["corrected"],
+              "restore_uncorrectable": stats["uncorrectable"],
+              "restored_exactly": exact,
+              "resumed": {k: [(h["step"], h["loss"]) for h in v]
+                          for k, v in resumed.items()}}
+    if changed <= 0 or stats["corrected"] <= 0 or not exact:
+        raise AssertionError(f"elastic restore: {report}")
+    for name, h in resumed.items():
+        if [x["step"] for x in h] != [2] or not np.isfinite(h[0]["loss"]):
+            raise AssertionError(f"resumed run ({name}): {h}")
+    a, b = resumed["half"][0]["loss"], resumed["none"][0]["loss"]
+    if not abs(a - b) <= FSDP_RTOL * abs(b):
+        raise AssertionError(f"resumed losses: half mesh {a}, no mesh {b}")
+    return report
+
+
+def fsdp_moe(devices) -> dict:
+    """(d) olmoe-1b-7b at full width and depth over FSDP_MOE_CARDS cards,
+    AdamW, one row of TRAIN_SEQ tokens a card, FSDP_STEPS steps: finite
+    losses, each card holding about a quarter of the parameters and of
+    the AdamW states the trainer makes for them, the slots dropped at
+    capacity a step and each card's peak memory."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    cfg = get_config(FSDP_MOE_ARCH)
+    cards = devices[:FSDP_MOE_CARDS]
+    mesh = fsdp_mesh(cards)
+    batch = len(cards)
+    rules = fsdp_rules(mesh, cfg, FSDP_MOE_ARCH, batch, TRAIN_SEQ)
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
+    placed = place_params(init_params(cfg, SEED, device=cards[0]),
+                          param_shardings(cfg, mesh, rules))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        hist = run(cfg, steps=FSDP_STEPS, batch=batch, seq=TRAIN_SEQ,
+                   seed=SEED, params=placed, mesh=mesh, rules=rules,
+                   ckpt_dir=d, save_every=FSDP_STEPS + 1, log_every=1,
+                   log=lambda m: log("    " + m))
+    held, total = placed_bytes(placed.placed)
+    state_held, state_total = state_bytes(cfg, mesh, rules, placed)
+    report = {"arch": cfg.name, "cards": [str(c) for c in cards],
+              "parameters": sum(math.prod(p.shape)
+                                for p in placed.placed.values()),
+              "param_bytes_total": total, "param_bytes_by_card": held,
+              "state_bytes_total": state_total,
+              "state_bytes_by_card": state_held,
+              "peak_gb_by_card": {str(c): torch.cuda.max_memory_allocated(
+                  c) / 1e9 for c in cards},
+              "steps": [{"step": h["step"], "loss": h["loss"],
+                         "grad_norm": h["grad_norm"],
+                         "ms": h["seconds"] * 1e3,
+                         "tokens_per_s": batch * TRAIN_SEQ / h["seconds"],
+                         "moe_dropped": h["moe_dropped"]} for h in hist]}
+    for h in hist:
+        if not (torch.isfinite(torch.tensor(h["loss"])) and
+                torch.isfinite(torch.tensor(h["grad_norm"]))):
+            raise AssertionError(f"olmoe step {h['step']}: {h}")
+    for card, b in held.items():
+        b += state_held.get(card, 0)
+        if not b <= FSDP_CARD_SHARE * (total + state_total):
+            raise AssertionError(f"{card} holds {b} of {total + state_total}"
+                                 " bytes of parameters and AdamW states")
+    del placed
+    return report
+
+
+def phase_fsdp(device) -> tuple[dict, dict]:
+    """Phase 20: (a)-(c) on mesh_devices()'s devices, (d) where
+    FSDP_MOE_CARDS cards are visible. Returns (report, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    devices, kind = mesh_devices()
+    smi = card_name()
+    log(f"  mesh: {kind}: {[str(d) for d in devices]} ({smi})")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    report = {"card": smi, "mesh": kind}
+    report["dense"], placed, batch = fsdp_dense(device, devices)
+    log(f"  (a) granite-3-2b FSDP ({smi}): {json.dumps(report['dense'])}")
+    report["psum"] = fsdp_psum(get_config(TRAIN_ARCH), placed, batch)
+    log(f"  (b) compressed_psum on (a)'s gradients ({smi}): "
+        f"{json.dumps(report['psum'])}")
+    del placed, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["elastic"] = fsdp_elastic(device, devices)
+    log(f"  (c) elastic restore ({smi}): {json.dumps(report['elastic'])}")
+    if len(set(devices)) >= FSDP_MOE_CARDS:
+        report["moe"] = fsdp_moe(devices)
+        log(f"  (d) olmoe-1b-7b FSDP ({smi}): {json.dumps(report['moe'])}")
+    else:
+        log(f"  (d) olmoe-1b-7b FSDP needs {FSDP_MOE_CARDS} cards, "
+            f"{len(set(devices))} visible: not run")
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    return report, dict(build.LAUNCHES)
+
+
 def check_path(name: str, launches: dict, kernels) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
@@ -3965,6 +4398,11 @@ def main() -> int:
     check_path("training", train_launches,
                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gf_matmul",
                 "scan_syndromes", "fbp_cn"))
+    log("phase 20: data-parallel training over a mesh (FSDP)")
+    fsdp, fsdp_launches = phase_fsdp(device)
+    log(f"  launches on the FSDP path: {fsdp_launches}")
+    log(f"  phase 20 took {fsdp['seconds']:.1f} s")
+    check_path("FSDP", fsdp_launches, FSDP_KERNELS)
     log("phase 18: the port's examples")
     examples = phase_examples()
     log(f"  examples: {json.dumps(examples)}")
@@ -3972,7 +4410,7 @@ def main() -> int:
         codec_launches, serve_launches, prefill_launches, pim_launches,
         engine_launches, telemetry_launches, pim_train_launches,
         substrate_launches, campaign_launches, train_launches,
-        mesh_launches, mesh_moe_launches))
+        mesh_launches, mesh_moe_launches, fsdp_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -3990,7 +4428,7 @@ def main() -> int:
                     "pim_serving": pim_serving, "engine": engine,
                     "telemetry": telemetry, "pim_training": pim_training,
                     "substrate": substrate, "examples": examples,
-                    "mesh": mesh_report,
+                    "mesh": mesh_report, "fsdp": fsdp,
                     "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
@@ -4007,6 +4445,7 @@ def main() -> int:
                     "launches_training": train_launches,
                     "launches_mesh": mesh_launches,
                     "launches_mesh_moe": mesh_moe_launches,
+                    "launches_fsdp": fsdp_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

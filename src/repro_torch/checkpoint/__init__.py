@@ -16,11 +16,14 @@ package's `repro.checkpoint`, in the same on-disk format.
   injected with `inject_storage_faults` through the `memory.channel`
   models, never by editing the `.prot.npz` files.
 
-Restored leaves take the template leaf's kind: a tensor leaf comes back as
-a tensor on that tensor's device, anything else as a numpy array. The
-JAX package's `shardings=` (restoring onto a mesh) comes with
-data-parallel training over a mesh (ROADMAP Queue 1). The protected array
-lives on `device` (the card unless the caller asks for the CPU).
+A placed leaf (`distributed.sharding.Placed`, a data-parallel run's) is
+saved whole, gathered one leaf at a time, so a checkpoint holds full
+arrays whatever mesh wrote it, as the JAX package's do. Restored leaves
+take the template leaf's kind (a tensor leaf comes back as a tensor on
+that tensor's device, anything else as a numpy array), or with
+`shardings=` are placed by them onto a mesh: the elastic restore, onto
+any mesh the arrays divide. The protected array lives on `device` (the
+card unless the caller asks for the CPU).
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import torch
 
 from ..core.codes import REGISTRY
 from ..device import resolve_device
+from ..distributed.sharding import NamedSharding, Placed, place
 from ..memory import Channel, ProtectedMemoryArray, StoredTensor
 
 _PROT_CODE = "wl1024_r08"
@@ -62,33 +66,52 @@ def _flatten(tree, prefix: str = "") -> dict[str, Any]:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, Placed):
+        return leaf.numpy()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
-def _unflatten_into(template, flat: dict[str, np.ndarray], prefix=""):
+def _sharding_at(shardings, key):
+    """The shardings under `key`: a `NamedSharding` (or None) covers its
+    whole subtree."""
+    if shardings is None or isinstance(shardings, NamedSharding):
+        return shardings
+    return shardings[key] if isinstance(shardings, dict) else \
+        shardings[int(key)]
+
+
+def _unflatten_into(template, flat: dict[str, np.ndarray], prefix="",
+                    shardings=None):
     items = _items(template)
     if items is None:
         if prefix not in flat:
             raise KeyError(f"checkpoint missing leaf {prefix!r}")
         arr = flat[prefix]
+        if shardings is not None:
+            return place(arr, shardings, name=prefix)
         if isinstance(template, torch.Tensor):
             return torch.as_tensor(arr, device=template.device)
         return arr
     subs = {key: _unflatten_into(sub, flat,
-                                 f"{prefix}/{key}" if prefix else key)
+                                 f"{prefix}/{key}" if prefix else key,
+                                 _sharding_at(shardings, key))
             for key, sub in items}
     if isinstance(template, dict):
         return {k: subs[str(k)] for k in template}
     return type(template)(subs[str(i)] for i in range(len(template)))
 
 
+def _hash_leaf(h, key: str, arr: np.ndarray) -> None:
+    h.update(key.encode())
+    h.update(np.ascontiguousarray(arr).tobytes())
+
+
 def _checksum(arrs: dict[str, np.ndarray]) -> str:
     h = hashlib.sha256()
     for k in sorted(arrs):
-        h.update(k.encode())
-        h.update(np.ascontiguousarray(arrs[k]).tobytes())
+        _hash_leaf(h, k, arrs[k])
     return h.hexdigest()[:16]
 
 
@@ -148,17 +171,21 @@ def save_checkpoint(directory: str, step: int, tree, *, extra: dict | None
                     = None, protect: bool = False, keep: int = 3,
                     device=None) -> str:
     """Atomically persist `tree` (params, optimizer state, ...) at `step`;
-    keep the newest `keep` checkpoints. With `protect`, the leaves are
-    encoded on `device`."""
+    keep the newest `keep` checkpoints. Each leaf is read to the host
+    (gathered whole, if placed) one at a time. With `protect`, the leaves
+    are encoded on `device`."""
     os.makedirs(directory, exist_ok=True)
-    flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    leaves = _flatten(tree)
     tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
     final = os.path.join(directory, f"step_{step:08d}")
     os.makedirs(tmp, exist_ok=True)
 
     mem = _protected_memory(_PROT_CODE, resolve_device(device)) \
         if protect else None
-    for k, arr in flat.items():
+    h = hashlib.sha256()
+    for k in sorted(leaves):
+        arr = _to_numpy(leaves[k])
+        _hash_leaf(h, k, arr)
         fn = os.path.join(tmp, k.replace("/", "__") + ".npy")
         if protect:
             st = mem.write(k, arr)
@@ -170,12 +197,12 @@ def save_checkpoint(directory: str, step: int, tree, *, extra: dict | None
     manifest = {
         "step": step,
         "time": time.time(),
-        "checksum": _checksum(flat),
+        "checksum": h.hexdigest()[:16],
         "protected": protect,
         "prot_version": _PROT_VERSION if protect else None,
         "prot_code": _PROT_CODE if protect else None,
         "extra": extra or {},
-        "leaves": sorted(flat),
+        "leaves": sorted(leaves),
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -200,11 +227,14 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore_checkpoint(directory: str, template, *, step: int | None = None,
-                       correct: bool = True, device=None):
+                       shardings=None, correct: bool = True, device=None):
     """Restore into `template`'s structure (the newest step by default).
-    A protected checkpoint is scanned and corrected on `device`. Returns
-    (tree, manifest); the manifest of a protected one carries the
-    decoder's `correction_stats`."""
+    `shardings`: a tree of `NamedSharding`s that is a prefix of the
+    template's (a sharding places every leaf under it; None leaves a
+    subtree to the template's kinds), each leaf placed onto its mesh (the
+    elastic restore). A protected checkpoint is scanned and corrected on
+    `device`. Returns (tree, manifest); the manifest of a protected one
+    carries the decoder's `correction_stats`."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -241,4 +271,4 @@ def restore_checkpoint(directory: str, template, *, step: int | None = None,
         if correct:
             raise OSError(f"checkpoint {d} failed post-correction checksum "
                           "(storage errors exceeded the code's strength)")
-    return _unflatten_into(template, flat), manifest
+    return _unflatten_into(template, flat, shardings=shardings), manifest

@@ -12,6 +12,10 @@ precoded PIM weights of its `encode_params_for_pim` where the tree has
 them, so both packages can run the same model on the same integers, and `opt_state_from_arrays` carries an
 optimizer state (AdamW's `m`/`v`/`step`, Adafactor's `f`/`step`/`m`)
 across the same way, so both packages' optimizers start from one state.
+Given `shardings` (`launch.steps.build_train`'s), both place the arrays
+onto a mesh instead, slice by slice (`params_from_arrays` then returns a
+`models.lm.PlacedLM`), so a data-parallel run starts from the JAX
+package's state.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 from .configs.base import ArchConfig
 from .core.construction import LDPCCode
 from .device import resolve_device
+from .distributed.sharding import place
 from .memory.array import StoredTensor
-from .models.lm import LM, jax_path
+from .models.lm import LM, PlacedLM, jax_path
 from .optim import stacked_leaf
 
 CODE_FIELDS = ("p", "n", "k", "H", "G", "P", "cn_vns", "cn_coefs", "cn_mask",
@@ -60,7 +65,8 @@ def stored_from_arrays(enc, dtype, shape, nbytes: int,
                         tuple(shape), int(nbytes))
 
 
-def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
+def params_from_arrays(tree, cfg: ArchConfig, device=None,
+                       shardings=None) -> LM | PlacedLM:
     """The JAX package's parameter pytree as numpy arrays
     (`jax.tree.map(np.asarray, params)`: "embed", "final_norm",
     "lm_head" unless tied, "groups"/"pos{i}" subtrees whose leaves are
@@ -70,7 +76,21 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None) -> LM:
     default). Every parameter must be present with the model's shape. The
     precoded leaves of `repro.models.encode_params_for_pim` (`w_down_enc`,
     `w_down_alpha`, `wo_enc`, `wo_alpha`), where present, become the
-    layers' PIM buffers (`LM.pim_leaves`)."""
+    layers' PIM buffers (`LM.pim_leaves`). With `shardings` ({leaf path:
+    a `NamedSharding` a tensor}), a `PlacedLM` placed by them (no PIM
+    buffers)."""
+    if shardings is not None:
+        placed = {}
+        for name, param in LM(cfg, device="meta").named_parameters():
+            path, g = jax_path(name, cfg)
+            arr = np.asarray(_node(tree, path) if g is None
+                             else _node(tree, path)[g], dtype=np.float32)
+            if arr.shape != tuple(param.shape):
+                raise ValueError(f"{name}: array of shape {arr.shape}, "
+                                 f"parameter {tuple(param.shape)}")
+            placed[name] = place(arr, shardings["/".join(path)][g or 0],
+                                 name=name)
+        return PlacedLM(cfg, placed)
     device = resolve_device(device)
     model = LM(cfg, device=device)
     with torch.no_grad():
@@ -107,9 +127,10 @@ def _node(tree, path):
     return tree
 
 
-def _leaf_lists(tree, model: LM, device) -> dict[str, list[torch.Tensor]]:
+def _leaf_lists(tree, model, device, shardings=None) -> dict[str, list]:
     """A params-shaped JAX pytree of numpy arrays -> {leaf path: tensors},
-    group leaves split into their per-layer slices (as `LM.leaves`)."""
+    group leaves split into their per-layer slices (as `LM.leaves`),
+    each placed by `shardings[path][i]` where given."""
     out = {}
     for path, params in model.leaves().items():
         arr = np.asarray(_node(tree, path.split("/")), dtype=np.float32)
@@ -117,25 +138,34 @@ def _leaf_lists(tree, model: LM, device) -> dict[str, list[torch.Tensor]]:
         if len(parts) != len(params):
             raise ValueError(f"{path}: {len(parts)} arrays for "
                              f"{len(params)} parameters")
-        out[path] = [torch.tensor(a, device=device) for a in parts]
+        out[path] = [torch.tensor(a, device=device) if shardings is None
+                     else place(a, shardings[path][i], name=path)
+                     for i, a in enumerate(parts)]
     return out
 
 
-def opt_state_from_arrays(state, model: LM, device=None) -> dict:
+def opt_state_from_arrays(state, model, device=None, shardings=None) -> dict:
     """The JAX package's optimizer state as numpy arrays
     (`jax.tree.map(np.asarray, opt_state)`) -> the port's state for
-    `model` (`optim.adamw` / `optim.adafactor`): moments per leaf as lists
-    of per-layer tensors, Adafactor's factored `vr`/`vc` kept whole (they
-    belong to the stacked leaf), `step` an int."""
-    device = resolve_device(device)
+    `model` (an `LM` or a `PlacedLM`; `optim.adamw` / `optim.adafactor`):
+    moments per leaf as lists of per-layer tensors, Adafactor's factored
+    `vr`/`vc` kept whole (they belong to the stacked leaf), `step` an
+    int. With `shardings` (the optimizer state's of `build_train`), each
+    array placed by its sharding."""
+    device = None if shardings is not None else resolve_device(device)
     out = {"step": int(np.asarray(state["step"]))}
     for key in ("m", "v"):
         if key in state:
-            out[key] = _leaf_lists(state[key], model, device)
+            out[key] = _leaf_lists(state[key], model, device,
+                                   None if shardings is None
+                                   else shardings[key])
     if "f" in state:
-        out["f"] = {path: {k: torch.tensor(np.asarray(a, np.float32),
-                                           device=device)
-                           for k, a in _node(state["f"],
-                                             path.split("/")).items()}
-                    for path in model.leaves()}
+        out["f"] = {}
+        for path in model.leaves():
+            arrs = _node(state["f"], path.split("/"))
+            out["f"][path] = {
+                k: torch.tensor(np.asarray(a, np.float32), device=device)
+                if shardings is None else
+                place(np.asarray(a, np.float32), shardings["f"][path][k],
+                      name=f"{path}/{k}") for k, a in arrs.items()}
     return out

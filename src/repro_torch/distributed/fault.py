@@ -8,10 +8,10 @@ counterparts of the JAX package's `distributed/fault.py`.
 - `StragglerWatchdog` tracks a step-time EWMA; a step slower than
   `threshold x` the EWMA is flagged, counted and handed to an injectable
   policy hook.
-
-`elastic_shardings` (re-placement onto another mesh) comes with
-data-parallel training over a mesh (ROADMAP Queue 1); restores come back
-on the template's devices.
+- `elastic_shardings()` derives the shardings of a tree of logical axes
+  on a mesh, which may differ from the one a checkpoint was written on:
+  checkpoints hold whole arrays, so `restore_or_init(...,
+  shardings=...)` places them onto any mesh they divide (or none).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from collections.abc import Callable
 from typing import Any
 
 from .. import checkpoint as ckpt
+from .sharding import named_sharding
 
 log = logging.getLogger("repro_torch.fault")
 
@@ -53,6 +54,20 @@ class StragglerWatchdog:
         return dt
 
 
+def elastic_shardings(mesh, rules: dict, axes_tree):
+    """The tree of `NamedSharding`s of `axes_tree` (logical axes: a tuple
+    is a leaf, dicts and lists are nodes, None stays None) under `rules`
+    on `mesh`."""
+    if axes_tree is None:
+        return None
+    if isinstance(axes_tree, tuple):
+        return named_sharding(mesh, rules, axes_tree)
+    if isinstance(axes_tree, dict):
+        return {k: elastic_shardings(mesh, rules, v)
+                for k, v in axes_tree.items()}
+    return [elastic_shardings(mesh, rules, v) for v in axes_tree]
+
+
 @dataclasses.dataclass
 class RestartManager:
     """`device` is where a protected checkpoint is encoded and corrected
@@ -64,15 +79,18 @@ class RestartManager:
     protect: bool = False
     device: Any = None
 
-    def restore_or_init(self, init_fn: Callable[[], Any], template=None):
+    def restore_or_init(self, init_fn: Callable[[], Any], template=None,
+                        shardings=None):
         """Returns (state, start_step, data_state). `state` comes from the
-        newest checkpoint if one exists, else `init_fn()`."""
+        newest checkpoint if one exists (placed by `shardings`, a prefix
+        tree of the state's), else `init_fn()`."""
         step = ckpt.latest_step(self.directory)
         if step is None:
             return init_fn(), 0, None
         template = template if template is not None else init_fn()
         state, manifest = ckpt.restore_checkpoint(
-            self.directory, template, step=step, device=self.device)
+            self.directory, template, step=step, shardings=shardings,
+            device=self.device)
         log.info("restored checkpoint step=%d from %s", step, self.directory)
         return state, step, manifest["extra"].get("data_state")
 

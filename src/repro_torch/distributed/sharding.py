@@ -14,8 +14,22 @@ and how one card runs a 4-shard mesh. `data_mesh()` and
 `launch.mesh.make_host_mesh()` name each visible card once. A mesh that
 mixes CPU and CUDA devices raises.
 
-- `use_rules` and `active_mesh`: the ambient mesh, which
+- `use_rules(mesh, rules=None)` and `active_mesh`: the ambient mesh
+  and its logical-axis rules (`RULES_SINGLE_POD` by default), whose mesh
   `nn.moe`'s `moe_impl="shard_ep"` reads, as in the JAX module.
+- `RULES_SINGLE_POD`: the default logical-to-mesh axis table, which
+  `launch.cells.rules_for_cell` starts from.
+- `NamedSharding` and `named_sharding(mesh, rules, axes)`: a mesh and a
+  spec (one entry a dimension: `None` whole, or the mesh axis, or tuple
+  of axes, that splits it), as `jax.sharding.NamedSharding`.
+- `Placed` and `place`: a tensor placed by a `NamedSharding`, each mesh
+  position holding its slice (positions along axes the spec does not
+  name hold the same slice), and `Placed.gather`, the whole tensor on
+  one device (differentiable: the backward sends each slice's gradient
+  back to its device). A dimension the named axes do not divide raises,
+  as `jax.jit` with such `in_shardings` does. The data-parallel trainer
+  (`launch.steps.build_train(mesh=...)`) keeps its parameters and
+  optimizer states so.
 - `decode_sharded` and `scan_syndromes_sharded`: NB-LDPC decode and the
   syndrome scan are per-word independent, so the batch is cut into one
   row block per device of the `data` axis, each block decoded or scanned
@@ -31,15 +45,15 @@ The shards run one after the other from the host: each shard's decode
 reads one byte back per early-exit iteration, so shards on different
 cards do not overlap yet (ROADMAP Queue 2).
 
-The logical-axis tables (`RULES_SINGLE_POD`, `RULES_MULTI_POD`,
-`rules_for`), `resolve_spec`, `constrain` and `named_sharding` place the
-dense layers' tensors by logical axis. Nothing of this slice reads them,
-so they wait for the tensor-parallel slice (ROADMAP Queue 1), and
-`use_rules` takes the mesh alone until then.
+`constrain` (a sharding constraint on an activation), `resolve_spec`,
+the multi-pod table and the sequence-sharded KV rules are read only by
+the tensor-parallel layers and the serving cells, and come with them
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
 import collections
+import math
 import threading
 from contextlib import contextmanager
 
@@ -52,7 +66,9 @@ from ..core.gf import symbol_dtype
 from ..device import as_tensor, resolve_device
 from ..kernels.gf_matmul import scan_syndromes_routed
 
-__all__ = ["Mesh", "use_rules", "active_mesh", "data_mesh",
+__all__ = ["Mesh", "RULES_SINGLE_POD", "use_rules", "active_mesh",
+           "NamedSharding", "named_sharding", "Placed", "place",
+           "place_zeros", "data_mesh",
            "axis_devices", "split_rows", "gather_rows", "shard_page",
            "decode_shards", "gather_decode", "decode_sharded",
            "scan_shards", "scan_syndromes_sharded"]
@@ -114,19 +130,260 @@ class Mesh:
                 f"[{', '.join(str(d) for d in self.devices.flat)}])")
 
 
+# The default logical -> mesh axis table (the JAX module's single-pod
+# one). `None` means "whole" (replicated); a value is one mesh axis or a
+# tuple of them.
+RULES_SINGLE_POD = {
+    "batch": "data",
+    "expert": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "d_ff": "model",
+    "d_inner": "model",
+    "vocab": "model",
+    "kv_seq": None,       # becomes "data" for long-context decode cells
+    "seq": None,
+    "d_model": None,
+    "code_blocks": "model",
+}
+
+
 @contextmanager
-def use_rules(mesh: Mesh | None):
-    """Make `mesh` the ambient one for this thread; `None` clears it."""
-    prev = getattr(_CTX, "mesh", None)
-    _CTX.mesh = mesh
+def use_rules(mesh: Mesh | None, rules: dict | None = None):
+    """Make `mesh` and its logical-axis `rules` (`RULES_SINGLE_POD` when
+    None) the ambient ones for this thread; `None` clears them."""
+    prev = getattr(_CTX, "state", None)
+    _CTX.state = None if mesh is None else (
+        mesh, dict(RULES_SINGLE_POD) if rules is None else rules)
     try:
         yield
     finally:
-        _CTX.mesh = prev
+        _CTX.state = prev
 
 
 def active_mesh() -> Mesh | None:
-    return getattr(_CTX, "mesh", None)
+    st = getattr(_CTX, "state", None)
+    return st[0] if st else None
+
+
+# ---------------------------------------------------------------------------
+# shardings and placed tensors
+# ---------------------------------------------------------------------------
+
+
+def _spec_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedSharding:
+    """`mesh` and `spec`, the port's `jax.sharding.NamedSharding`: entry d
+    of `spec` splits dimension d of a tensor over a mesh axis (a name),
+    over several (a tuple, the first the major one) or not at all
+    (None); dimensions past the spec are whole. Mesh positions that differ
+    only along axes the spec does not name hold the same slice."""
+
+    def __init__(self, mesh: Mesh, spec=()):
+        self.mesh, self.spec = mesh, tuple(spec)
+        named = [a for e in self.spec for a in _spec_axes(e)]
+        unknown = [a for a in named if a not in mesh.axis_names]
+        if unknown:
+            raise ValueError(f"spec {self.spec} names {unknown}, not axes "
+                             f"of the mesh {mesh.axis_names}")
+        if len(set(named)) != len(named):
+            raise ValueError(f"spec {self.spec} uses a mesh axis twice")
+
+    def parts(self, ndim: int) -> tuple:
+        """The number of slices each of `ndim` dimensions is cut into."""
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} is longer than the "
+                             f"tensor's {ndim} dimensions")
+        shape = self.mesh.shape
+        return tuple(math.prod(shape[a] for a in _spec_axes(e))
+                     for e in self.spec + (None,) * (ndim - len(self.spec)))
+
+    def shard_shape(self, shape, name: str = "tensor") -> tuple:
+        """The shape of each slice of a tensor of `shape`; a dimension the
+        named axes do not divide raises (as `jax.jit` does)."""
+        out = []
+        for d, (n, k) in enumerate(zip(shape, self.parts(len(shape)),
+                                       strict=True)):
+            if n % k:
+                raise ValueError(
+                    f"{name}: dimension {d} of size {n} is not divisible by "
+                    f"{k}, the size of mesh axes {_spec_axes(self.spec[d])} "
+                    f"(full shape: {tuple(shape)})")
+            out.append(n // k)
+        return tuple(out)
+
+    def index(self, pos: tuple, ndim: int) -> tuple:
+        """The slice that mesh position `pos` holds: its index along each
+        dimension."""
+        names = self.mesh.axis_names
+        sizes = self.mesh.devices.shape
+        out = []
+        for e in self.spec + (None,) * (ndim - len(self.spec)):
+            i = 0
+            for a in _spec_axes(e):
+                k = names.index(a)
+                i = i * sizes[k] + pos[k]
+            out.append(i)
+        return tuple(out)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __hash__(self) -> int:
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, spec={self.spec})"
+
+
+def named_sharding(mesh: Mesh, rules: dict, axes) -> NamedSharding:
+    """Logical `axes` -> the sharding `rules` give them on `mesh`."""
+    return NamedSharding(mesh, tuple(None if a is None else rules.get(a)
+                                     for a in axes))
+
+
+class Placed:
+    """A tensor placed by a `NamedSharding`: `shape` is the whole
+    tensor's, `local[pos]` the slice mesh position `pos` holds on that
+    position's device. Positions holding the same slice on the same
+    device share one tensor; a slice on several devices has a copy on
+    each (a replica)."""
+
+    def __init__(self, sharding: NamedSharding, shape, local: np.ndarray):
+        self.sharding, self.shape, self.local = sharding, tuple(shape), local
+        self._slices: dict | None = None
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.flat[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def positions(self):
+        """(mesh position, its tensor) in mesh order."""
+        for pos in np.ndindex(self.local.shape):
+            yield pos, self.local[pos]
+
+    def distinct(self) -> list:
+        """Every tensor once, in mesh order (what an elementwise update
+        writes)."""
+        seen, out = set(), []
+        for _pos, t in self.positions():
+            if id(t) not in seen:
+                seen.add(id(t))
+                out.append(t)
+        return out
+
+    def slices(self) -> dict:
+        """{slice index: its distinct copies in mesh order}, in slice
+        order (worked out once: the positions' tensors never change)."""
+        if self._slices is None:
+            out: dict[tuple, list] = {}
+            for pos, t in self.positions():
+                copies = out.setdefault(self.sharding.index(pos, self.ndim),
+                                        [])
+                if all(c is not t for c in copies):
+                    copies.append(t)
+            self._slices = dict(sorted(out.items()))
+        return self._slices
+
+    def unique(self) -> list:
+        """One copy of each slice (the first in mesh order), in slice
+        order: what a reduction over the whole tensor reads."""
+        return [copies[0] for copies in self.slices().values()]
+
+    def map(self, fn) -> Placed:
+        """`fn` of each distinct tensor, placed as this one (sharing kept)."""
+        done: dict[int, torch.Tensor] = {}
+        local = np.empty(self.local.shape, dtype=object)
+        for pos, t in self.positions():
+            if id(t) not in done:
+                done[id(t)] = fn(t)
+            local[pos] = done[id(t)]
+        return Placed(self.sharding, self.shape, local)
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole tensor on `device`: each slice from its copy there,
+        else from its first copy, concatenated in mesh order. Autograd
+        sends each slice's gradient back to the copy it was read from."""
+        device = _device(device)
+        parts = self.sharding.parts(self.ndim)
+        slices = self.slices()
+
+        def pick(copies):
+            for t in copies:
+                if t.device == device:
+                    return t
+            return copies[0].to(device, non_blocking=True)
+
+        def build(prefix):
+            d = len(prefix)
+            if d == self.ndim:
+                return pick(slices[prefix])
+            if parts[d] == 1:
+                return build(prefix + (0,))
+            return torch.cat([build(prefix + (i,)) for i in range(parts[d])],
+                             dim=d)
+        return build(())
+
+    def numpy(self) -> np.ndarray:
+        """The whole tensor as a numpy array (read slice by slice)."""
+        with torch.no_grad():
+            return self.gather("cpu").numpy()
+
+    def __repr__(self) -> str:
+        return (f"Placed(shape={self.shape}, dtype={self.dtype}, "
+                f"{self.sharding!r})")
+
+
+def _placed(shape, sharding: NamedSharding, name: str, make) -> Placed:
+    """A `Placed` of `shape` whose slice `idx` on device `dev` is
+    `make(idx, slice shape, dev)`, made once for each slice and device."""
+    sub = sharding.shard_shape(shape, name)
+    mesh = sharding.mesh
+    made: dict[tuple, torch.Tensor] = {}
+    local = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(mesh.devices.shape):
+        dev = mesh.devices[pos]
+        key = (sharding.index(pos, len(shape)), dev)
+        if key not in made:
+            made[key] = make(key[0], sub, dev)
+        local[pos] = made[key]
+    return Placed(sharding, shape, local)
+
+
+def place(x, sharding: NamedSharding, *, name: str = "tensor",
+          dtype=None) -> Placed:
+    """A tensor or array placed by `sharding`: each mesh position gets its
+    slice, copied onto its device (one copy for each slice and device).
+    Raises where the named axes do not divide a dimension."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    dtype = x.dtype if dtype is None else dtype
+    if x.device.type not in ("cpu", sharding.mesh.device.type):
+        raise ValueError(f"{name} on {x.device}, mesh on "
+                         f"{sharding.mesh.device.type} devices")
+
+    def copy(idx, sub, dev):
+        sl = tuple(slice(i * n, (i + 1) * n) for i, n in zip(idx, sub))
+        return torch.empty(sub, dtype=dtype, device=dev).copy_(x[sl])
+    return _placed(tuple(x.shape), sharding, name, copy)
+
+
+def place_zeros(shape, sharding: NamedSharding, *, dtype=torch.float32,
+                name: str = "tensor") -> Placed:
+    """Zeros of `shape` placed by `sharding`, made slice by slice (the
+    whole tensor never exists)."""
+    return _placed(tuple(shape), sharding, name, lambda _idx, sub, dev:
+                   torch.zeros(sub, dtype=dtype, device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ is not ported, by design.
 from __future__ import annotations
 
 import functools
+from contextlib import contextmanager, nullcontext
 
 import torch
 import torch.nn.functional as F
@@ -56,9 +57,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
+from ..distributed.sharding import Placed, named_sharding, place
 from ..nn.layers import CDT, Block, RMSNorm, _param
+from ..nn.mamba import mamba_param_axes
 
-__all__ = ["LM", "init_params", "forward", "loss_fn", "init_caches",
+__all__ = ["LM", "init_params", "param_axes", "param_shardings",
+           "PlacedLM", "place_params", "forward", "loss_fn", "init_caches",
            "prefill", "decode_step", "encode_params_for_pim"]
 
 # the encoder's layers: bidirectional attention is chosen at apply time
@@ -149,6 +153,178 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | int = 0, *,
     return LM(cfg, generator=generator, device=device)
 
 
+def _block_axes(spec: LayerSpec, cfg: ArchConfig) -> dict:
+    """Logical sharding axes of one layer's leaves (the JAX package's
+    `_block_axes`), as a tree of its subtree names."""
+    norm = {"scale": (None,)}
+    attn = {"wq": ("fsdp", "heads_flat"), "wk": ("fsdp", "kv_flat"),
+            "wv": ("fsdp", "kv_flat"), "wo": ("heads_flat", "fsdp")}
+    mlp = {"w_gate": ("fsdp", "d_ff"), "w_up": ("fsdp", "d_ff"),
+           "w_down": ("d_ff", "fsdp")}
+    a: dict = {"norm1": norm}
+    if spec.kind == "mamba":
+        a["mamba"] = {k: tuple("fsdp" if ax == "d_model" else ax for ax in v)
+                      for k, v in mamba_param_axes().items()}
+    elif spec.kind == "encdec":
+        a.update(attn=attn, norm_x=norm, xattn=attn)
+    else:
+        a["attn"] = attn
+    has_ffn = spec.moe or cfg.d_ff > 0
+    if spec.kind == "mamba" and cfg.d_ff == 0 and not spec.moe:
+        has_ffn = False
+    if has_ffn:
+        a["norm2"] = norm
+        if spec.moe:
+            a["moe"] = {"router": ("fsdp", None),
+                        "w_gate": ("expert", "fsdp", None),
+                        "w_up": ("expert", "fsdp", None),
+                        "w_down": ("expert", None, "fsdp")}
+            if spec.dense_residual:
+                a["mlp"] = mlp
+        else:
+            a["mlp"] = mlp
+    if spec.kind == "encdec":
+        a.update(norm2=norm, mlp=mlp)
+    return a
+
+
+def _flat(tree: dict, prefix: str, lead: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path, lead) if isinstance(v, dict)
+                   else {path: lead + v})
+    return out
+
+
+def param_axes(cfg: ArchConfig) -> dict[str, tuple]:
+    """Logical sharding axes of every leaf, keyed like `LM.leaves()` (the
+    JAX package's `param_axes`, flattened to its paths): a group or
+    encoder leaf's axes start with None, the stacking axis; each of its
+    per-layer tensors takes the rest."""
+    axes = {"embed": ("vocab", "fsdp"), "final_norm/scale": (None,)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("fsdp", "vocab")
+    for i, spec in enumerate(cfg.group_spec):
+        axes.update(_flat(_block_axes(spec, cfg), f"groups/pos{i}",
+                          (None,)))
+    if cfg.encoder_groups > 0:
+        axes.update(_flat(_block_axes(_ENC_SPEC, cfg), "encoder", (None,)))
+        axes["enc_norm/scale"] = (None,)
+    return dict(sorted(axes.items()))
+
+
+def layer_axes(path: str, axes: tuple) -> tuple:
+    """The axes of each tensor of a leaf: a stacked leaf's less its
+    stacking axis."""
+    return axes[1:] if path.startswith(("groups/", "encoder/")) else axes
+
+
+def param_shardings(cfg: ArchConfig, mesh, rules: dict) -> dict:
+    """{leaf path: one `NamedSharding` per tensor of the leaf} under
+    `rules` on `mesh`, keyed and listed like `LM.leaves()`."""
+    counts = {"groups": cfg.n_groups, "encoder": cfg.encoder_groups}
+    return {path: [named_sharding(mesh, rules, layer_axes(path, ax))]
+            * counts.get(path.split("/")[0], 1)
+            for path, ax in param_axes(cfg).items()}
+
+
+class PlacedLM:
+    """An LM's parameters placed on a mesh (FSDP): `placed` maps each
+    parameter name of `LM` to its `Placed` tensor, whose slices are
+    leaves that gather gradients; `skeleton` is the `LM` on the meta
+    device, the structure `forward` runs."""
+
+    def __init__(self, cfg: ArchConfig, placed: dict[str, Placed]):
+        self.cfg = cfg
+        self.skeleton = LM(cfg, device="meta")
+        names = [n for n, _ in self.skeleton.named_parameters()]
+        if sorted(names) != sorted(placed):
+            raise ValueError("placed parameters do not match the model's: "
+                             f"{sorted(set(names) ^ set(placed))}")
+        self.placed = {n: placed[n] for n in names}
+        for t in self.distinct():
+            t.requires_grad_(True)
+
+    @property
+    def mesh(self):
+        return next(iter(self.placed.values())).sharding.mesh
+
+    def leaves(self) -> dict[str, list[Placed]]:
+        """The placed parameters keyed and listed like `LM.leaves()`."""
+        out: dict[str, list[Placed]] = {}
+        for name, p in self.placed.items():
+            path, _g = jax_path(name, self.cfg)
+            out.setdefault("/".join(path), []).append(p)
+        return dict(sorted(out.items()))
+
+    def distinct(self) -> list[torch.Tensor]:
+        """Every slice tensor once."""
+        return [t for p in self.placed.values() for t in p.distinct()]
+
+    def zero_grad(self) -> None:
+        for t in self.distinct():
+            t.grad = None
+
+    def weights(self, device) -> ShardWeights:
+        return ShardWeights(self, device)
+
+    @torch.no_grad()
+    def gather(self, device) -> LM:
+        """The whole model on `device` (a copy)."""
+        model = LM(self.cfg, device=device)
+        for name, param in model.named_parameters():
+            param.copy_(self.placed[name].gather(device))
+        return model
+
+
+def place_params(model: LM, shardings: dict) -> PlacedLM:
+    """`model`'s parameters placed by `shardings` (`param_shardings`)."""
+    placed = {}
+    for name, param in model.named_parameters():
+        path, g = jax_path(name, model.cfg)
+        sh = shardings["/".join(path)][g or 0]
+        placed[name] = place(param.detach(), sh, name=name)
+    return PlacedLM(model.cfg, placed)
+
+
+class ShardWeights:
+    """One data shard's view of a `PlacedLM`: inside `use(*names)` the
+    skeleton's parameters under those module or parameter names are the
+    placed ones gathered whole onto `device`."""
+
+    def __init__(self, model: PlacedLM, device):
+        self.model, self.device = model, torch.device(device)
+        self._under: dict[str, list[str]] = {}
+
+    def _names(self, prefix: str) -> list[str]:
+        if prefix not in self._under:
+            self._under[prefix] = [n for n in self.model.placed
+                                   if n == prefix or
+                                   n.startswith(prefix + ".")]
+        return self._under[prefix]
+
+    @contextmanager
+    def use(self, *prefixes):
+        swapped = []
+        try:
+            for prefix in prefixes:
+                for name in self._names(prefix):
+                    mod_name, _, leaf = name.rpartition(".")
+                    mod = self.model.skeleton.get_submodule(mod_name)
+                    swapped.append((mod, leaf, mod._parameters[leaf]))
+                    mod._parameters[leaf] = \
+                        self.model.placed[name].gather(self.device)
+            yield
+        finally:
+            for mod, leaf, p in reversed(swapped):
+                mod._parameters[leaf] = p
+
+
+def _using(weights: ShardWeights | None, *prefixes):
+    return nullcontext() if weights is None else weights.use(*prefixes)
+
+
 # ---------------------------------------------------------------------------
 # shared pieces
 # ---------------------------------------------------------------------------
@@ -171,8 +347,8 @@ def _head_logits(params: LM, cfg: ArchConfig, x) -> torch.Tensor:
     return logits
 
 
-def _aux(params: LM, aux):
-    return None if aux is None else torch.as_tensor(aux, device=params.device)
+def _aux(aux, device):
+    return None if aux is None else torch.as_tensor(aux, device=device)
 
 
 def _block_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
@@ -262,19 +438,25 @@ def _counted_once(fn, pim_ctx):
 
 
 def _run_group(params: LM, cfg: ArchConfig, g: int, x, positions, aux=None,
-               pim_ctx=None):
+               pim_ctx=None, weights=None, split=None):
     for i, spec in enumerate(cfg.group_spec):
-        x, _ = params.block(g, i)(x, spec, cfg, positions=positions,
-                                  aux=aux, pim_ctx=pim_ctx)
+        idx = g * len(cfg.group_spec) + i
+        with _using(weights, f"blocks.{idx}"):
+            x, _ = params.blocks[idx](x, spec, cfg, positions=positions,
+                                      aux=aux, pim_ctx=pim_ctx, split=split)
     return x
 
 
-def _encoder_layer(blk: Block, cfg: ArchConfig, x, positions):
-    x = x + blk.attn.encode(blk.norm1(x), cfg, positions).to(CDT)
-    return x + blk.mlp(blk.norm2(x))
+def _encoder_layer(params: LM, cfg: ArchConfig, j: int, x, positions,
+                   weights=None):
+    with _using(weights, f"encoder.{j}"):
+        blk = params.encoder[j]
+        x = x + blk.attn.encode(blk.norm1(x), cfg, positions).to(CDT)
+        return x + blk.mlp(blk.norm2(x))
 
 
-def _run_encoder(params: LM, cfg: ArchConfig, aux, remat: bool = False):
+def _run_encoder(params: LM, cfg: ArchConfig, aux, remat: bool = False,
+                 weights=None):
     """The bidirectional encoder over (B, Na, d) frame embeddings ->
     (B, Na, d) bf16 after `enc_norm`."""
     if aux is None:
@@ -282,14 +464,16 @@ def _run_encoder(params: LM, cfg: ArchConfig, aux, remat: bool = False):
                          "embeddings (B, Na, d_model)")
     x = aux.to(CDT)
     positions = torch.arange(x.shape[1], device=x.device)
-    for blk in params.encoder:
-        x = (_remat(cfg, _encoder_layer, blk, cfg, x, positions) if remat
-             else _encoder_layer(blk, cfg, x, positions))
-    return params.enc_norm(x)
+    for j in range(cfg.encoder_groups):
+        x = (_remat(cfg, _encoder_layer, params, cfg, j, x, positions,
+                    weights) if remat
+             else _encoder_layer(params, cfg, j, x, positions, weights))
+    with _using(weights, "enc_norm"):
+        return params.enc_norm(x)
 
 
 def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
-            pim_ctx=None) -> torch.Tensor:
+            pim_ctx=None, weights=None, split=None) -> torch.Tensor:
     """tokens: (B, S) ints; aux: (B, Na, d_model) modality embeddings
     (the encoder's input for encoder-decoder configs, the cross-attention
     K/V source for cross configs). Returns logits (B, S, V) float32. With
@@ -297,33 +481,43 @@ def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
     activations are recomputed in the backward pass by
     `cfg.remat_policy`. `pim_ctx` protects its target projections, in
     the recomputation too; the gradient through them is the JAX
-    package's, through the scales."""
+    package's, through the scales. One data shard of a placed model runs
+    with `params` its `PlacedLM.skeleton`, `weights` its `ShardWeights`
+    and `split` the batch's `nn.moe.DataSplit`."""
     remat = cfg.remat and torch.is_grad_enabled()
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=params.device)
-    aux = _aux(params, aux)
+    with _using(weights, "embed"):
+        x = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    aux = _aux(aux, x.device)
     if cfg.encoder_groups > 0:
-        aux = _run_encoder(params, cfg, aux, remat)
+        aux = _run_encoder(params, cfg, aux, remat, weights)
     for g in range(cfg.n_groups):
-        if remat:
-            x = _remat(cfg, _counted_once(_run_group, pim_ctx), params,
-                       cfg, g, x, positions, aux, pim_ctx)
-        else:
-            x = _run_group(params, cfg, g, x, positions, aux, pim_ctx)
-    return _head_logits(params, cfg, x)
+        args = (params, cfg, g, x, positions, aux, pim_ctx, weights, split)
+        x = (_remat(cfg, _counted_once(_run_group, pim_ctx), *args) if remat
+             else _run_group(*args))
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    with _using(weights, "final_norm", head):
+        return _head_logits(params, cfg, x)
 
 
-def loss_fn(params: LM, cfg: ArchConfig, batch, *, pim_ctx=None):
+def loss_fn(params: LM, cfg: ArchConfig, batch, *, pim_ctx=None,
+            weights=None, split=None, count=None):
     """Causal-LM cross entropy (a 0-d float32 tensor). batch: "tokens"
-    (B, S) and "labels" (B, S), label -1 = ignore; optional "aux"."""
+    (B, S) and "labels" (B, S), label -1 = ignore; optional "aux". The
+    nll sum is divided by `count`, where given (the whole batch's label
+    count, for one data shard of it), else by this batch's own count (at
+    least 1). `weights` and `split` as for `forward`."""
     logits = forward(params, cfg, batch["tokens"], aux=batch.get("aux"),
-                     pim_ctx=pim_ctx)
+                     pim_ctx=pim_ctx, weights=weights, split=split)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     mask = (labels >= 0).to(torch.float32)
     lab = torch.clamp_min(labels, 0).to(torch.int64)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
-    tot = torch.clamp_min(mask.sum(), 1.0)
+    # a fill, not a copy from the host: a copy would wait for the card
+    tot = torch.clamp_min(mask.sum(), 1.0) if count is None else \
+        torch.full((), float(count), dtype=torch.float32,
+                   device=logits.device)
     return (nll * mask).sum() / tot
 
 
@@ -346,7 +540,7 @@ def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=params.device)
-    aux = _aux(params, aux)
+    aux = _aux(aux, params.device)
     if cfg.encoder_groups > 0:
         aux = _run_encoder(params, cfg, aux)
     entries: dict[str, dict[str, list]] = {
@@ -398,7 +592,7 @@ def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos,
     positions = torch.as_tensor(pos, dtype=torch.int32,
                                 device=params.device).reshape(-1, 1)
     positions = positions.expand(B, 1)
-    aux = _aux(params, aux)
+    aux = _aux(aux, params.device)
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.group_spec):
             x, nc = params.block(g, i)(x, spec, cfg, positions=positions,
@@ -429,7 +623,7 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
     x = _embed(params, cfg, token)
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=params.device)
-    aux = _aux(params, aux)
+    aux = _aux(aux, params.device)
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.group_spec):
             view = {name: buf[g] for name, buf in caches[f"pos{i}"].items()}

@@ -310,9 +310,10 @@ class Block(nn.Module):
             if not spec.moe or spec.dense_residual:
                 self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
 
-    def ffn(self, h, spec: LayerSpec, cfg: ArchConfig, pim_ctx=None):
+    def ffn(self, h, spec: LayerSpec, cfg: ArchConfig, pim_ctx=None,
+            split=None):
         if spec.moe:
-            y = self.moe(h, cfg)
+            y = self.moe(h, cfg, split)
             if spec.dense_residual:
                 y = y + self.mlp(h, pim_ctx)
             return y
@@ -328,11 +329,14 @@ class Block(nn.Module):
         return attn.cross_kv(aux, cfg)
 
     def forward(self, x, spec: LayerSpec, cfg: ArchConfig, *, positions,
-                aux=None, cache=None, cache_pos=None, pim_ctx=None):
+                aux=None, cache=None, cache_pos=None, pim_ctx=None,
+                split=None):
         """Returns (x, new_cache). new_cache: a mamba layer's state (its
         full pass's final state, or the decode step's); a self-attention
         layer's dense cache written in place; cross K/V (`ck`, `cv`) when
-        decoding; None for prefill attention and `KVSource` caches."""
+        decoding; None for prefill attention and `KVSource` caches.
+        `split` (an `nn.moe.DataSplit`) gives an MoE FFN the dispatch of
+        the whole batch that x is one data shard of."""
         new_cache: dict | None = None
         if spec.kind == "mamba":
             state = ((cache["conv"], cache["ssm"]) if cache is not None
@@ -369,5 +373,5 @@ class Block(nn.Module):
                                      cache_pos=cache_pos, pim_ctx=pim_ctx)
             x = x + y
         if hasattr(self, "norm2"):
-            x = x + self.ffn(self.norm2(x), spec, cfg, pim_ctx)
+            x = x + self.ffn(self.norm2(x), spec, cfg, pim_ctx, split)
         return x, new_cache

@@ -34,8 +34,8 @@ from torch import nn
 from ..configs.base import ArchConfig
 from .layers import CDT, _param
 
-__all__ = ["MambaState", "Mamba", "causal_conv", "ssm_chunked", "ssm_step",
-           "mamba_apply", "init_mamba_state"]
+__all__ = ["MambaState", "Mamba", "mamba_param_axes", "causal_conv",
+           "ssm_chunked", "ssm_step", "mamba_apply", "init_mamba_state"]
 
 F32 = torch.float32
 
@@ -69,6 +69,22 @@ class Mamba(nn.Module):
 
     def forward(self, x, cfg: ArchConfig, state=None, *, decode=False):
         return mamba_apply(self, x, cfg, state, decode=decode)
+
+
+def mamba_param_axes() -> dict:
+    """Logical sharding axes of each `Mamba` leaf (d_inner over the
+    tensor-parallel axis), as the JAX package's."""
+    return {
+        "in_proj": ("d_model", "d_inner"),
+        "conv_w": (None, "d_inner"),
+        "conv_b": ("d_inner",),
+        "x_proj": ("d_inner", None),
+        "dt_proj_w": (None, "d_inner"),
+        "dt_proj_b": ("d_inner",),
+        "A_log": ("d_inner", None),
+        "D": ("d_inner",),
+        "out_proj": ("d_inner", "d_model"),
+    }
 
 
 def causal_conv(x, w, b, tail=None):

@@ -25,6 +25,17 @@ Capacity is `max(1, int(T·K/E·capacity_factor))` for T tokens, as in the
 JAX package, so a decode step of a few tokens drops a slot whenever two
 of them pick the same expert (ROADMAP Queue 3).
 
+Under the JAX data mesh a training batch's "sorted_ep" dispatch sees
+every token of the batch: the capacity is the whole batch's, and one
+stable sort puts each slot after the slots of the earlier rows, which
+lie on the earlier data shards. The port's data-parallel step runs its
+shards in order, each with a `DataSplit`: the capacity of the whole
+batch, and per expert the slots the earlier shards routed there, passed
+from shard to shard on the devices (E ints a layer), so each shard keeps
+and drops the slots the whole batch's dispatch does. A shard's remat
+recomputation reuses the offsets of its first pass. ("shard_ep" keeps
+the local capacity, as the JAX `shard_map` does.)
+
 Two rules keep the routing and the combine exact and repeatable:
 
 - top-k takes the K largest logits with ties to the lower expert id, the
@@ -44,9 +55,9 @@ from torch import nn
 from ..configs.base import ArchConfig
 from .layers import ACTS, CDT, _param
 
-__all__ = ["MoE", "Dispatch", "router_logits", "topk_route", "route",
-           "dispatch", "combine", "capacity", "moe_dense", "moe_sorted_ep",
-           "moe_apply"]
+__all__ = ["MoE", "Dispatch", "DataSplit", "router_logits", "topk_route",
+           "route", "dispatch", "combine", "capacity", "moe_dense",
+           "moe_sorted_ep", "moe_apply"]
 
 
 class MoE(nn.Module):
@@ -62,8 +73,8 @@ class MoE(nn.Module):
         self.w_up = _param((E, d, d_ff), generator, device)
         self.w_down = _param((E, d_ff, d), generator, device)
 
-    def forward(self, x, cfg: ArchConfig):
-        return moe_apply(self, x, cfg)
+    def forward(self, x, cfg: ArchConfig, split=None):
+        return moe_apply(self, x, cfg, split)
 
 
 class Dispatch(NamedTuple):
@@ -74,7 +85,38 @@ class Dispatch(NamedTuple):
     keep: torch.Tensor        # (T·K,) bool: within the expert's capacity
     safe_pos: torch.Tensor    # (T·K,) its row in the expert's buffer
                               # (`cap`, the scratch row, when dropped)
-    cap: int
+    cap: int                  # the buffer's rows before the scratch row
+
+
+class DataSplit:
+    """A batch of `tokens` tokens split over data shards whose passes run
+    in shard order (set `shard` before each): the whole batch's dispatch
+    for each shard's slots. `offsets` hands a layer, on a shard's first
+    pass through it, the slots the earlier shards routed to each expert
+    (and records the shard's own for the next); a remat recomputation
+    gets the same offsets again. `dropped` collects each first pass's
+    count of slots dropped at capacity (0-d tensors on the shards'
+    devices)."""
+
+    def __init__(self, tokens: int):
+        self.tokens = tokens
+        self.shard = 0
+        self.dropped: list[torch.Tensor] = []
+        self._after: dict = {}       # layer -> counts of the shards so far
+        self._offsets: dict = {}     # (shard, layer) -> its offsets
+
+    def offsets(self, layer, counts) -> tuple[torch.Tensor, bool]:
+        """(E,) slots of each expert of `layer` before this shard's, on
+        counts' device, and whether this is the shard's first pass."""
+        key = (self.shard, layer)
+        first = key not in self._offsets
+        if first:
+            before = self._after.get(layer)
+            off = torch.zeros_like(counts) if before is None else \
+                before.to(counts.device, non_blocking=True)
+            self._offsets[key] = off
+            self._after[layer] = off + counts
+        return self._offsets[key], first
 
 
 def router_logits(moe: MoE, x2d) -> torch.Tensor:
@@ -101,10 +143,12 @@ def route(moe: MoE, x2d, cfg: ArchConfig):
     return topk_route(router_logits(moe, x2d), cfg.top_k)
 
 
-def dispatch(topi, n_experts: int, cap: int) -> Dispatch:
+def dispatch(topi, n_experts: int, cap: int, offsets=None) -> Dispatch:
     """The sorted_ep plan of (T, K) expert ids at capacity `cap`: a
     stable sort by expert id, each slot's position within its expert,
-    and whether it fits."""
+    and whether it fits. `offsets` (E,): the slots each expert took
+    before these (an earlier data shard's), counted against `cap`; the
+    buffer then has min(cap, T·K) rows."""
     T, K = topi.shape
     flat_e = topi.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
@@ -112,7 +156,11 @@ def dispatch(topi, n_experts: int, cap: int) -> Dispatch:
     counts = torch.bincount(flat_e, minlength=n_experts)
     starts = torch.cumsum(counts, 0) - counts           # exclusive prefix
     pos_in_e = torch.arange(T * K, device=topi.device) - starts[sorted_e]
-    keep = pos_in_e < cap
+    if offsets is None:
+        keep = pos_in_e < cap
+    else:
+        keep = pos_in_e + offsets[sorted_e] < cap
+        cap = min(cap, T * K)
     safe_pos = torch.where(keep, pos_in_e, torch.full_like(pos_in_e, cap))
     return Dispatch(order, sorted_e, order // K, keep, safe_pos, cap)
 
@@ -157,13 +205,21 @@ def moe_dense(moe: MoE, x2d, cfg: ArchConfig):
     return (w[..., None] * sel).sum(dim=1)
 
 
-def moe_sorted_ep(moe: MoE, x2d, cfg: ArchConfig):
+def moe_sorted_ep(moe: MoE, x2d, cfg: ArchConfig, split=None):
     """(T, d) -> (T, d): sort by expert, capacity buffer, grouped
-    products, combine."""
+    products, combine; with a `DataSplit`, as one data shard of the
+    split batch."""
     T, d = x2d.shape
     E = cfg.n_experts
     topi, w = route(moe, x2d, cfg)
-    plan = dispatch(topi, E, capacity(T, cfg))
+    if split is None:
+        plan = dispatch(topi, E, capacity(T, cfg))
+    else:
+        off, first = split.offsets(moe, torch.bincount(topi.reshape(-1),
+                                                       minlength=E))
+        plan = dispatch(topi, E, capacity(split.tokens, cfg), off)
+        if first:
+            split.dropped.append((~plan.keep).sum())
     cap = plan.cap
     # pack to (E, cap + 1, d); row `cap` takes the dropped slots
     buf = torch.zeros((E, cap + 1, d), dtype=x2d.dtype, device=x2d.device)
@@ -175,12 +231,15 @@ def moe_sorted_ep(moe: MoE, x2d, cfg: ArchConfig):
     return combine(w, y_slots, plan, T)
 
 
-def moe_apply(moe: MoE, x, cfg: ArchConfig):
+def moe_apply(moe: MoE, x, cfg: ArchConfig, split=None):
     """(B, S, d) bf16 -> (B, S, d) through `cfg.moe_impl`: "dense",
-    "shard_ep" (`moe_shard_apply`), else "sorted_ep"."""
+    "shard_ep" (`moe_shard_apply`), else "sorted_ep" (with `split`, the
+    dispatch of the whole batch x is a data shard of)."""
     if cfg.moe_impl == "shard_ep":
         from .moe_shard import moe_shard_apply
         return moe_shard_apply(moe, x, cfg)
-    fn = {"dense": moe_dense}.get(cfg.moe_impl, moe_sorted_ep)
     B, S, d = x.shape
-    return fn(moe, x.reshape(B * S, d), cfg).reshape(B, S, d)
+    if cfg.moe_impl == "dense":
+        return moe_dense(moe, x.reshape(B * S, d), cfg).reshape(B, S, d)
+    return moe_sorted_ep(moe, x.reshape(B * S, d), cfg,
+                         split).reshape(B, S, d)

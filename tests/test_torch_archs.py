@@ -321,7 +321,7 @@ def test_train_step_matches_jax(arch):
 
     np_params = jax.tree.map(np.asarray, jparams)
     state = _opt_state(arch, np_params, np.random.default_rng(1))
-    step, tx = build_train(cfg, microbatches=2, lr=LR)
+    step, tx, _ = build_train(cfg, microbatches=2, lr=LR)
     want_p, _, _ = _jupdate[optimizer_for(cfg)](
         jax.tree.map(jnp.asarray, jgrads), jax.tree.map(jnp.asarray, state),
         jax.tree.map(jnp.asarray, np_params))

@@ -16,7 +16,8 @@ exactly on the exact route; the runtime sanitizer on CUDA tensors,
 engine's telemetry fed from the card as from the CPU; `attend_protected`
 at head dim 128, an MoE layer's routing, dispatch and combine (bitwise
 repeatable) and the mamba scan on the card against the CPU (and bitwise
-the same with TF32 allowed).
+the same with TF32 allowed); a data-parallel (FSDP) step over two shards,
+on one card or on two, against the unsharded trainer.
 Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
@@ -1490,3 +1491,50 @@ def test_mesh_over_every_card_matches_unsharded(dev, rng):
     assert len(placed) == groups and torch.equal(again, y_ep)
     assert all(layer._placed[devs][1] is p for devs, p in placed.items())
     _close_in_ulps(y_ep.reshape(96, -1), y_one.cpu())
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+def test_fsdp_step_matches_unsharded(dev, cards, tmp_path):
+    """Two data shards, both on one card or one on each of two cards,
+    train reduced granite-3-2b (flash) for two steps from the unsharded
+    trainer's weights: its losses, grad norms and parameters at
+    microbatches = 2 bit for bit (each shard runs what its microbatch
+    does, the gradients add in the same order and the norm's float64
+    partials round to the same float32 norm), the flash kernels launched
+    on each shard, and each slice on its own card."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.cells import CellSettings, rules_for_cell
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    if cards > torch.cuda.device_count():
+        pytest.skip("needs two CUDA devices: each data shard of the mesh "
+                    "on a card of its own")
+    cfg = dataclasses.replace(get_config("granite_3_2b").reduced(
+        n_groups=2, d_model=128, n_heads=4, d_ff=512), attn_impl="flash")
+    devices = [torch.device("cuda", k % cards) for k in range(2)]
+    mesh = sharding.Mesh(np.array([[d] for d in devices], dtype=object),
+                         ("data", "model"))
+    rules = rules_for_cell(mesh, cfg, ShapeSpec("custom", 64, 4, "train"),
+                           CellSettings())
+    start = init_params(cfg, 0, device="cpu")
+    kw = dict(steps=2, batch=4, seq=64, save_every=100, log=lambda m: None)
+    ref_model = copy.deepcopy(start).to(dev)
+    ref = run(cfg, params=ref_model, device=dev, microbatches=2,
+              ckpt_dir=str(tmp_path / "a"), **kw)
+    placed = place_params(copy.deepcopy(start).to(devices[0]),
+                          param_shardings(cfg, mesh, rules))
+    hist = run(cfg, params=placed, mesh=mesh, rules=rules,
+               ckpt_dir=str(tmp_path / "b"), **kw)
+    for a, b in zip(ref, hist, strict=True):
+        assert (b["loss"], b["grad_norm"]) == (a["loss"], a["grad_norm"])
+        for got in b["launches_by_shard"]:
+            assert got.get("flash_fwd") == 4 and got.get("flash_bwd_dkv") == 2
+    assert {str(t.device) for t in placed.placed["embed"].distinct()} == \
+        {str(d) for d in devices}
+    for name, p in ref_model.named_parameters():
+        assert torch.equal(placed.placed[name].gather(dev), p.detach()), name
