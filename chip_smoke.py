@@ -229,9 +229,34 @@ Phases (any failure exits non-zero):
      at most 26% of the parameters and AdamW states (the states the
      trainer makes, placed and measured), drops at capacity and peak
      memory.
+ 21. tensor-parallel training (`launch.train.run(mesh=...)` over (data,
+     model) meshes under `rules_for_cell`) on every card of a mesh, or
+     its positions all on the one card: (a) granite-3-2b at full width
+     and depth (flash, remat, AdamW, seq 4096; its vocabulary stays
+     replicated), 2 rows a data shard, 3 steps on (1, 4) and on (2, 2),
+     each held to the unsharded trainer on one card at microbatches =
+     data shards (run first from the same seeded weights, freed before
+     the mesh run): step 0's loss within 1e-3 and grad norm within 1e-2
+     relative, later losses within 1e-2 (the naive-vs-flash training
+     gates); every position's flash launches (forward and remat forward
+     twice a layer, each backward kernel once) with Hq/M query heads and
+     Hkv/M KV heads, each placed slice of a model-split leaf 1/(data x
+     model) of it; the gaps, the largest parameter gap, ms a step,
+     tokens/s, peak and placed bytes a card; (b) mistral-large-123b at
+     full width (vocabulary split over `model`), 2 of its 88 groups,
+     Adafactor, one row of 4,096, 3 steps on (1, 4) against the
+     unsharded trainer at that depth under (a)'s gates; with four cards
+     also 8 groups without a reference: each card placing 25% of every
+     model-split leaf and peaking under its share of the parameters and
+     gradients plus TP_ACTIVATION_GB, ms a step; (c) every config of
+     `ARCH_IDS` reduced (flash; MoE, mamba, hybrid, encoder-decoder and
+     cross), and olmoe-1b-7b, falcon-mamba-7b and whisper-small at full
+     width with 2 groups (and 2 encoder groups), one step on (1, 4)
+     against the unsharded step on the card under (a)'s step-0 gates,
+     each attention layer's flash calls with its positions' heads.
 
 The phases run in the order 1-9, 12, 14, 15, 19 (a, b), 17, 16, 19 (c),
-13, 10, 11, 20, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
+13, 10, 11, 20, 21, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
 which is freed before phase 17). Phase 2
 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
 versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
@@ -250,7 +275,8 @@ telemetry (phase 15, run (f) and the memory-mode read), PIM training
 (phase 17, its four runs), the substrate
 (phase 16, each of (b)-(d) and (b)'s flash prefill),
 the campaign (phase 13), training (phases 10-11), the mesh (phase 19,
-(a)-(b) and (c) each) and data-parallel training (phase 20), and read
+(a)-(b) and (c) each), data-parallel training (phase 20) and
+tensor-parallel training (phase 21), and read
 just after it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
@@ -377,6 +403,23 @@ FSDP_CARD_SHARE = 0.26         # (d) a card's share of the parameters and
                                # optimizer states at most
 FSDP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gf_matmul",
                 "scan_syndromes", "fbp_cn")
+# phase 21: tensor-parallel training over (data, model) meshes
+TP_MESHES = ((1, 4), (2, 2))   # (a)'s meshes
+TP_ROWS = 2                    # (a) rows a data shard
+TP_STEPS = 3
+TP_RTOL0_LOSS, TP_RTOL0_GNORM, TP_RTOL = 1e-3, 1e-2, 1e-2   # PERF.md §2
+TP_BIG_ARCH = "mistral_large_123b"   # (b), full width
+TP_BIG_GROUPS = 2              # (b) n_groups 88 -> 2 against the reference
+TP_BIG_DEEP_GROUPS = 8         # (b) on four cards, no reference
+TP_ACTIVATION_GB = 32          # (b) a card's peak over its share of the
+                               # parameters and gradients, at most: the
+                               # activations and Adafactor's float32
+                               # temporaries of a card's largest stacked
+                               # leaf (about six of 2.8 GB at 8 groups)
+TP_FULL_ARCHS = ("olmoe_1b_7b", "falcon_mamba_7b", "whisper_small")
+TP_FULL_GROUPS = 2             # (c) at full width: n_groups (and encoder
+                               # groups) cut to 2
+TP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -4248,6 +4291,324 @@ def phase_fsdp(device) -> tuple[dict, dict]:
     return report, dict(build.LAUNCHES)
 
 
+def tp_mesh(shape):
+    """A (data, model) mesh of `shape`: position (k, j) on card k·model + j
+    where that many cards are visible, else every position on card 0;
+    and which it was."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import Mesh
+    n, (data, model) = torch.cuda.device_count(), shape
+    if n >= data * model:
+        devs = [[torch.device("cuda", k * model + j) for j in range(model)]
+                for k in range(data)]
+        kind = f"{data * model} cards"
+    else:
+        devs = [[torch.device("cuda", 0)] * model] * data
+        kind = f"one card, {data * model} positions on it"
+    return Mesh(np.array(devs, dtype=object), ("data", "model")), kind
+
+
+def tp_checks(cfg, mesh, placed, hist, per_layer: int | None) -> dict:
+    """Phase 21's structural gates on a tensor-parallel run: every placed
+    slice of a leaf the rules split over `model` holds 1/(data x model)
+    of it (the data shards' `fsdp` split too, where it divides), and
+    each position's flash calls carry Hq/M query heads (all of them
+    where `model` does not divide Hq) with `per_layer` launches of the
+    forward (twice a layer: remat) and the backward kernels. Returns the
+    flash launches and heads by position of the first step."""
+    from repro_torch.distributed.sharding import model_dim
+    data, M = mesh.devices.shape
+    for name, p in placed.placed.items():
+        if model_dim(p.sharding, p.ndim) is None:
+            continue
+        parts = math.prod(p.sharding.parts(p.ndim))
+        whole = math.prod(p.shape)
+        for t in p.distinct():
+            if t.numel() * parts != whole:
+                raise AssertionError(f"{name}: a slice of {t.numel()} of "
+                                     f"{whole} over {parts} parts")
+    hq = cfg.n_heads // M if cfg.n_heads % M == 0 else cfg.n_heads
+    hkv = cfg.n_kv_heads // M if cfg.n_kv_heads % M == 0 else None
+    first = hist[0]
+    report = {"launches_by_position": first["launches_by_shard"],
+              "heads_by_position": first["heads_by_shard"]}
+    if per_layer is None:
+        return report
+    want = {"flash_fwd": 2 * per_layer, "flash_bwd_dq": per_layer,
+            "flash_bwd_dkv": per_layer}
+    for h in hist:
+        for pos, (got, heads) in enumerate(zip(
+                h["launches_by_shard"], h["heads_by_shard"], strict=True)):
+            got = {k: got.get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"step {h['step']} position {pos}: "
+                                     f"flash launches {got}, want {want}")
+            if not heads or {x[1] for x in heads} != {hq} or (
+                    hkv is not None and {x[2] for x in heads} != {hkv}):
+                raise AssertionError(f"step {h['step']} position {pos}: "
+                                     f"flash heads {heads}, want {hq} "
+                                     f"query and {hkv} KV heads")
+    return report
+
+
+def tp_against_unsharded(cfg, arch: str, shape, *, rows: int, steps: int,
+                         label: str) -> dict:
+    """`steps` steps of `launch.train.run` over a (data, model) mesh of
+    `shape` from seeded weights, held to the unsharded trainer on card 0
+    at microbatches = data shards (run first, its parameters kept on the
+    host, freed before the mesh run) under phase 21's gates."""
+    import tempfile
+    import torch
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    mesh, kind = tp_mesh(shape)
+    data = shape[0]
+    devices = list(dict.fromkeys(mesh.devices.flat))
+    batch = rows * data
+    rules = fsdp_rules(mesh, cfg, arch, batch, TRAIN_SEQ)
+    n_attn = cfg.n_groups * sum(s.kind != "mamba" for s in cfg.group_spec)
+    kw = dict(steps=steps, batch=batch, seq=TRAIN_SEQ, seed=SEED,
+              save_every=steps + 1, log_every=1,
+              log=lambda m: log(f"    {label}: " + m))
+    report = {"arch": cfg.name, "mesh": list(shape), "where": kind,
+              "batch": batch, "seq": TRAIN_SEQ,
+              "rules": {k: rules[k] for k in ("heads", "kv_heads", "vocab",
+                                              "d_ff", "fsdp")}}
+    dev0 = devices[0]
+    torch.cuda.reset_peak_memory_stats(dev0)
+    ref_model = init_params(cfg, SEED, device=dev0)
+    with tempfile.TemporaryDirectory() as d:
+        ref = run(cfg, params=ref_model, device=dev0, microbatches=data,
+                  ckpt_dir=d, **kw)
+    report["reference_peak_gb"] = torch.cuda.max_memory_allocated(dev0) / 1e9
+    want = {name: p.detach().cpu() for name, p in
+            ref_model.named_parameters()}
+    del ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    placed = place_params(init_params(cfg, SEED, device=dev0),
+                          param_shardings(cfg, mesh, rules))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        hist = run(cfg, params=placed, mesh=mesh, rules=rules, ckpt_dir=d,
+                   **kw)
+    report["peak_gb_by_card"] = {
+        str(dev): torch.cuda.max_memory_allocated(dev) / 1e9
+        for dev in devices}
+    report["param_bytes_by_card"] = placed_bytes(placed.placed)[0]
+    report["steps"] = []
+    for i, (h, r) in enumerate(zip(hist, ref, strict=True)):
+        gaps = {k: abs(h[k] - r[k]) / abs(r[k]) for k in ("loss",
+                                                           "grad_norm")}
+        report["steps"].append({
+            "step": h["step"], "loss": h["loss"], "grad_norm": h["grad_norm"],
+            "reference_loss": r["loss"],
+            "reference_grad_norm": r["grad_norm"],
+            "loss_gap": gaps["loss"], "grad_norm_gap": gaps["grad_norm"],
+            "ms": h["seconds"] * 1e3, "reference_ms": r["seconds"] * 1e3,
+            "tokens_per_s": batch * TRAIN_SEQ / h["seconds"]})
+        bounds = {"loss": TP_RTOL0_LOSS if i == 0 else TP_RTOL,
+                  "grad_norm": TP_RTOL0_GNORM if i == 0 else None}
+        for key, bound in bounds.items():
+            if bound is not None and not gaps[key] <= bound:
+                raise AssertionError(
+                    f"{label} step {i}: {key} {h[key]} against the "
+                    f"unsharded {r[key]} (gap {gaps[key]}, bound {bound})")
+    report.update(tp_checks(cfg, mesh, placed, hist,
+                            n_attn if cfg.attn_impl == "flash" else None))
+    largest = 0.0
+    for name, p in placed.placed.items():
+        got = p.gather(dev0).detach().cpu()
+        largest = max(largest, float((got - want[name]).abs().max()))
+    report["param_max_abs_diff"] = largest
+    del placed, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def tp_deep(cfg) -> dict:
+    """(b) on four cards: `cfg` without a reference, one row, 3 steps on
+    (1, 4): each card places 25% of every model-split leaf and peaks
+    under its share of the parameters and gradients plus
+    TP_ACTIVATION_GB."""
+    import tempfile
+    import torch
+    from repro_torch.distributed.sharding import model_dim
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    mesh, kind = tp_mesh((1, 4))
+    devices = list(mesh.devices.flat)
+    rules = fsdp_rules(mesh, cfg, TP_BIG_ARCH, 1, TRAIN_SEQ)
+    placed = place_params(init_params(cfg, SEED, device=devices[0]),
+                          param_shardings(cfg, mesh, rules))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as d:
+        hist = run(cfg, steps=TP_STEPS, batch=1, seq=TRAIN_SEQ, seed=SEED,
+                   params=placed, mesh=mesh, rules=rules, ckpt_dir=d,
+                   save_every=TP_STEPS + 1, log_every=1,
+                   log=lambda m: log("    (b) deep: " + m))
+    held, whole = placed_bytes(placed.placed)
+    split_held: dict[str, int] = {}
+    split_whole = 0
+    for p in placed.placed.values():
+        if model_dim(p.sharding, p.ndim) is None:
+            continue
+        size = p.local.flat[0].element_size()
+        split_whole += math.prod(p.shape) * size
+        for t in p.distinct():
+            split_held[str(t.device)] = split_held.get(str(t.device), 0) \
+                + t.numel() * size
+    report = {"arch": cfg.name, "groups": cfg.n_groups, "where": kind,
+              "param_bytes_total": whole, "param_bytes_by_card": held,
+              "split_share_by_card": {c: b / split_whole
+                                      for c, b in split_held.items()},
+              "peak_gb_by_card": {str(c): torch.cuda.max_memory_allocated(
+                  c) / 1e9 for c in devices},
+              "steps": [{"step": h["step"], "loss": h["loss"],
+                         "grad_norm": h["grad_norm"],
+                         "ms": h["seconds"] * 1e3,
+                         "tokens_per_s": TRAIN_SEQ / h["seconds"]}
+                        for h in hist]}
+    share_gb = 2 * whole / len(devices) / 1e9     # parameters + gradients
+    for card, share in report["split_share_by_card"].items():
+        if abs(share - 0.25) > 1e-9:
+            raise AssertionError(f"{card} places {share} of the split leaves")
+    for card, peak in report["peak_gb_by_card"].items():
+        if not peak <= share_gb + TP_ACTIVATION_GB:
+            raise AssertionError(f"{card} peaks at {peak} GB over its share "
+                                 f"{share_gb} GB + {TP_ACTIVATION_GB} GB")
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"(b) deep step {h['step']}: {h}")
+    tp_checks(cfg, mesh, placed, hist, cfg.n_groups)
+    del placed
+    gc.collect()
+    for dev in devices:
+        with torch.cuda.device(dev):
+            torch.cuda.empty_cache()
+    return report
+
+
+def tp_layer_kinds(device) -> dict:
+    """(c) every config of ARCH_IDS reduced, and TP_FULL_ARCHS at full
+    width with TP_FULL_GROUPS groups (flash), one step on (1, 4) from the
+    unsharded trainer's weights against its step on the card."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.steps import build_train
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    mesh, kind = tp_mesh((1, 4))
+    M = mesh.devices.shape[1]
+    report = {"where": kind}
+    cases = []
+    for arch in ARCH_IDS:
+        base = get_config(arch)
+        cases.append((arch, dataclasses.replace(base.reduced(
+            n_groups=2, d_model=256, n_heads=8, n_kv_heads=2,
+            d_ff=512 if base.d_ff else 0), attn_impl="flash")))
+    for arch in TP_FULL_ARCHS:
+        base = get_config(arch)
+        cases.append((f"{arch}_full", dataclasses.replace(
+            base, n_groups=TP_FULL_GROUPS, attn_impl="flash",
+            encoder_groups=min(base.encoder_groups, TP_FULL_GROUPS))))
+    for key, cfg in cases:
+        arch = key.removesuffix("_full")
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 256)),
+                 "labels": rng.integers(0, cfg.vocab_size, (2, 256))}
+        if cfg.aux_kind:
+            batch["aux"] = (0.1 * rng.normal(size=(
+                2, cfg.n_aux_tokens, cfg.d_model))).astype(np.float32)
+        start = init_params(cfg, SEED, device=device)
+        step, tx, _ = build_train(cfg)
+        ref_model = copy.deepcopy(start)
+        _, want = step(ref_model, tx.init(ref_model.leaves()), batch)
+        rules = fsdp_rules(mesh, cfg, arch, 2, 256)
+        placed = place_params(start, param_shardings(cfg, mesh, rules))
+        tstep, ttx, _ = build_train(cfg, mesh=mesh, rules=rules)
+        _, got = tstep(placed, ttx.init(placed.leaves()), batch)
+        gaps = {k: abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+                for k in ("loss", "grad_norm")}
+        attends = any(s.kind != "mamba" for s in cfg.group_spec)
+        hist = [{"step": 0, "launches_by_shard": got["launches_by_shard"],
+                 "heads_by_shard": got["heads_by_shard"]}]
+        checks = tp_checks(cfg, mesh, placed, hist, None)
+        heads = {x for hs in got["heads_by_shard"] for x in hs}
+        hq = cfg.n_heads // M if cfg.n_heads % M == 0 else cfg.n_heads
+        report[key] = {"d_model": cfg.d_model, "n_groups": cfg.n_groups,
+                       "loss": float(got["loss"]),
+                       "grad_norm": float(got["grad_norm"]),
+                       "loss_gap": gaps["loss"],
+                       "grad_norm_gap": gaps["grad_norm"],
+                       "heads": sorted(heads),
+                       "launches_position_0": checks[
+                           "launches_by_position"][0]}
+        if not (gaps["loss"] <= TP_RTOL0_LOSS
+                and gaps["grad_norm"] <= TP_RTOL0_GNORM):
+            raise AssertionError(f"(c) {key}: {report[key]}")
+        if attends and (not heads or {x[1] for x in heads} != {hq}):
+            raise AssertionError(f"(c) {key}: flash heads {sorted(heads)}, "
+                                 f"want {hq} query heads")
+        del start, ref_model, placed
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_tp(device) -> tuple[dict, dict]:
+    """Phase 21: (a)-(c); (b)'s deeper cut where four cards are visible.
+    Returns (report, launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    smi = card_name()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    report = {"card": smi}
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="flash")
+    for shape in TP_MESHES:
+        key = f"dense_{shape[0]}x{shape[1]}"
+        report[key] = tp_against_unsharded(
+            cfg, TRAIN_ARCH, shape, rows=TP_ROWS, steps=TP_STEPS,
+            label=f"(a) {shape}")
+        log(f"  (a) granite-3-2b TP {shape} ({smi}): "
+            f"{json.dumps(report[key])}")
+    big = dataclasses.replace(get_config(TP_BIG_ARCH), attn_impl="flash",
+                              n_groups=TP_BIG_GROUPS)
+    report["big"] = tp_against_unsharded(big, TP_BIG_ARCH, (1, 4), rows=1,
+                                         steps=TP_STEPS, label="(b)")
+    log(f"  (b) mistral-large-123b, {TP_BIG_GROUPS} groups, TP (1, 4) "
+        f"({smi}): {json.dumps(report['big'])}")
+    if torch.cuda.device_count() >= 4:
+        report["big_deep"] = tp_deep(dataclasses.replace(
+            big, n_groups=TP_BIG_DEEP_GROUPS))
+        log(f"  (b) mistral-large-123b, {TP_BIG_DEEP_GROUPS} groups, four "
+            f"cards ({smi}): {json.dumps(report['big_deep'])}")
+    else:
+        log(f"  (b) {TP_BIG_DEEP_GROUPS} groups needs four cards, "
+            f"{torch.cuda.device_count()} visible: not run")
+    report["layer_kinds"] = tp_layer_kinds(device)
+    log(f"  (c) every layer kind, TP (1, 4) ({smi}): "
+        f"{json.dumps(report['layer_kinds'])}")
+    report["seconds"] = time.perf_counter() - t0
+    return report, dict(build.LAUNCHES)
+
+
 def check_path(name: str, launches: dict, kernels) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
@@ -4403,6 +4764,11 @@ def main() -> int:
     log(f"  launches on the FSDP path: {fsdp_launches}")
     log(f"  phase 20 took {fsdp['seconds']:.1f} s")
     check_path("FSDP", fsdp_launches, FSDP_KERNELS)
+    log("phase 21: tensor-parallel training over (data, model) meshes")
+    tp, tp_launches = phase_tp(device)
+    log(f"  launches on the tensor-parallel path: {tp_launches}")
+    log(f"  phase 21 took {tp['seconds']:.1f} s")
+    check_path("tensor-parallel", tp_launches, TP_KERNELS)
     log("phase 18: the port's examples")
     examples = phase_examples()
     log(f"  examples: {json.dumps(examples)}")
@@ -4410,7 +4776,7 @@ def main() -> int:
         codec_launches, serve_launches, prefill_launches, pim_launches,
         engine_launches, telemetry_launches, pim_train_launches,
         substrate_launches, campaign_launches, train_launches,
-        mesh_launches, mesh_moe_launches, fsdp_launches))
+        mesh_launches, mesh_moe_launches, fsdp_launches, tp_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -4428,7 +4794,7 @@ def main() -> int:
                     "pim_serving": pim_serving, "engine": engine,
                     "telemetry": telemetry, "pim_training": pim_training,
                     "substrate": substrate, "examples": examples,
-                    "mesh": mesh_report, "fsdp": fsdp,
+                    "mesh": mesh_report, "fsdp": fsdp, "tp": tp,
                     "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
@@ -4446,6 +4812,7 @@ def main() -> int:
                     "launches_mesh": mesh_launches,
                     "launches_mesh_moe": mesh_moe_launches,
                     "launches_fsdp": fsdp_launches,
+                    "launches_tp": tp_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -45,10 +45,32 @@ The shards run one after the other from the host: each shard's decode
 reads one byte back per early-exit iteration, so shards on different
 cards do not overlap yet (ROADMAP Queue 2).
 
-`constrain` (a sharding constraint on an activation), `resolve_spec`,
-the multi-pod table and the sequence-sharded KV rules are read only by
-the tensor-parallel layers and the serving cells, and come with them
-(ROADMAP Queue 1 item 12).
+Tensor parallelism (a `model` axis larger than 1) runs each data shard
+on its model positions, one tensor a position:
+
+- `Parts`: an activation of one data shard as one tensor per model
+  position, in model order, each on its position's device, with the
+  layout that makes the whole of them: "whole" (each holds all of it),
+  "sum" (each a partial sum: a row-parallel product's, in float32), a
+  dimension d (each holds its slice along d) or "own" (each position's
+  own selection, such as the KV heads its query heads read). The
+  parameters a layer
+  reads are `Parts` too (`models.lm.ShardWeights`), each position's
+  slice along `model`, gathered whole over `data`.
+- `resolve_spec(axes)` and `constrain(x, *axes)`: as the JAX module's.
+  `constrain` is the identity on a tensor (no rules, or a `model` axis
+  of 1: the unsharded and data-parallel paths run as they were) and on
+  `Parts` already laid out as the spec names; otherwise it is the one
+  place where an activation's layout over `model` changes: a concat for
+  an all-gather, a sum in model order (float32, rounded to the whole's
+  dtype once) copied to every position for an all-reduce, a slice for a
+  scatter. Their backwards are the adjoint collectives, summed in model
+  order, so gradients repeat from run to run. `Parts` carry their
+  rules, so a remat recomputation on an autograd thread resolves alike.
+
+The multi-pod table, the sequence-sharded KV rules and the serving
+cells' rules are read only by a tensor-parallel prefill and decode
+(ROADMAP Queue 1, tensor-parallel serving), and come with them.
 """
 from __future__ import annotations
 
@@ -64,10 +86,12 @@ from ..core.construction import LDPCCode
 from ..core.decode import DecodeResult, decode_integers
 from ..core.gf import symbol_dtype
 from ..device import as_tensor, resolve_device
+from ..kernels import build
 from ..kernels.gf_matmul import scan_syndromes_routed
 
 __all__ = ["Mesh", "RULES_SINGLE_POD", "use_rules", "active_mesh",
-           "NamedSharding", "named_sharding", "Placed", "place",
+           "active_rules", "resolve_spec", "constrain", "Parts",
+           "model_dim", "NamedSharding", "named_sharding", "Placed", "place",
            "place_zeros", "data_mesh",
            "axis_devices", "split_rows", "gather_rows", "shard_page",
            "decode_shards", "gather_decode", "decode_sharded",
@@ -164,6 +188,22 @@ def use_rules(mesh: Mesh | None, rules: dict | None = None):
 def active_mesh() -> Mesh | None:
     st = getattr(_CTX, "state", None)
     return st[0] if st else None
+
+
+def active_rules() -> dict | None:
+    st = getattr(_CTX, "state", None)
+    return st[1] if st else None
+
+
+def resolve_spec(axes, rules: dict | None = None) -> tuple:
+    """Logical `axes` -> the spec (one entry a dimension) under `rules`,
+    by default the active ones; () with none active (the JAX
+    `resolve_spec`'s empty `PartitionSpec`)."""
+    if rules is None:
+        rules = active_rules()
+        if rules is None:
+            return ()
+    return tuple(None if a is None else rules.get(a) for a in axes)
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +350,18 @@ class Placed:
             local[pos] = done[id(t)]
         return Placed(self.sharding, self.shape, local)
 
-    def gather(self, device) -> torch.Tensor:
+    def gather(self, device, model: int | None = None) -> torch.Tensor:
         """The whole tensor on `device`: each slice from its copy there,
         else from its first copy, concatenated in mesh order. Autograd
-        sends each slice's gradient back to the copy it was read from."""
+        sends each slice's gradient back to the copy it was read from.
+        With `model`, only model position `model`'s block of the
+        dimension the `model` axis splits (whole along every other
+        axis): a tensor-parallel position's weight, gathered over
+        `data` only."""
         device = _device(device)
         parts = self.sharding.parts(self.ndim)
         slices = self.slices()
+        md = None if model is None else model_dim(self.sharding, self.ndim)
 
         def pick(copies):
             for t in copies:
@@ -328,6 +373,8 @@ class Placed:
             d = len(prefix)
             if d == self.ndim:
                 return pick(slices[prefix])
+            if d == md:
+                return build(prefix + (model,))
             if parts[d] == 1:
                 return build(prefix + (0,))
             return torch.cat([build(prefix + (i,)) for i in range(parts[d])],
@@ -384,6 +431,204 @@ def place_zeros(shape, sharding: NamedSharding, *, dtype=torch.float32,
     whole tensor never exists)."""
     return _placed(tuple(shape), sharding, name, lambda _idx, sub, dev:
                    torch.zeros(sub, dtype=dtype, device=dev))
+
+
+def model_dim(sharding: NamedSharding, ndim: int) -> int | None:
+    """The dimension the `model` axis splits under `sharding`, or None.
+    Raises where `model` shares a dimension with another axis (no rule
+    of `launch.cells.rules_for_cell` makes one)."""
+    for d, e in enumerate(sharding.spec[:ndim]):
+        axes = _spec_axes(e)
+        if "model" in axes:
+            if len(axes) > 1:
+                raise ValueError(f"spec {sharding.spec}: `model` splits a "
+                                 "dimension together with other axes")
+            return d
+    return None
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: one tensor a model position, and `constrain`
+# ---------------------------------------------------------------------------
+
+
+class Parts:
+    """One data shard's tensor under tensor parallelism: `parts[j]` on
+    model position j's device (`positions[j]`, its mesh position), and
+    `layout`, how they make the whole: "whole" (each holds it all),
+    "sum" (each a partial sum; the whole is their sum rounded to
+    `dtype`), a dimension d >= 0 (each holds its slice along d, in
+    model order) or "own" (each what its position reads, e.g. the KV
+    heads its query heads use: no whole). `rules` are the logical-axis
+    rules `constrain` resolves by."""
+
+    def __init__(self, parts, layout, *, positions, rules: dict,
+                 dtype: torch.dtype | None = None):
+        self.parts = list(parts)
+        if isinstance(layout, int) and layout < 0:
+            layout += self.parts[0].ndim
+        self.layout, self.positions, self.rules = layout, positions, rules
+        self.dtype = self.parts[0].dtype if dtype is None else dtype
+
+    def __len__(self) -> int:
+        return len(self.parts)
+
+    def __getitem__(self, j: int) -> torch.Tensor:
+        return self.parts[j]
+
+    def __iter__(self):
+        return iter(self.parts)
+
+    @property
+    def devices(self) -> list:
+        return [p.device for p in self.parts]
+
+    def like(self, parts, layout=None, dtype=None) -> Parts:
+        """`parts` at these positions, under these rules (this layout
+        unless given)."""
+        return Parts(parts, self.layout if layout is None else layout,
+                     positions=self.positions, rules=self.rules, dtype=dtype)
+
+    def map(self, fn, *others, layout=None, dtype=None) -> Parts:
+        """fn(part j, other j...) at each position j in model order (its
+        launches tagged with position j); `others` are `Parts` (their
+        part j) or values given to every call."""
+        out = []
+        for j, p in enumerate(self.parts):
+            args = [o[j] if isinstance(o, Parts) else o for o in others]
+            with build.at_position(self.positions[j]):
+                out.append(fn(p, *args))
+        return self.like(out, layout, dtype)
+
+    def __add__(self, other: Parts) -> Parts:
+        if other.layout != self.layout or "sum" in (self.layout,
+                                                     other.layout):
+            raise ValueError(f"Parts of layouts {self.layout!r} and "
+                             f"{other.layout!r} do not add")
+        return self.map(torch.add, other)
+
+    def to(self, dtype: torch.dtype) -> Parts:
+        return self.map(lambda t: t.to(dtype), dtype=dtype)
+
+    def __repr__(self) -> str:
+        return (f"Parts({len(self)} x {tuple(self.parts[0].shape)}, "
+                f"layout={self.layout!r}, {self.dtype})")
+
+
+def _copies(t: torch.Tensor, devices) -> list:
+    """`t` once a device of `devices`: itself first, a copy elsewhere."""
+    return [t if j == 0 and d == t.device else t.to(d, copy=True)
+            for j, d in enumerate(devices)]
+
+
+class _AllReduce(torch.autograd.Function):
+    """Partial sums -> their sum on every part's device: added in model
+    order in float32 on the first part's device, rounded to `dtype`
+    once, copied. The backward adds the copies' gradients alike and
+    gives each part the total."""
+
+    @staticmethod
+    def forward(ctx, dtype, *parts):
+        ctx.set_materialize_grads(False)
+        ctx.devices = [p.device for p in parts]
+        ctx.dtypes = [p.dtype for p in parts]
+        first = ctx.devices[0]
+        total = parts[0].to(torch.float32, copy=True)
+        for p in parts[1:]:
+            total += p.to(first, non_blocking=True).to(torch.float32)
+        return tuple(_copies(total.to(dtype), ctx.devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = _sum_f32([g for g in grads if g is not None],
+                         ctx.devices[0])
+        if total is None:
+            return (None,) * (1 + len(grads))
+        return (None, *(total.to(d, dt, copy=True)
+                        for d, dt in zip(ctx.devices, ctx.dtypes)))
+
+
+def _sum_f32(grads, device):
+    total = None
+    for g in grads:
+        g = g.to(device, non_blocking=True).to(torch.float32)
+        total = g.clone() if total is None else total.add_(g)
+    return total
+
+
+class _AllGather(torch.autograd.Function):
+    """Slices along `dim` -> the whole on every part's device (a concat
+    in model order). The backward gives each slice the sum, in model
+    order and float32, of its block of every copy's gradient."""
+
+    @staticmethod
+    def forward(ctx, dim, *parts):
+        ctx.set_materialize_grads(False)
+        ctx.dim = dim
+        ctx.devices = [p.device for p in parts]
+        ctx.sizes = [p.shape[dim] for p in parts]
+        ctx.dtypes = [p.dtype for p in parts]
+        made: dict = {}
+        outs = []
+        for d in ctx.devices:
+            if d in made:
+                outs.append(made[d].clone())
+            else:
+                made[d] = torch.cat([p.to(d, non_blocking=True)
+                                     for p in parts], dim)
+                outs.append(made[d])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        out, start = [None], 0
+        for d, n, dt in zip(ctx.devices, ctx.sizes, ctx.dtypes):
+            total = _sum_f32([g.narrow(ctx.dim, start, n) for g in grads
+                              if g is not None], d)
+            out.append(None if total is None else total.to(dt))
+            start += n
+        return tuple(out)
+
+
+def _scatter(x: Parts, dim: int) -> Parts:
+    """Whole -> each position's slice along `dim` (a view of its copy)."""
+    n, M = x[0].shape[dim], len(x)
+    if n % M:
+        raise ValueError(f"dimension {dim} of size {n} does not split over "
+                         f"{M} model positions")
+    return x.like([t.narrow(dim, j * (n // M), n // M)
+                   for j, t in enumerate(x)], dim)
+
+
+def relayout(x: Parts, target) -> Parts:
+    """`x` laid out as `target` ("whole" or a dimension), by the
+    collectives `constrain` names."""
+    if x.layout == target:
+        return x
+    if x.layout == "own":
+        raise ValueError("Parts of layout 'own' (each position's own "
+                         "selection) make no whole to lay out again")
+    if x.layout == "sum":
+        x = x.like(_AllReduce.apply(x.dtype, *x.parts), "whole", x.dtype)
+        return x if target == "whole" else _scatter(x, target)
+    if x.layout != "whole":
+        x = x.like(_AllGather.apply(x.layout, *x.parts), "whole")
+    return x if target == "whole" else _scatter(x, target)
+
+
+def constrain(x, *axes):
+    """The layout that logical `axes` give on the `model` axis (the JAX
+    `with_sharding_constraint` by logical axes). The identity on a
+    tensor (no active rules or a `model` axis of 1: nothing is split
+    over `model`) and on `Parts` already so laid out; otherwise the
+    collective that makes the layout (`relayout`)."""
+    if not isinstance(x, Parts):
+        return x
+    target = "whole"
+    for d, e in enumerate(resolve_spec(axes, x.rules)):
+        if "model" in _spec_axes(e):
+            target = d
+    return relayout(x, target)
 
 
 # ---------------------------------------------------------------------------

@@ -13,12 +13,17 @@ Each C entry point takes raw device pointers, sizes and a `cudaStream_t`
 calls one with its operands' device current and raises on anything but
 0. `LAUNCHES` counts kernel launches per kernel
 name: a wrapper adds one where it launches its kernel, and nowhere else.
+`at_position` tags the launches a thread enqueues with a mesh position,
+and `by_position` collects them (and the flash calls' head counts,
+`note_heads`) by position: how a tensor-parallel step reports each
+(data, model) position's launches.
 The wrappers' shared operand helpers (`route`, `exact_matmul`,
 `int8_operand`) live here too.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -65,6 +70,60 @@ build_logs: dict[str, str] = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+_POSITION = threading.local()
+_LOGS: list = []
+_count_lock = threading.Lock()     # autograd's device threads count too
+
+
+@contextlib.contextmanager
+def at_position(pos):
+    """Tag the launches this thread makes inside with mesh position `pos`
+    (a tuple; None clears the tag)."""
+    prev = getattr(_POSITION, "pos", None)
+    _POSITION.pos = pos
+    try:
+        yield
+    finally:
+        _POSITION.pos = prev
+
+
+def current_position():
+    return getattr(_POSITION, "pos", None)
+
+
+class PositionLog:
+    """`launches[pos]`: a Counter of the launches tagged `pos`;
+    `heads[pos]`: the (kernel, query heads, KV heads) of the flash calls
+    made at `pos` (on any device: the CPU's plain calls too)."""
+
+    def __init__(self):
+        self.launches = collections.defaultdict(collections.Counter)
+        self.heads = collections.defaultdict(set)
+
+
+@contextlib.contextmanager
+def by_position():
+    """A `PositionLog` of what is tagged while the block runs (in any
+    thread: autograd's backward threads tag theirs too)."""
+    log = PositionLog()
+    with _count_lock:
+        _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        with _count_lock:
+            _LOGS.remove(log)
+
+
+def note_heads(name: str, hq: int, hkv: int) -> None:
+    """Record a flash call's head counts at the current position."""
+    pos = current_position()
+    if pos is not None:
+        with _count_lock:
+            for log in _LOGS:
+                log.heads[pos].add((name, hq, hkv))
 
 
 def sources() -> list[Path]:
@@ -177,7 +236,12 @@ def launch(name: str, entry: str, device, *args) -> None:
         finally:
             torch.cuda.set_device(prev)
     check(err, name)
-    LAUNCHES[name] += 1
+    pos = current_position()
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if pos is not None:
+            for log in _LOGS:
+                log.launches[pos][name] += 1
 
 
 @functools.cache

@@ -319,10 +319,12 @@ class FlashAttention(torch.autograd.Function):
         kw = dict(g=Hq // Hkv,
                   scale=1.0 / (D ** 0.5) if scale is None else scale,
                   causal=causal, window=window, softcap=softcap)
+        build.note_heads("flash_fwd", Hq, Hkv)
         o2, lse = flash_fwd(_fold(q), _fold(k), _fold(v), **kw)
         o = _unfold(o2, B, Hq)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
+        ctx.pos = build.current_position()
         return o
 
     @staticmethod
@@ -333,8 +335,11 @@ class FlashAttention(torch.autograd.Function):
         qf, kf, vf, of = _fold(q), _fold(k), _fold(v), _fold(o)
         dof = _fold(do.to(q.dtype))
         delta = flash_delta(of, dof)
-        dq = flash_bwd_dq(qf, kf, vf, dof, lse, delta, **ctx.kw)
-        dk, dv = flash_bwd_dkv(qf, kf, vf, dof, lse, delta, **ctx.kw)
+        # the forward's mesh position, on whichever thread runs this
+        with build.at_position(ctx.pos):
+            build.note_heads("flash_bwd", Hq, Hkv)
+            dq = flash_bwd_dq(qf, kf, vf, dof, lse, delta, **ctx.kw)
+            dk, dv = flash_bwd_dkv(qf, kf, vf, dof, lse, delta, **ctx.kw)
         return (_unfold(dq, B, Hq), _unfold(dk, B, Hkv),
                 _unfold(dv, B, Hkv), None, None, None, None)
 

@@ -6,10 +6,11 @@ optimizer choice keyed by a config's name.
 `rules_for_cell` is what the data-parallel trainer places its parameters
 and optimizer states by (`launch.train.main`, `launch.steps.build_train`
 with a mesh): `fsdp` over `data`, and the vocabulary, the heads and the
-KV projections over `model` only where they divide it. Its serving cells
-(the decode shapes' KV-sequence rules, FSDP while serving the largest
-models) have no reader in the port yet and come with the tensor-parallel
-layers (ROADMAP Queue 1 item 12); the rest of the JAX module
+KV projections over `model` only where they divide it (the
+tensor-parallel step's split). Its serving cells (the decode shapes'
+KV-sequence rules, FSDP while serving the largest models) have no reader
+in the port yet and come with a tensor-parallel prefill and decode
+(ROADMAP Queue 1, tensor-parallel serving); the rest of the JAX module
 (`input_specs`, `list_cells`, `skip_reason`) is the TPU dry runs' cell
 tooling and is not ported.
 """
@@ -58,12 +59,13 @@ def optimizer_for(cfg: ArchConfig) -> str:
 def rules_for_cell(mesh, cfg: ArchConfig, shape: ShapeSpec,
                    st: CellSettings) -> dict:
     """The logical-axis rules of one (config, training shape) cell on
-    `mesh`; a serving shape raises (ROADMAP Queue 1 item 12)."""
+    `mesh`; a serving shape raises (ROADMAP Queue 1, tensor-parallel
+    serving)."""
     if shape.kind != "train":
         raise ValueError(
             f"rules_for_cell: {shape.name!r} is a {shape.kind} cell; the "
-            "serving cells' rules come with the tensor-parallel layers "
-            "(ROADMAP Queue 1 item 12)")
+            "serving cells' rules come with a tensor-parallel prefill and "
+            "decode (ROADMAP Queue 1, tensor-parallel serving)")
     rules = dict(RULES_SINGLE_POD)
     msize = mesh.shape["model"]
 

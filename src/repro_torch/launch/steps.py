@@ -31,8 +31,22 @@ shards run one after the other from the host, each on its own device:
   AdamW step is the unsharded trainer's bit for bit at microbatches =
   shards.
 
-A mesh whose `model` axis is larger than 1 (tensor parallelism of the
-dense layers) raises: ROADMAP Queue 1 item 12.
+Over a mesh whose `model` axis is larger than 1 the step is also tensor
+parallel, the JAX trainer's under the same rules: data shard k runs on
+its model positions (k, j), one tensor a position
+(`distributed.sharding.Parts`), each reading its slice of every leaf
+the rules split over `model` (`ShardWeights(shard=k)`: gathered over
+`data` only). Each layer runs at every position in turn, then the
+collectives its `constrain` calls name (row-parallel partial sums added
+in float32 and rounded to bf16 once); the logits' vocabulary slices are
+gathered onto the first position, where the loss is taken once; the
+backward runs the adjoint collectives, so a position's copy of a
+replicated activation takes only the gradient of its own work, and a
+replicated leaf's copies are summed over positions in mesh order as
+over data shards. Shards and positions are enqueued one after the other
+from the host. `launches_by_shard` lists each mesh position's kernel
+launches, in mesh order, and `heads_by_shard` the (call, query heads, KV
+heads) of its flash calls.
 """
 from __future__ import annotations
 
@@ -43,7 +57,8 @@ from ..configs.base import ArchConfig
 from ..distributed.sharding import (NamedSharding, axis_devices,
                                     named_sharding)
 from ..kernels import build
-from ..models.lm import LM, PlacedLM, loss_fn, param_axes, param_shardings
+from ..models.lm import (LM, PlacedLM, loss_fn, model_positions, param_axes,
+                         param_shardings)
 from ..nn.moe import DataSplit
 from ..optim import make_optimizer, stacked_leaf, warmup_cosine
 from .cells import optimizer_for
@@ -78,12 +93,7 @@ def _leaf_shapes(cfg: ArchConfig) -> dict:
 
 
 def _check_mesh(mesh, rules: dict) -> None:
-    """The data-parallel step's conditions on a mesh and its rules."""
-    if mesh.shape.get("model", 1) > 1:
-        raise ValueError(
-            f"mesh {dict(mesh.shape)}: a `model` axis larger than 1 is "
-            "tensor parallelism of the dense layers, not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+    """The mesh step's condition on its rules."""
     if rules.get("batch") != "data":
         raise ValueError(f"the data-parallel step splits the batch over "
                          f"`data`; the rules give {rules.get('batch')!r}")
@@ -107,13 +117,16 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
     `.grad`, then divide by the slice count), the update in place
     through `tx`. With `mesh` (and `rules`, `rules_for_cell`'s), `model`
     is a `PlacedLM` placed by `shardings(mesh, rules)` and the step is
-    data-parallel (the module docstring). Either way it returns
+    data-parallel, and tensor-parallel where the mesh's `model` axis is
+    larger than 1 (the module docstring). Either way it returns
     (opt_state, metrics): "loss" and "grad_norm" as 0-d tensors (on the
     mesh's first device), and over a mesh "moe_dropped" (the slots MoE
-    layers dropped at capacity, 0-d) and "launches_by_shard" (each data
-    shard's kernel launches, by kernel name). `batch` holds "tokens" and
-    "labels" (B, S), numpy or tensors, and "aux" (B, Na, d_model) for
-    the configs that take auxiliary embeddings."""
+    layers dropped at capacity, 0-d), "launches_by_shard" (each mesh
+    position's kernel launches, by kernel name, in mesh order) and
+    "heads_by_shard" (each position's flash calls' head counts).
+    `batch` holds "tokens" and "labels" (B, S), numpy or tensors, and
+    "aux" (B, Na, d_model) for the configs that take auxiliary
+    embeddings."""
     name = optimizer_for(cfg)
     tx = make_optimizer(name, warmup_cosine(lr, 200, total_steps))
     mb = microbatches
@@ -167,6 +180,8 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
     _check_mesh(mesh, rules)
     moe = any(spec.moe for spec in cfg.group_spec)
     devices = axis_devices(mesh, "data")      # data shard k on devices[k]
+    tp = mesh.shape.get("model", 1) > 1
+    order = list(np.ndindex(mesh.devices.shape))
 
     def fsdp_step(model: PlacedLM, opt_state, batch):
         n = len(devices)
@@ -180,29 +195,28 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
         per = B // (mb * n)
         model.zero_grad()
         parts, dropped = [], []
-        launches = [{} for _ in devices]
-        for i in range(mb):
-            rows = slice(i * B // mb, (i + 1) * B // mb)
-            count = max(int((host["labels"][rows] >= 0).sum()), 1)
-            split = DataSplit(host["tokens"][rows].numel()) if moe else None
-            for k, dev in enumerate(devices):
-                r0 = rows.start + k * per
-                sb = {key: v[r0:r0 + per].to(dev, non_blocking=True)
-                      for key, v in host.items()}
+        with build.by_position() as log:
+            for i in range(mb):
+                rows = slice(i * B // mb, (i + 1) * B // mb)
+                count = max(int((host["labels"][rows] >= 0).sum()), 1)
+                split = DataSplit(host["tokens"][rows].numel()) if moe \
+                    else None
+                for k, dev in enumerate(devices):
+                    r0 = rows.start + k * per
+                    sb = {key: v[r0:r0 + per].to(dev, non_blocking=True)
+                          for key, v in host.items()}
+                    if split is not None:
+                        split.shard = k
+                    weights = (model.weights(None, shard=k, rules=rules)
+                               if tp else model.weights(dev))
+                    with build.at_position(model_positions(mesh, k)[0]):
+                        part = loss_fn(model.skeleton, cfg, sb,
+                                       weights=weights, split=split,
+                                       count=count)
+                        part.backward()
+                    parts.append(part.detach())
                 if split is not None:
-                    split.shard = k
-                before = dict(build.LAUNCHES)
-                part = loss_fn(model.skeleton, cfg, sb,
-                               weights=model.weights(dev), split=split,
-                               count=count)
-                part.backward()
-                parts.append(part.detach())
-                for key, c in build.LAUNCHES.items():
-                    if c != before.get(key, 0):
-                        launches[k][key] = (launches[k].get(key, 0) + c
-                                            - before.get(key, 0))
-            if split is not None:
-                dropped += split.dropped
+                    dropped += split.dropped
         _sum_replica_grads(model)
         first = devices[0]
         loss = 0
@@ -214,7 +228,10 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
         _, opt_state, gnorm = tx.update(grads, opt_state, leaves)
         model.zero_grad()
         metrics = {"loss": loss / mb, "grad_norm": gnorm,
-                   "launches_by_shard": launches}
+                   "launches_by_shard": [dict(log.launches.get(pos, {}))
+                                         for pos in order],
+                   "heads_by_shard": [sorted(log.heads.get(pos, ()))
+                                      for pos in order]}
         if moe:
             total = torch.zeros((), dtype=torch.int64, device=first)
             for d in dropped:

@@ -61,7 +61,8 @@ def run(cfg: ArchConfig, *, steps: int = 100,
     Returns one dict per step run: step, loss, grad_norm, seconds (host
     clock around the step, ending in the loss's read-back) and launches
     (the kernel launches the step made, by kernel name); over a mesh
-    also launches_by_shard and, for MoE configs, moe_dropped."""
+    also launches_by_shard and heads_by_shard (each mesh position's
+    launches and flash head counts) and, for MoE configs, moe_dropped."""
     if mesh is not None:
         rules = rules if rules is not None else rules_for_cell(
             mesh, cfg, ShapeSpec("custom", seq, batch, "train"),
@@ -112,8 +113,9 @@ def run(cfg: ArchConfig, *, steps: int = 100,
                     if n != before.get(k, 0)}
         entry = {"step": step, "loss": loss, "grad_norm": gnorm,
                  "seconds": dt, "launches": launches}
-        if "launches_by_shard" in metrics:
-            entry["launches_by_shard"] = metrics["launches_by_shard"]
+        for key in ("launches_by_shard", "heads_by_shard"):
+            if key in metrics:
+                entry[key] = metrics[key]
         if "moe_dropped" in metrics:
             entry["moe_dropped"] = int(metrics["moe_dropped"])
         history.append(entry)

@@ -49,6 +49,7 @@ from __future__ import annotations
 import functools
 from contextlib import contextmanager, nullcontext
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -57,7 +58,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
-from ..distributed.sharding import Placed, named_sharding, place
+from ..distributed.sharding import (Parts, Placed, constrain, model_dim,
+                                    named_sharding, place)
+from ..kernels import build
 from ..nn.layers import CDT, Block, RMSNorm, _param
 from ..nn.mamba import mamba_param_axes
 
@@ -266,8 +269,12 @@ class PlacedLM:
         for t in self.distinct():
             t.grad = None
 
-    def weights(self, device) -> ShardWeights:
-        return ShardWeights(self, device)
+    def weights(self, device, *, shard: int | None = None,
+                rules: dict | None = None) -> ShardWeights:
+        """The weights of the data shard on `device`, or with `shard` (and
+        the step's `rules`), of data shard `shard`'s model positions
+        (tensor parallelism)."""
+        return ShardWeights(self, device, shard=shard, rules=rules)
 
     @torch.no_grad()
     def gather(self, device) -> LM:
@@ -288,14 +295,50 @@ def place_params(model: LM, shardings: dict) -> PlacedLM:
     return PlacedLM(model.cfg, placed)
 
 
+def model_positions(mesh, shard: int) -> list[tuple]:
+    """The mesh positions of data shard `shard`, in `model` order."""
+    names = mesh.axis_names
+    out = []
+    for pos in np.ndindex(mesh.devices.shape):
+        if pos[names.index("data")] == shard and all(
+                pos[i] == 0 for i, a in enumerate(names)
+                if a not in ("data", "model")):
+            out.append(pos)
+    return sorted(out, key=lambda p: p[names.index("model")])
+
+
 class ShardWeights:
     """One data shard's view of a `PlacedLM`: inside `use(*names)` the
     skeleton's parameters under those module or parameter names are the
-    placed ones gathered whole onto `device`."""
+    placed ones gathered whole onto `device`; with `shard` (tensor
+    parallelism), `Parts` of data shard `shard`'s model positions: each
+    position's slice along `model` gathered whole over `data` onto its
+    device (layout the dimension `model` splits, or "whole"; a whole
+    leaf gathered once a device), under the step's `rules`."""
 
-    def __init__(self, model: PlacedLM, device):
-        self.model, self.device = model, torch.device(device)
+    def __init__(self, model: PlacedLM, device=None, *,
+                 shard: int | None = None, rules: dict | None = None):
+        self.model, self.rules = model, rules
+        self.device = None if device is None else torch.device(device)
+        self.positions = (None if shard is None
+                          else model_positions(model.mesh, shard))
         self._under: dict[str, list[str]] = {}
+
+    def _local(self, name: str):
+        placed = self.model.placed[name]
+        if self.positions is None:
+            return placed.gather(self.device)
+        md = model_dim(placed.sharding, placed.ndim)
+        made: dict = {}
+        parts = []
+        for j, pos in enumerate(self.positions):
+            dev = self.model.mesh.devices[pos]
+            key = (dev, None if md is None else j)
+            if key not in made:
+                made[key] = placed.gather(dev, None if md is None else j)
+            parts.append(made[key])
+        return Parts(parts, "whole" if md is None else md,
+                     positions=self.positions, rules=self.rules)
 
     def _names(self, prefix: str) -> list[str]:
         if prefix not in self._under:
@@ -313,8 +356,7 @@ class ShardWeights:
                     mod_name, _, leaf = name.rpartition(".")
                     mod = self.model.skeleton.get_submodule(mod_name)
                     swapped.append((mod, leaf, mod._parameters[leaf]))
-                    mod._parameters[leaf] = \
-                        self.model.placed[name].gather(self.device)
+                    mod._parameters[leaf] = self._local(name)
             yield
         finally:
             for mod, leaf, p in reversed(swapped):
@@ -330,7 +372,9 @@ def _using(weights: ShardWeights | None, *prefixes):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params: LM, cfg: ArchConfig, tokens) -> torch.Tensor:
+def _embed(params: LM, cfg: ArchConfig, tokens):
+    if isinstance(params.embed, Parts):
+        return _embed_tp(params.embed, cfg, tokens)
     tokens = torch.as_tensor(tokens, device=params.device).to(torch.int64)
     x = params.embed[tokens].to(CDT)
     if cfg.embed_scale:
@@ -338,8 +382,30 @@ def _embed(params: LM, cfg: ArchConfig, tokens) -> torch.Tensor:
     return x
 
 
+def _embed_tp(embed: Parts, cfg: ArchConfig, tokens) -> Parts:
+    """The lookup at each model position: where the vocabulary splits,
+    each position's rows (others' tokens give zero rows), summed over
+    positions (exact: one nonzero row a token); else its whole table."""
+    def rows(table, j):
+        tok = torch.as_tensor(tokens, device=table.device).to(torch.int64)
+        if embed.layout == "whole":
+            return table[tok]
+        local = tok - j * table.shape[0]
+        own = (local >= 0) & (local < table.shape[0])
+        got = table[torch.where(own, local, torch.zeros_like(local))]
+        return got.masked_fill(~own[..., None], 0)
+    x = embed.like([rows(t, j) for j, t in enumerate(embed)],
+                   "sum" if embed.layout == 0 else "whole", CDT)
+    x = constrain(x, "batch", None, None).to(CDT)
+    if cfg.embed_scale:
+        x = x.map(lambda t: t * torch.tensor(cfg.d_model ** 0.5, dtype=CDT))
+    return x
+
+
 def _head_logits(params: LM, cfg: ArchConfig, x) -> torch.Tensor:
     x = params.final_norm(x)
+    if isinstance(x, Parts):
+        return _head_logits_tp(params, cfg, x)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = (x @ head.to(CDT)).to(torch.float32)
     if cfg.softcap_final:
@@ -347,8 +413,43 @@ def _head_logits(params: LM, cfg: ArchConfig, x) -> torch.Tensor:
     return logits
 
 
-def _aux(aux, device):
-    return None if aux is None else torch.as_tensor(aux, device=device)
+def _head_logits_tp(params: LM, cfg: ArchConfig, x: Parts) -> torch.Tensor:
+    """The logits on the first model position: each position's vocabulary
+    slice gathered there where the vocabulary splits, else computed
+    there alone (the loss counts once)."""
+    head = params.embed if cfg.tie_embeddings else params.lm_head
+
+    def logits(t, w):
+        w = w.T if cfg.tie_embeddings else w
+        out = (t @ w.to(CDT)).to(torch.float32)
+        if cfg.softcap_final:
+            out = cfg.softcap_final * torch.tanh(out / cfg.softcap_final)
+        return out
+    if head.layout == "whole":
+        with build.at_position(x.positions[0]):
+            return logits(x[0], head[0])
+    parts = constrain(x.map(logits, head, layout=-1), "batch", None, "vocab")
+    first = x[0].device
+    return torch.cat([p.to(first, non_blocking=True) for p in parts], dim=-1)
+
+
+def _aux(aux, like):
+    """`aux` on `like`'s device, or at every model position of `like`."""
+    if aux is None:
+        return None
+    if isinstance(like, Parts):
+        return like.like([torch.as_tensor(aux, device=t.device)
+                          for t in like], "whole")
+    return torch.as_tensor(aux, device=like.device)
+
+
+def _positions(x):
+    """arange(S) for x (B, S, d) on its device, or at every model
+    position of x."""
+    if isinstance(x, Parts):
+        return x.like([torch.arange(t.shape[1], device=t.device)
+                       for t in x], "whole")
+    return torch.arange(x.shape[1], device=x.device)
 
 
 def _block_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
@@ -413,13 +514,47 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _remat(cfg: ArchConfig, fn, *args):
     """fn(*args) under `torch.utils.checkpoint`: "dots" saves the
     un-batched products, any other policy nothing (the JAX package's
-    `_remat`)."""
+    `_remat`). The recomputation's launches carry the forward's mesh
+    position (`build.at_position`), on whichever thread it runs."""
+    pos, inner = build.current_position(), fn
+
+    def fn(*a):
+        with build.at_position(pos):
+            return inner(*a)
+    if any(isinstance(a, Parts) for a in args):
+        return _remat_parts(fn, args)
     if cfg.remat_policy == "dots":
         return checkpoint(fn, *args, use_reentrant=False,
                           context_fn=functools.partial(
                               create_selective_checkpoint_contexts,
                               _dots_policy))
     return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _remat_parts(fn, args):
+    """fn(*args) over `Parts` (a tensor-parallel group or encoder layer)
+    under the reentrant `torch.utils.checkpoint`, which saves nothing and
+    recomputes the whole call in its one backward node ("dots" recomputes
+    all of it too). The non-reentrant checkpoint's saved-tensor hooks
+    would recompute from whichever autograd device thread unpacks first,
+    and one group spans every position's card, so two threads could
+    recompute one group at once. The `Parts` go in as their tensors and
+    come back as the output's, beside an empty tensor that requires
+    grad: the encoder's first layer takes no input that does, and the
+    reentrant checkpoint backpropagates only where one does."""
+    parts = [a for a in args if isinstance(a, Parts)]
+    flat = [t for a in parts for t in a]
+    meta: dict = {}        # the output's layout, never its tensors
+
+    def run(_grad_anchor, *tensors):
+        it = iter(tensors)
+        out = fn(*(a.like([next(it) for _ in a]) if isinstance(a, Parts)
+                   else a for a in args))
+        meta.update(layout=out.layout, dtype=out.dtype)
+        return tuple(out)
+    anchor = torch.empty(0, device=flat[0].device, requires_grad=True)
+    outs = checkpoint(run, anchor, *flat, use_reentrant=True)
+    return parts[0].like(list(outs), meta["layout"], meta["dtype"])
 
 
 def _counted_once(fn, pim_ctx):
@@ -463,7 +598,7 @@ def _run_encoder(params: LM, cfg: ArchConfig, aux, remat: bool = False,
         raise ValueError(f"{cfg.name}: the encoder needs `aux`, the frame "
                          "embeddings (B, Na, d_model)")
     x = aux.to(CDT)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = _positions(x)
     for j in range(cfg.encoder_groups):
         x = (_remat(cfg, _encoder_layer, params, cfg, j, x, positions,
                     weights) if remat
@@ -487,8 +622,8 @@ def forward(params: LM, cfg: ArchConfig, tokens, *, aux=None,
     remat = cfg.remat and torch.is_grad_enabled()
     with _using(weights, "embed"):
         x = _embed(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    aux = _aux(aux, x.device)
+    positions = _positions(x)
+    aux = _aux(aux, x)
     if cfg.encoder_groups > 0:
         aux = _run_encoder(params, cfg, aux, remat, weights)
     for g in range(cfg.n_groups):
@@ -540,7 +675,7 @@ def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=params.device)
-    aux = _aux(aux, params.device)
+    aux = _aux(aux, x)
     if cfg.encoder_groups > 0:
         aux = _run_encoder(params, cfg, aux)
     entries: dict[str, dict[str, list]] = {
@@ -592,7 +727,7 @@ def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos,
     positions = torch.as_tensor(pos, dtype=torch.int32,
                                 device=params.device).reshape(-1, 1)
     positions = positions.expand(B, 1)
-    aux = _aux(aux, params.device)
+    aux = _aux(aux, x)
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.group_spec):
             x, nc = params.block(g, i)(x, spec, cfg, positions=positions,
@@ -623,7 +758,7 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
     x = _embed(params, cfg, token)
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=params.device)
-    aux = _aux(aux, params.device)
+    aux = _aux(aux, x)
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.group_spec):
             view = {name: buf[g] for name, buf in caches[f"pos{i}"].items()}

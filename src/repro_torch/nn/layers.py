@@ -25,6 +25,29 @@ MLP's down projection (`mlp_down`) and attention's output projection
 `models.lm.encode_params_for_pim` fills) where present, else from the fp
 weights ternarized and encoded per call.
 
+Under tensor parallelism (`models.lm.ShardWeights` over a mesh whose
+`model` axis is larger than 1) the activations and weights are
+`distributed.sharding.Parts`, one tensor a model position, and the
+layers run at each position with its slices, changing layouts where the
+JAX layers call `constrain`:
+
+- `MLP`: `w_gate` and `w_up` split by columns over `d_ff`, `w_down` by
+  rows; the down projection's partial sums are added over positions.
+- `Attention`: `wq` split by columns (`heads_flat`), `wk`/`wv` likewise
+  where the KV heads divide `model` (`kv_flat`), else whole; `wo` by
+  rows. Head counts come from the local widths. Where the query heads
+  divide `model` each position attends over its own heads, reading
+  from replicated K/V projections only the KV heads its query heads
+  use (repeated where a group straddles positions); where they do not,
+  q is all-gathered and every position attends over all heads, and
+  `wo`'s rows take their slice of the output.
+- A row-parallel product (`tp_matmul` with a row-split weight) is a
+  float32 partial sum at each position (`matmul_f32`: the bf16
+  products added in float32, the backward the bf16 product's), added
+  over positions in float32 and rounded to bf16 once by `constrain`'s
+  all-reduce: it differs from the unsharded bf16 product only in the
+  order of the float32 adds.
+
 Not ported, by design: `attn_impl="standin"`, the JAX package's
 cost-lowering tooling (it raises `NotImplementedError`).
 """
@@ -35,6 +58,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
+from ..distributed.sharding import (Parts, _spec_axes, constrain, relayout,
+                                    resolve_spec)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import (NEG_INF, paged_softmax_finalize,
                                        paged_softmax_init,
@@ -52,6 +77,57 @@ def project(x, w, pim_ctx, target: str, enc, alpha):
     if pim_ctx is not None and target in pim_ctx.targets:
         return pim_ctx.matmul(x, w, target, enc=enc, alpha=alpha)
     return x @ w.to(CDT)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """a @ b of bf16 operands as float32: the products exact, added in
+    float32 and not rounded (a row-parallel partial sum). The backward
+    is the bf16 product's: the gradient rounded to bf16, bf16 products."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        a2 = a.reshape(-1, a.shape[-1])
+        if a.is_cuda:          # cuBLAS's bf16 product with a float32 result
+            out = torch.mm(a2, b, out_dtype=torch.float32)
+        else:
+            out = a2.to(torch.float32) @ b.to(torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = g @ b.T if ctx.needs_input_grad[0] else None
+        gb = (a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return ga, gb
+
+
+def matmul_f32(a, b):
+    """a (..., K) @ b (K, N), both bf16, as float32 (`_MatmulF32`)."""
+    return _MatmulF32.apply(a, b)
+
+
+def tp_matmul(x: Parts, w: Parts) -> Parts:
+    """x @ w (w cast to bf16) at each model position, `w` a weight's
+    `Parts`: whole, split by rows (0) or by columns (1). A row split
+    contracts each position's slice of x (sliced here if x is whole) into
+    a float32 partial sum (layout "sum"); otherwise x is made whole and
+    the product is whole or split by columns like w."""
+    last = x[0].ndim - 1
+    if w.layout == 0:
+        x = relayout(x, last)
+        return x.map(lambda t, wt: matmul_f32(t, wt.to(CDT)), w,
+                     layout="sum", dtype=CDT)
+    x = relayout(x, "whole")
+    return x.map(lambda t, wt: t @ wt.to(CDT), w,
+                 layout=last if w.layout == 1 else "whole")
+
+
+def splits(rules: dict, axis: str) -> bool:
+    """Whether logical `axis` is split over `model` under `rules`."""
+    return "model" in _spec_axes(resolve_spec((axis,), rules)[0])
 
 
 def _pim_buffers(module: nn.Module, weight: str) -> None:
@@ -78,9 +154,16 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(d, device=device))
 
     def forward(self, x):
-        xf = x.to(torch.float32)
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        return (xf * torch.rsqrt(var + self.eps) * self.scale).to(CDT)
+        if isinstance(x, Parts):
+            return x.map(lambda t, s: rmsnorm(t, s, self.eps), self.scale,
+                         dtype=CDT)
+        return rmsnorm(x, self.scale, self.eps)
+
+
+def rmsnorm(x, scale, eps: float):
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(CDT)
 
 
 def rope(x, positions, theta):
@@ -108,9 +191,22 @@ class MLP(nn.Module):
         _pim_buffers(self, "w_down")
 
     def forward(self, x, pim_ctx=None):
+        if isinstance(x, Parts):
+            _no_pim(pim_ctx)
+            h = tp_matmul(x, self.w_gate).map(self.act)
+            h = h.map(torch.mul, tp_matmul(x, self.w_up))
+            h = constrain(h, "batch", None, "d_ff")
+            return constrain(tp_matmul(h, self.w_down), "batch", None, None)
         h = self.act(x @ self.w_gate.to(CDT)) * (x @ self.w_up.to(CDT))
         return project(h, self.w_down, pim_ctx, "mlp_down",
                        self.w_down_enc, self.w_down_alpha)
+
+
+def _no_pim(pim_ctx) -> None:
+    if pim_ctx is not None:
+        raise ValueError("a PIM context under tensor parallelism: the "
+                         "protected projections are not a tensor-parallel "
+                         "path of the JAX package")
 
 
 def _softcap(logits, cap):
@@ -197,7 +293,9 @@ class Attention(nn.Module):
     def cross_kv(self, aux, cfg: ArchConfig):
         """Cross-attention K/V of auxiliary embeddings (B, Na, d): each
         (B, Na, Hkv, D) bf16, without RoPE (the JAX package's
-        `_cross_kv`)."""
+        `_cross_kv`). Over `Parts`, each position's KV heads."""
+        if isinstance(aux, Parts):
+            return self._kv_tp(aux.to(CDT), cfg)
         B, Na, _ = aux.shape
         aux = aux.to(CDT)
         shape = (B, Na, cfg.n_kv_heads, cfg.head_dim)
@@ -208,6 +306,8 @@ class Attention(nn.Module):
         """Bidirectional self-attention (the whisper encoder's
         `encoder_attention_apply`): (B, S, d) -> (B, S, d), RoPE'd q and
         k, no mask, no PIM path."""
+        if isinstance(x, Parts):
+            return self._tp(x, cfg, positions=positions, causal=False)
         B, S, _ = x.shape
         hq, dh = cfg.n_heads, cfg.head_dim
         q = rope((x @ self.wq.to(CDT)).reshape(B, S, hq, dh), positions,
@@ -226,7 +326,17 @@ class Attention(nn.Module):
         written at `cache_pos` in place (a ring of size `local_window` for
         sliding layers) and returned; a `KVSource` appends the token's K/V
         and serves the read through its `attend`. `wo` runs on `pim_ctx`'s
-        protected path where it targets "attn_o"."""
+        protected path where it targets "attn_o". Over `Parts` (tensor
+        parallelism) the training pass only: no cache, no PIM."""
+        if isinstance(x, Parts):
+            _no_pim(pim_ctx)
+            if kv_cache is not None:
+                raise ValueError("tensor-parallel attention is the training "
+                                 "pass: decode caches are not split over "
+                                 "`model` (ROADMAP: tensor-parallel serving)")
+            return self._tp(x, cfg, positions=positions, aux_kv=aux_kv,
+                            causal=not spec.cross,
+                            window=spec.local_window), None
         B, S, _ = x.shape
         hq, dh = cfg.n_heads, cfg.head_dim
         q = (x @ self.wq.to(CDT)).reshape(B, S, hq, dh)
@@ -259,15 +369,110 @@ class Attention(nn.Module):
         elif cfg.attn_impl == "flash" and S > 1:
             mask = None                    # the kernels mask by position
         else:
-            pos = torch.arange(S, device=x.device)
-            ok = pos[None, :] <= pos[:, None]
-            if spec.local_window:
-                ok &= pos[None, :] > pos[:, None] - spec.local_window
-            mask = ok[None, None]
+            mask = causal_mask(S, spec.local_window, x.device)[None, None]
         impl = cfg.attn_impl if kv_cache is None else "naive"
         out = _attend(q, k, v, mask, cfg.softcap_attn, impl=impl,
                       causal=True, window=spec.local_window)
         return self.out_proj(out.reshape(B, S, hq * dh), pim_ctx), new_cache
+
+
+    # -- tensor parallelism ------------------------------------------------
+
+    def _tp(self, x: Parts, cfg: ArchConfig, *, positions, aux_kv=None,
+            causal: bool = True, window: int = 0) -> Parts:
+        """Attention over `Parts` (the JAX `attention_apply`'s constrain
+        sites): self-attention (RoPE'd, causal or not) of x, or cross
+        attention over `aux_kv` (each position's K/V heads); -> y whole."""
+        B, S = x[0].shape[:2]
+        q = _heads(tp_matmul(x, self.wq), cfg.head_dim, "heads")
+        q = constrain(q, "batch", None, "heads", None)
+        if aux_kv is None:
+            k, v = self._kv_tp(x, cfg, positions, q_split=q.layout == 2)
+            q = q.map(lambda t, p: rope(t, p, cfg.rope_theta), positions)
+        else:
+            k, v = aux_kv
+        flash = cfg.attn_impl == "flash" and S > 1
+
+        def attend(qj, kj, vj):
+            mask = None
+            if causal and not flash:
+                mask = causal_mask(S, window, qj.device)[None, None]
+            return _attend(qj, kj, vj, mask, cfg.softcap_attn,
+                           impl=cfg.attn_impl, causal=causal, window=window)
+        out = constrain(q.map(attend, k, v), "batch", None, "heads", None)
+        out = out.map(lambda t: t.reshape(B, S, -1),
+                      layout=out.layout if out.layout == "whole" else 2)
+        return constrain(tp_matmul(out, self.wo), "batch", None, None)
+
+    def _kv_tp(self, src: Parts, cfg: ArchConfig, positions=None, *,
+               q_split: bool | None = None) -> tuple[Parts, Parts]:
+        """Each position's K and V heads of `src` (RoPE'd at `positions`
+        where given): its slice where `kv_flat` splits the projections;
+        where they are whole and the query heads split, the KV heads its
+        query heads use (layout "own"); else all of them."""
+        dh = cfg.head_dim
+        if q_split is None:
+            q_split = splits(src.rules, "heads")
+        if self.wk.layout == 1 or not q_split:
+            k, v = (_heads(tp_matmul(src, w), dh, "kv_heads")
+                    for w in (self.wk, self.wv))
+        else:
+            B, S = src[0].shape[:2]
+            M = len(src)
+            sel = [kv_heads_of(j, M, cfg.n_heads, cfg.n_kv_heads)
+                   for j in range(M)]
+
+            def proj(w: Parts):
+                return src.like([(t @ _head_cols(wj, sel[j], dh).to(CDT))
+                                 .reshape(B, S, -1, dh)
+                                 for j, (t, wj) in enumerate(zip(src, w))],
+                                "own")
+            k, v = proj(self.wk), proj(self.wv)
+        if positions is not None:
+            k = k.map(lambda t, p: rope(t, p, cfg.rope_theta), positions)
+        return k, v
+
+
+def _heads(t: Parts, dh: int, axis: str) -> Parts:
+    """(B, S, H·dh) at each position -> (B, S, H', dh): its own heads
+    where the rules split `axis` (heads, kv_heads) over `model` (layout
+    2), else all of them (q all-gathered where its columns split)."""
+    B, S = t[0].shape[:2]
+    if splits(t.rules, axis):
+        t = relayout(t, 2)
+        return t.map(lambda a: a.reshape(B, S, -1, dh), layout=2)
+    t = relayout(t, "whole")
+    return t.map(lambda a: a.reshape(B, S, -1, dh), layout="whole")
+
+
+def kv_heads_of(j: int, M: int, n_heads: int, n_kv: int) -> list[int]:
+    """The KV heads that model position j's query heads read (heads
+    split evenly over M positions): each once where its query heads form
+    whole groups of one size, else one a query head."""
+    G = n_heads // n_kv
+    lo, hi = j * n_heads // M, (j + 1) * n_heads // M
+    need = [h // G for h in range(lo, hi)]
+    uniq = sorted(set(need))
+    if all(need.count(u) == len(need) // len(uniq) for u in uniq) and \
+            len(need) % len(uniq) == 0:
+        return uniq
+    return need
+
+
+def _head_cols(w, heads: list[int], dh: int):
+    """The columns of heads `heads` of a (d, H·dh) projection."""
+    if heads == list(range(heads[0], heads[-1] + 1)):
+        return w[:, heads[0] * dh:(heads[-1] + 1) * dh]
+    return torch.cat([w[:, h * dh:(h + 1) * dh] for h in heads], dim=1)
+
+
+def causal_mask(S: int, window: int, device):
+    """(S, S) bool: key <= query, within `window` where nonzero."""
+    pos = torch.arange(S, device=device)
+    ok = pos[None, :] <= pos[:, None]
+    if window:
+        ok &= pos[None, :] > pos[:, None] - window
+    return ok
 
 
 _SELF = LayerSpec(kind="attn")
@@ -344,7 +549,8 @@ class Block(nn.Module):
             y, st = self.mamba(self.norm1(x), cfg, state,
                                decode=cache is not None)
             x = x + y
-            new_cache = {"conv": st.conv, "ssm": st.ssm}
+            if st is not None:
+                new_cache = {"conv": st.conv, "ssm": st.ssm}
         elif spec.kind == "encdec":
             kv = ({"k": cache["k"], "v": cache["v"]} if cache is not None
                   else None)

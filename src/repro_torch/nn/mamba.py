@@ -22,6 +22,17 @@ Differences by design:
 A decode step is one recurrence step on the carried state: the conv
 tail (B, d_conv - 1, d_inner) bf16 and the SSM state (B, d_inner,
 d_state) float32, as `init_mamba_state` makes them.
+
+Under tensor parallelism (`distributed.sharding.Parts`, the training
+pass) `d_inner` splits over `model` (the JAX `constrain` sites): each
+position runs the conv, the scan and the gate on its d_inner slice;
+`x_proj` and `out_proj` are row-parallel (their partial sums added over
+positions, the first so that every position reads the whole (dt, B,
+C)). `in_proj` stays placed as the JAX package places it, one block of
+its 2·d_inner columns a position (on two positions the first holds all
+of u, the second all of z): each use gathers each position's own u and
+z columns from the blocks that hold them (`_in_proj_local`), and
+autograd sends their gradients back.
 """
 from __future__ import annotations
 
@@ -32,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .layers import CDT, _param
+from ..distributed.sharding import Parts, constrain
+from .layers import CDT, _param, tp_matmul
 
 __all__ = ["MambaState", "Mamba", "mamba_param_axes", "causal_conv",
            "ssm_chunked", "ssm_step", "mamba_apply", "init_mamba_state"]
@@ -180,6 +192,11 @@ def mamba_apply(m: Mamba, x, cfg: ArchConfig, state: MambaState | None = None,
     initial state (None: zeros). Decode: L == 1 and `state` given.
     `state` is a `MambaState` or any (conv, ssm) pair.
     """
+    if isinstance(x, Parts):
+        if state is not None or decode:
+            raise ValueError("tensor-parallel mamba is the training pass: "
+                             "no carried state")
+        return _mamba_tp(m, x, cfg), None
     B, L, _ = x.shape
     di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank
     xz = x @ m.in_proj.to(CDT)                          # (B, L, 2di)
@@ -202,6 +219,56 @@ def mamba_apply(m: Mamba, x, cfg: ArchConfig, state: MambaState | None = None,
                            min(cfg.mamba_chunk, L))
     y = y.to(CDT) * F.silu(z.to(F32)).to(CDT)
     return y @ m.out_proj.to(CDT), MambaState(new_tail, h)
+
+
+def _in_proj_local(w: Parts, di: int) -> Parts:
+    """`in_proj` (d, 2·di), placed one block of columns a position, as
+    each position's own (u, z) columns: its d_inner slice of u, then of
+    z, gathered onto its device from the blocks that hold them."""
+    if w.layout != 1:
+        return w
+    M, blk = len(w), w[0].shape[1]
+    dl = di // M
+
+    def cols(lo, hi, dev):
+        pieces = [w[s][:, max(lo, s * blk) - s * blk:
+                       min(hi, (s + 1) * blk) - s * blk].to(dev)
+                  for s in range(M) if max(lo, s * blk) < min(hi, (s + 1)
+                                                              * blk)]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+    return w.like([torch.cat([cols(j * dl, (j + 1) * dl, d),
+                              cols(di + j * dl, di + (j + 1) * dl, d)], dim=1)
+                   for j, d in enumerate(w.devices)])
+
+
+def _mamba_tp(m: Mamba, x: Parts, cfg: ArchConfig) -> Parts:
+    """The full-sequence pass over `Parts`, d_inner split over `model`
+    where the rules split it (else every position runs it whole)."""
+    B, L, _ = x[0].shape
+    ds, dtr = cfg.d_state, cfg.dt_rank
+    # each position's (u, z) columns: what the JAX constrain of xz over
+    # d_inner and the split into u and z mean
+    xz = tp_matmul(x, _in_proj_local(m.in_proj, cfg.d_inner))
+    dl = xz[0].shape[-1] // 2
+    u = xz.map(lambda t: t[..., :dl])
+    z = xz.map(lambda t: t[..., dl:])
+    u_conv = u.map(lambda t, w, b: causal_conv(t, w.to(F32), b)[0],
+                   m.conv_w, m.conv_b)
+    u_conv = u_conv.map(lambda t: F.silu(t.to(F32)).to(CDT))
+    u_conv = constrain(u_conv, "batch", None, "d_inner")
+    proj = constrain(tp_matmul(u_conv, m.x_proj), "batch", None, None)
+
+    def scan(uc, pr, w_dt, b_dt, a_log, D):
+        dt, Bm, Cm = pr.to(F32).split([dtr, ds, ds], dim=-1)
+        delta = F.softplus(_fp32_matmul(dt, w_dt) + b_dt)
+        h0 = torch.zeros((B, uc.shape[-1], ds), dtype=F32, device=uc.device)
+        return ssm_chunked(uc, delta, -torch.exp(a_log), Bm, Cm, D, h0,
+                           min(cfg.mamba_chunk, L))[0]
+    y = u_conv.map(scan, proj, m.dt_proj_w, m.dt_proj_b, m.A_log, m.D)
+    y = y.map(lambda a, zz: a.to(CDT) * F.silu(zz.to(F32)).to(CDT), z,
+              dtype=CDT)
+    y = constrain(y, "batch", None, "d_inner")
+    return constrain(tp_matmul(y, m.out_proj), "batch", None, None)
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, device=None) -> MambaState:

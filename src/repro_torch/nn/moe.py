@@ -36,6 +36,15 @@ and drops the slots the whole batch's dispatch does. A shard's remat
 recomputation reuses the offsets of its first pass. ("shard_ep" keeps
 the local capacity, as the JAX `shard_map` does.)
 
+Under tensor parallelism (`distributed.sharding.Parts`, the training
+pass) the experts split over `model` (the JAX `("expert", "fsdp",
+None)` leaves): every position routes the whole (replicated) tokens by
+its copy of the router and makes the same dispatch (a `DataSplit`'s
+offsets are the first position's, copied), packs the slots of its own
+E/M experts, runs them, and the expert rows are all-gathered in model
+order for each position's combine ("sorted_ep"; "dense" and "shard_ep"
+raise there).
+
 Two rules keep the routing and the combine exact and repeatable:
 
 - top-k takes the K largest logits with ties to the lower expert id, the
@@ -53,6 +62,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..distributed.sharding import Parts, constrain
 from .layers import ACTS, CDT, _param
 
 __all__ = ["MoE", "Dispatch", "DataSplit", "router_logits", "topk_route",
@@ -235,6 +245,8 @@ def moe_apply(moe: MoE, x, cfg: ArchConfig, split=None):
     """(B, S, d) bf16 -> (B, S, d) through `cfg.moe_impl`: "dense",
     "shard_ep" (`moe_shard_apply`), else "sorted_ep" (with `split`, the
     dispatch of the whole batch x is a data shard of)."""
+    if isinstance(x, Parts):
+        return _moe_tp(moe, x, cfg, split)
     if cfg.moe_impl == "shard_ep":
         from .moe_shard import moe_shard_apply
         return moe_shard_apply(moe, x, cfg)
@@ -243,3 +255,53 @@ def moe_apply(moe: MoE, x, cfg: ArchConfig, split=None):
         return moe_dense(moe, x.reshape(B * S, d), cfg).reshape(B, S, d)
     return moe_sorted_ep(moe, x.reshape(B * S, d), cfg,
                          split).reshape(B, S, d)
+
+
+def _moe_tp(moe: MoE, x: Parts, cfg: ArchConfig, split=None) -> Parts:
+    """"sorted_ep" over `Parts` (the module docstring): -> y whole."""
+    if cfg.moe_impl != "sorted_ep":
+        raise ValueError(f"moe_impl={cfg.moe_impl!r} under tensor "
+                         "parallelism: the experts split over `model` by "
+                         "the sorted_ep dispatch")
+    B, S, d = x[0].shape
+    T, E = B * S, cfg.n_experts
+    El = moe.w_gate[0].shape[0]           # the experts a position holds
+    plans, ws, bufs = [], [], []
+    for j, xj in enumerate(x):
+        x2d = xj.reshape(T, d)
+        topi, w = topk_route((x2d @ moe.router[j].to(CDT)).to(torch.float32),
+                             cfg.top_k)
+        if split is None:
+            plan = dispatch(topi, E, capacity(T, cfg))
+        else:
+            counts = torch.bincount(topi.reshape(-1), minlength=E)
+            off, first = split.offsets(moe, counts)
+            plan = dispatch(topi, E, capacity(split.tokens, cfg),
+                            off.to(counts.device, non_blocking=True))
+            if first:
+                split.dropped.append((~plan.keep).sum())
+        e0 = j * El if moe.w_gate.layout == 0 else 0
+        own = (plan.sorted_e >= e0) & (plan.sorted_e < e0 + El)
+        # another position's slots go to a scratch expert, El
+        rows = torch.where(own, plan.sorted_e - e0,
+                           torch.full_like(plan.sorted_e, El))
+        buf = torch.zeros((El + 1, plan.cap + 1, d), dtype=x2d.dtype,
+                          device=x2d.device)
+        buf[rows, plan.safe_pos] = x2d[plan.tok_of]
+        plans.append(plan)
+        ws.append(w)
+        bufs.append(buf[:El])
+    layout = 0 if moe.w_gate.layout == 0 else "whole"
+    buf = constrain(x.like(bufs, layout), "expert", "batch", None)
+    yb = buf.map(lambda b, wg, wu, wd: _experts(b, wg, wu, wd, ACTS[cfg.act]),
+                 moe.w_gate, moe.w_up, moe.w_down)
+    yb = constrain(yb, "expert", "batch", None)
+    yb = constrain(yb, None, "batch", None)      # every expert's rows
+    out = []
+    for j, ybj in enumerate(yb):
+        plan = plans[j]
+        y_slots = ybj[plan.sorted_e, plan.safe_pos]
+        y_slots = torch.where(plan.keep[:, None], y_slots, torch.zeros(
+            (), dtype=ybj.dtype, device=ybj.device))
+        out.append(combine(ws[j], y_slots, plan, T).reshape(B, S, d))
+    return constrain(x.like(out, "whole"), "batch", None, None)

@@ -287,18 +287,25 @@ def _factored_placed(path: str, ps: list) -> dict:
                 mesh, spec[:-2] + spec[-1:]), name=f"{path}/vc")}
 
 
-def _sum_slices(parts: dict, index: dict) -> dict:
-    """{position: partial sum} -> {position: total}: one partial a slice
-    (the first position holding it), added in slice order on the first
-    slice's device, the total copied to each position's device."""
-    first: dict = {}
-    for pos in parts:
-        first.setdefault(index[pos], pos)
-    dev = parts[first[min(first)]].device
-    total = 0
-    for i in sorted(first):
-        total = total + parts[first[i]].to(dev)
-    return {pos: total.to(parts[pos].device) for pos in parts}
+def _sum_slices(parts: dict, index: dict, group: dict | None = None) -> dict:
+    """{position: partial sum} -> {position: total}: within each group of
+    positions (equal `group` values; one group without it), one partial
+    a slice (`index`; the first position holding it), added in slice
+    order on the first slice's device, the total copied to each
+    position's device."""
+    group = group or dict.fromkeys(parts, ())
+    totals = {}
+    for g in dict.fromkeys(group.values()):
+        first: dict = {}
+        for pos in parts:
+            if group[pos] == g:
+                first.setdefault(index[pos], pos)
+        dev = parts[first[min(first)]].device
+        total = 0
+        for i in sorted(first):
+            total = total + parts[first[i]].to(dev)
+        totals[g] = total
+    return {pos: totals[group[pos]].to(parts[pos].device) for pos in parts}
 
 
 @torch.no_grad()
@@ -306,19 +313,15 @@ def _adafactor_placed(path, ps, gs, state, scale, lr, beta, eps, momentum,
                       weight_decay):
     """The Adafactor update of one placed leaf (every tensor of it placed
     alike), slice by slice. A mean over a split dimension, and the update
-    RMS of a split leaf, sum the slices' partials (`_sum_slices`); a leaf
-    split along more than one dimension is refused. Every position's new
+    RMS of a split leaf, sum the slices' partials (`_sum_slices`): along
+    that dimension, for each slice of the other split dimensions (a leaf
+    split over `data` and `model` along two). Every position's new
     values are computed before any is written: positions on one device
     share the copies of what is not split."""
     stacked = stacked_leaf(path)
-    spec = _stacked_spec(path, ps[0])
     parts = ps[0].sharding.parts(ps[0].ndim)
     parts = ((1,) if stacked else ()) + parts
     split = [d for d, n in enumerate(parts) if n > 1]
-    if len(split) > 1:
-        raise ValueError(f"{path}: Adafactor over a leaf split along "
-                         f"dimensions {split} (spec {spec})")
-    d = split[0] if split else None
     shape = ((len(ps),) if stacked else ()) + ps[0].shape
     nd = len(shape)
     f = state["f"][path]
@@ -328,8 +331,15 @@ def _adafactor_placed(path, ps, gs, state, scale, lr, beta, eps, momentum,
             seen.add(id(t))
             positions.append(pos)
     sharding = ps[0].sharding
-    index = {pos: sharding.index(pos, ps[0].ndim)[d - stacked]
-             for pos in positions} if d is not None else {}
+    at = {pos: sharding.index(pos, ps[0].ndim) for pos in positions}
+
+    def total(sums, over):
+        """Each position's sum over the split dimensions `over`."""
+        def key(pos, inside):
+            return tuple(at[pos][d - stacked] for d in split
+                         if (d in over) == inside)
+        return _sum_slices(sums, {pos: key(pos, True) for pos in sums},
+                           {pos: key(pos, False) for pos in sums})
 
     def local(placed_list, pos):
         ts = [t.local[pos] for t in placed_list]
@@ -339,12 +349,13 @@ def _adafactor_placed(path, ps, gs, state, scale, lr, beta, eps, momentum,
         """Mean over `dim` of each position's x (all dims of x when
         None), summing the slices' partials where `dim` is split."""
         full = math.prod(shape) if dim is None else shape[dim]
-        if d is None or (dim is not None and dim % nd != d):
+        over = split if dim is None else [d for d in split if d == dim % nd]
+        if not over:
             return {pos: (torch.mean(v) if dim is None else v.mean(dim))
                     for pos, v in x.items()}
         sums = {pos: (torch.sum(v) if dim is None else v.sum(dim))
                 for pos, v in x.items()}
-        return {pos: v / full for pos, v in _sum_slices(sums, index).items()}
+        return {pos: v / full for pos, v in total(sums, over).items()}
 
     P = {pos: local(ps, pos) for pos in positions}
     G = {pos: _grad(local(gs, pos), scale).to(F32) for pos in positions}
@@ -358,9 +369,10 @@ def _adafactor_placed(path, ps, gs, state, scale, lr, beta, eps, momentum,
         vc = {pos: bt[pos] * f["vc"].local[pos] + (1 - bt[pos]) * cm[pos]
               for pos in positions}
         # vr's last dimension is the leaf's dimension -2
-        vrm = {pos: x.mean(-1) for pos, x in vr.items()} if d != nd - 2 \
-            else {pos: x / shape[-2] for pos, x in _sum_slices(
-                {p: x.sum(-1) for p, x in vr.items()}, index).items()}
+        vrm = {pos: x.mean(-1) for pos, x in vr.items()} \
+            if nd - 2 not in split else {
+                pos: x / shape[-2] for pos, x in total(
+                    {p: x.sum(-1) for p, x in vr.items()}, [nd - 2]).items()}
         u = {}
         for pos in positions:
             denom = (vr[pos][..., None] * vc[pos][..., None, :]

@@ -17,7 +17,10 @@ engine's telemetry fed from the card as from the CPU; `attend_protected`
 at head dim 128, an MoE layer's routing, dispatch and combine (bitwise
 repeatable) and the mamba scan on the card against the CPU (and bitwise
 the same with TF32 allowed); a data-parallel (FSDP) step over two shards,
-on one card or on two, against the unsharded trainer.
+on one card or on two, against the unsharded trainer; a tensor-parallel
+step over a (1, 4) mesh on one card against the unsharded trainer and
+the same mesh on the CPU, its flash launches carrying each position's
+heads.
 Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
@@ -1538,3 +1541,57 @@ def test_fsdp_step_matches_unsharded(dev, cards, tmp_path):
         {str(d) for d in devices}
     for name, p in ref_model.named_parameters():
         assert torch.equal(placed.placed[name].gather(dev), p.detach()), name
+
+
+def test_tp_step_on_one_card(dev, tmp_path):
+    """A (data 1, model 4) mesh on one card trains reduced granite-3-2b
+    (flash; 8 heads, 2 KV heads, so the KV projections are replicated)
+    two steps: every position launches the flash kernels with 2 query
+    heads and the one KV head they read (forward and remat forward a
+    layer, one backward), each holds a quarter of every model-split
+    leaf, and the losses and grad norms are the unsharded card
+    trainer's, and step 0's the same mesh's on the CPU, within
+    tests/test_torch_tp.py's bounds (rtol 1e-4 and 2e-3)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.cells import CellSettings, rules_for_cell
+    from repro_torch.launch.train import run
+    from repro_torch.models import init_params
+    from repro_torch.models.lm import param_shardings, place_params
+    cfg = dataclasses.replace(get_config("granite_3_2b").reduced(
+        n_groups=2, d_model=256, n_heads=8, n_kv_heads=2, d_ff=512),
+        attn_impl="flash")
+    start = init_params(cfg, 0, device="cpu")
+    kw = dict(steps=2, batch=2, seq=64, save_every=100, log=lambda m: None)
+    ref = run(cfg, params=copy.deepcopy(start).to(dev), device=dev,
+              ckpt_dir=str(tmp_path / "ref"), **kw)
+    hists = {}
+    for where in (dev, torch.device("cpu")):
+        mesh = sharding.Mesh(np.array([[where] * 4], dtype=object),
+                             ("data", "model"))
+        rules = rules_for_cell(mesh, cfg, ShapeSpec("custom", 64, 2,
+                                                    "train"), CellSettings())
+        placed = place_params(copy.deepcopy(start).to(where),
+                              param_shardings(cfg, mesh, rules))
+        hists[where.type] = run(cfg, params=placed, mesh=mesh, rules=rules,
+                                ckpt_dir=str(tmp_path / where.type), **kw)
+        for p in placed.placed.values():
+            if sharding.model_dim(p.sharding, p.ndim) is not None:
+                assert all(t.numel() * 4 == int(np.prod(p.shape))
+                           for t in p.distinct())
+    hist = hists["cuda"]
+    for a, b in zip(ref, hist, strict=True):
+        assert b["loss"] == pytest.approx(a["loss"], rel=1e-4)
+        assert b["grad_norm"] == pytest.approx(a["grad_norm"], rel=2e-3)
+        assert len(b["launches_by_shard"]) == 4
+        for got, heads in zip(b["launches_by_shard"], b["heads_by_shard"],
+                              strict=True):
+            assert got.get("flash_fwd") == 4 and got.get("flash_bwd_dq") \
+                == 2 and got.get("flash_bwd_dkv") == 2, got
+            assert {(h[1], h[2]) for h in heads} == {(2, 1)}, heads
+    cpu = hists["cpu"][0]
+    assert hist[0]["loss"] == pytest.approx(cpu["loss"], rel=1e-4)
+    assert hist[0]["grad_norm"] == pytest.approx(cpu["grad_norm"], rel=2e-3)
