@@ -254,9 +254,41 @@ Phases (any failure exits non-zero):
      width with 2 groups (and 2 encoder groups), one step on (1, 4)
      against the unsharded step on the card under (a)'s step-0 gates,
      each attention layer's flash calls with its positions' heads.
+ 22. tensor-parallel serving (`launch.steps.build_prefill` /
+     `build_serve` over (data, model) meshes under a decode cell's
+     `rules_for_cell`, dense caches placed by `cache_axes`), every
+     position on the one card or one a card; each run fed the unsharded
+     run's tokens and held to it on the card: (a) paper-pim-2b at full
+     width and depth, precoded (flash prefill, `wo` / `w_down` on the
+     row-parallel protected path, wl320_r08, n_iters 4), phase 12's 4 x
+     512 prompts and 16 steps on (1, 4), fault-free and with PIM output
+     errors at 2e-5: logits within 2^-6 (tests/test_torch_serving.py's
+     LOGITS_ATOL), tokens equal where the top-2 margin clears twice
+     that, the PIM counts equal, the faulted run the fault-free run bit
+     for bit with no word left, every position launching flash_fwd with
+     8 query heads, pim_mac, the scan and FBP; (b) mistral-large-123b at
+     full width (vocabulary split, 24 query and 2 KV heads a position),
+     4 of its 88 groups, 4 x 4,096 prompts and 32 steps on (1, 4), held
+     to a witness within 2^-6, tokens equal where the margin clears
+     twice that: the unsharded model run with its adds in (1, 4)'s order
+     (`tps_witness`: `wo` and `w_down` as four float32 partial sums
+     added in model order and rounded once, the other products in four
+     column blocks); its gaps to the plain unsharded run, and the
+     witness's, are reported; with four cards also 24 groups placed
+     slice by slice without a reference; (c) every config of `ARCH_IDS` reduced (flash, 2 KV
+     heads over 4 positions: the KV sequence split) on (1, 4), and
+     mistral reduced on (2, 2) (its parameters over `data` too, the
+     data shards in lockstep threads), 2 x 256 prompts and 8 steps, MoE
+     layers routing on their own logits: every position's router logits
+     bit for bit the unsharded router's on the mesh run's own input;
+     tokens equal where the top-2 margin clears 2^-5, up to the first
+     phase where a token routes otherwise than in the unsharded run
+     (counted, and those at near-ties). TTFT, ms a step and tokens/s
+     against the unsharded run, peak and placed bytes a card, launches
+     and flash heads by position.
 
 The phases run in the order 1-9, 12, 14, 15, 19 (a, b), 17, 16, 19 (c),
-13, 10, 11, 20, 21, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
+13, 10, 11, 20, 21, 22, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
 which is freed before phase 17). Phase 2
 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
 versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
@@ -275,8 +307,9 @@ telemetry (phase 15, run (f) and the memory-mode read), PIM training
 (phase 17, its four runs), the substrate
 (phase 16, each of (b)-(d) and (b)'s flash prefill),
 the campaign (phase 13), training (phases 10-11), the mesh (phase 19,
-(a)-(b) and (c) each), data-parallel training (phase 20) and
-tensor-parallel training (phase 21), and read
+(a)-(b) and (c) each), data-parallel training (phase 20),
+tensor-parallel training (phase 21) and tensor-parallel serving (phase
+22, from (a)'s precode to (c)'s last run), and read
 just after it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
@@ -287,6 +320,7 @@ outside the repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -420,6 +454,16 @@ TP_FULL_ARCHS = ("olmoe_1b_7b", "falcon_mamba_7b", "whisper_small")
 TP_FULL_GROUPS = 2             # (c) at full width: n_groups (and encoder
                                # groups) cut to 2
 TP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# phase 22: tensor-parallel serving over (data, model) meshes
+TPS_MESH = (1, 4)              # (a) and (b), (c) but the (2, 2) case
+TPS_LOGITS_ATOL = 2 * 2 ** -7  # tests/test_torch_serving.py's LOGITS_ATOL
+TPS_BIG_GROUPS = 4             # (b) n_groups 88 -> 4 against the reference
+TPS_BIG_DEEP_GROUPS = 24       # (b) on four cards, no reference
+TPS_NEAR_TIE_ULPS = 4          # (c) a router near-tie (tests/test_torch_tp.py)
+TPS_BIG_BATCH, TPS_BIG_PROMPT, TPS_BIG_STEPS = 4, 4096, 32
+TPS_SMALL_BATCH, TPS_SMALL_PROMPT, TPS_SMALL_STEPS = 2, 256, 8
+TPS_KERNELS = ("flash_fwd", "pim_mac", "scan_syndromes", "fbp_cn",
+               "gf_matmul")
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -4609,6 +4653,510 @@ def phase_tp(device) -> tuple[dict, dict]:
     return report, dict(build.LAUNCHES)
 
 
+def tps_serve(cfg, model, tokens, steps: int, *, mesh=None, rules=None,
+              ctx=None, feed=None, aux=None) -> dict:
+    """`build_prefill` of `tokens` (B, S) then `steps` `build_serve` steps
+    (over `mesh` where given, `model` then a `PlacedLM`): greedy, or fed
+    `feed`'s tokens (B, steps) so that two runs see the same inputs.
+    Returns the tokens fed and each position's argmax, the logits of the
+    last prompt position and of every step (B, steps + 1, V) on the
+    host, TTFT and decode times, and the launches and flash heads by
+    mesh position."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import build_prefill, build_serve
+    from repro_torch.models import init_caches
+    B, S = tokens.shape
+    pf = build_prefill(cfg, mesh=mesh, rules=rules, pim_ctx=ctx)[0]
+    sv = build_serve(cfg, B, S + steps, mesh=mesh, rules=rules,
+                     pim_ctx=ctx)[0]
+    batch = {"tokens": tokens} if aux is None else {"tokens": tokens,
+                                                    "aux": aux}
+    with build.by_position() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = pf(model, batch, max_seq=S + steps)
+        if mesh is None:          # the unsharded prompt caches, S long
+            pre, caches = caches, init_caches(cfg, B, S + steps,
+                                              device=lg.device)
+            for pos, e in pre.items():
+                for name, val in e.items():
+                    caches[pos][name][:, :, :val.shape[2]] = val
+            del pre
+        tok = lg[:, -1:].argmax(-1)
+        tok.cpu()                                  # the first token is out
+        ttft = time.perf_counter() - t0
+        out = [lg[:, -1:].float().cpu()]
+        del lg
+        fed = [tok.cpu() if feed is None else feed[:, :1]]
+        t1 = time.perf_counter()
+        for i in range(steps):
+            b = dict(batch, tokens=fed[-1].to(tok.device), pos=S + i)
+            lg, caches = sv(model, caches, b)
+            out.append(lg.float().cpu())
+            fed.append(lg.argmax(-1).cpu() if feed is None
+                       else feed[:, i + 1:i + 2])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+    logits = torch.cat(out, 1)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: serving logits not finite")
+    del caches
+    return {"fed": torch.cat(fed, 1)[:, :steps + 1],
+            "argmax": logits.argmax(-1), "logits": logits, "ttft_s": ttft,
+            "decode_s": decode_s, "ms_per_decode_step": decode_s / steps * 1e3,
+            "tokens_per_s": B * steps / decode_s,
+            "launches_by_position": {str(k): dict(v) for k, v in
+                                     sorted(log.launches.items())},
+            "heads_by_position": {str(k): sorted(v) for k, v in
+                                  sorted(log.heads.items())}}
+
+
+def tps_compare(ref: dict, got: dict, guard: float,
+                tied_from: int | None = None) -> dict:
+    """`got` (fed `ref`'s tokens) against `ref`: the largest logit gap,
+    and the positions where `got`'s argmax differs from `ref`'s, all and
+    those where `ref`'s top-2 margin exceeds `guard` (and that lie before
+    phase `tied_from`, where a token first routed otherwise)."""
+    top2 = ref["logits"].topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > guard
+    if tied_from is not None:
+        sure[:, tied_from:] = False
+    diff = got["argmax"] != ref["argmax"]
+    return {"logits_max_abs_diff": float(
+                (got["logits"] - ref["logits"]).abs().max()),
+            "tokens_differing": int(diff.sum()),
+            "tokens_differing_guarded": int((diff & sure).sum()),
+            "tokens_guarded_out": int((~sure).sum()),
+            "tokens": int(diff.numel())}
+
+
+def tps_times(ref: dict, got: dict) -> dict:
+    return {k: got[k] for k in ("ttft_s", "ms_per_decode_step",
+                                "tokens_per_s")} | {
+        f"reference_{k}": ref[k] for k in ("ttft_s", "ms_per_decode_step",
+                                           "tokens_per_s")}
+
+
+def tps_rules(mesh, cfg, arch: str, batch: int, seq: int) -> dict:
+    """`rules_for_cell`'s rules of a decode cell (the KV sequence over
+    `model` where the KV heads do not divide it)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import rules_for_cell, settings_for
+    shape = ShapeSpec("custom", seq, batch, "decode")
+    return rules_for_cell(mesh, cfg, shape, settings_for(arch, shape))
+
+
+def tps_place(cfg, model, mesh, rules):
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models.lm import place_params
+    (p_sh, _), _ = build_prefill(cfg)[1](mesh, rules)
+    return place_params(model, p_sh)
+
+
+def tps_memory(devices, placed) -> dict:
+    import torch
+    held, whole = placed_bytes({**placed.placed, **placed.buffers})
+    return {"placed_bytes_by_card": held, "placed_bytes_whole": whole,
+            "peak_gb_by_card": {str(d): torch.cuda.max_memory_allocated(d)
+                                / 1e9 for d in devices}}
+
+
+def tps_pim(device) -> dict:
+    """(a) paper-pim-2b at full width and depth, precoded (flash prefill),
+    phase 12's prompts and PIM_STEPS steps on TPS_MESH, fault-free and
+    with PIM output errors at PIM_FAULT_RATE, each against the unsharded
+    run on the card (fed its tokens)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.context import PIMContext
+    from repro_torch.models import encode_params_for_pim, init_params
+    base = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(base, attn_impl="flash", pim=dataclasses.replace(
+        base.pim, precoded=True))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_params(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=device)
+    encode_params_for_pim(params, cfg)
+    mesh, kind = tp_mesh(TPS_MESH)
+    devices = list(dict.fromkeys(mesh.devices.flat))
+    rules = tps_rules(mesh, cfg, SERVE_ARCH, SERVE_BATCH,
+                      SERVE_PROMPT + PIM_STEPS)
+
+    def ctx(name):
+        c = PIMContext(cfg.pim)
+        return c.with_faults(SEED, PIM_FAULT_RATE) if name == "faulted" else c
+    report = {"arch": cfg.name, "mesh": list(TPS_MESH), "where": kind,
+              "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+              "steps": PIM_STEPS, "rules": {k: rules[k] for k in (
+                  "heads", "kv_heads", "kv_seq", "vocab", "fsdp")}}
+    refs, runs = {}, {}
+    for name in ("clean", "faulted"):
+        c = ctx(name)
+        refs[name] = tps_serve(cfg, params, prompts, PIM_STEPS, ctx=c)
+        refs[name]["pim"] = c.stats()
+    placed = tps_place(cfg, params, mesh, rules)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for name in ("clean", "faulted"):
+        c = ctx(name)
+        runs[name] = tps_serve(cfg, placed, prompts, PIM_STEPS, mesh=mesh,
+                               rules=rules, ctx=c, feed=refs[name]["fed"])
+        runs[name]["pim"] = c.stats()
+        report[name] = {**tps_compare(refs[name], runs[name],
+                                      2 * TPS_LOGITS_ATOL),
+                        **tps_times(refs[name], runs[name]),
+                        "pim": runs[name]["pim"],
+                        "reference_pim": refs[name]["pim"]}
+    report.update(tps_memory(devices, placed))
+    report["launches_by_position"] = runs["clean"]["launches_by_position"]
+    report["heads_by_position"] = runs["clean"]["heads_by_position"]
+    log(f"  (a) paper-pim-2b TP serving {TPS_MESH} ({card_name()}): "
+        f"{json.dumps(report)}")
+    for name in ("clean", "faulted"):
+        r = report[name]
+        if r["tokens_differing_guarded"] or not (
+                r["logits_max_abs_diff"] <= TPS_LOGITS_ATOL):
+            raise AssertionError(f"(a) {name}: {r}")
+        for k in ("words", "detected_words", "uncorrected_words"):
+            if r["pim"][k] != r["reference_pim"][k]:
+                raise AssertionError(f"(a) {name}: PIM counts {r['pim']} "
+                                     f"against {r['reference_pim']}")
+    if report["faulted"]["pim"]["uncorrected_words"] != 0 or \
+            report["faulted"]["pim"]["detected_words"] <= 0:
+        raise AssertionError(f"(a) faulted: {report['faulted']['pim']}")
+    if not (torch.equal(runs["faulted"]["logits"], runs["clean"]["logits"])
+            and torch.equal(runs["faulted"]["argmax"],
+                            runs["clean"]["argmax"])):
+        raise AssertionError("(a) the faulted TP run differs from the "
+                             "fault-free one")
+    hq = cfg.n_heads // TPS_MESH[1]
+    for pos, got in report["launches_by_position"].items():
+        if not all(got.get(k, 0) > 0 for k in ("flash_fwd", "pim_mac",
+                                                 "scan_syndromes", "fbp_cn")):
+            raise AssertionError(f"(a) position {pos}: launches {got}")
+    for pos, heads in report["heads_by_position"].items():
+        if {h[1] for h in heads} != {hq}:
+            raise AssertionError(f"(a) position {pos}: flash heads {heads}")
+    del placed, refs, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def tps_random_placed(cfg, mesh, rules):
+    """A model placed slice by slice, each slice N(0, 0.02^2) drawn on its
+    device from its own seed (norm scales 1): no card holds it whole."""
+    import torch
+    from repro_torch.distributed.sharding import place_zeros
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models.lm import LM, PlacedLM, jax_path
+    (p_sh, _), _ = build_prefill(cfg)[1](mesh, rules)
+    placed = {}
+    for i, (name, p) in enumerate(LM(cfg, device="meta").named_parameters()):
+        path, g = jax_path(name, cfg)
+        pl = place_zeros(p.shape, p_sh["/".join(path)][g or 0], name=name)
+        for j, t in enumerate(pl.distinct()):
+            if name.endswith("scale"):
+                t.fill_(1.0)
+            else:
+                gen = torch.Generator(device=t.device).manual_seed(
+                    SEED + 1000 * i + j)
+                t.normal_(0.0, 0.02, generator=gen)
+        placed[name] = pl
+    return PlacedLM(cfg, placed)
+
+
+@contextlib.contextmanager
+def tps_witness(M: int):
+    """Inside, the unsharded model computes its projections as a `model`
+    axis of M does (`nn.layers.tp_matmul`, `distributed.sharding.
+    _AllReduce`): `wo` and `w_down` (`nn.layers.project`) as M float32
+    partial sums over their row blocks, added in model order in float32
+    and rounded to bf16 once; every other x @ w of a 2-D w as M products
+    over its column blocks, joined (cuBLAS adds a product's terms in an
+    order that its shape picks). The values and the operations are the
+    plain run's; only the order of the adds is the layout's."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.nn import layers
+    plain = layers.project
+
+    def project(x, w, pim_ctx, target, enc, alpha):
+        if pim_ctx is not None or not isinstance(x, torch.Tensor):
+            return plain(x, w, pim_ctx, target, enc, alpha)
+        n = w.shape[0] // M
+        total = None
+        for j in range(M):
+            p = layers.matmul_f32(x.narrow(-1, j * n, n).contiguous(),
+                                  w.narrow(0, j * n, n).to(layers.CDT))
+            total = p if total is None else total.add_(p)
+        return total.to(layers.CDT)
+
+    class Columns(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.Tensor.matmul, torch.Tensor.__matmul__,
+                        torch.matmul) and not kwargs \
+                    and args[1].ndim == 2 and args[1].shape[1] % M == 0:
+                x, w = args
+                n = w.shape[1] // M
+                return torch.cat([x @ w.narrow(1, j * n, n).contiguous()
+                                  for j in range(M)], -1)
+            return func(*args, **(kwargs or {}))
+    layers.project = project
+    try:
+        with Columns():
+            yield
+    finally:
+        layers.project = plain
+
+
+def tps_big(device) -> dict:
+    """(b) mistral-large-123b at full width (flash), TPS_BIG_GROUPS groups,
+    TPS_BIG_BATCH x TPS_BIG_PROMPT prompts and TPS_BIG_STEPS steps on
+    TPS_MESH, fed the unsharded run's tokens, held to the unsharded run
+    as the layout orders its adds (`tps_witness`); its gaps to the plain
+    unsharded run reported beside the witness's; with four cards also
+    TPS_BIG_DEEP_GROUPS groups without a reference."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    base = dataclasses.replace(get_config(TP_BIG_ARCH), attn_impl="flash")
+    cfg = dataclasses.replace(base, n_groups=TPS_BIG_GROUPS)
+    mesh, kind = tp_mesh(TPS_MESH)
+    devices = list(dict.fromkeys(mesh.devices.flat))
+    B, S, T = TPS_BIG_BATCH, TPS_BIG_PROMPT, TPS_BIG_STEPS
+    rules = tps_rules(mesh, cfg, TP_BIG_ARCH, B, S + T)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=device)
+    model = init_params(cfg, SEED, device=devices[0])
+    ref = tps_serve(cfg, model, prompts, T)
+    with tps_witness(TPS_MESH[1]):
+        wit = tps_serve(cfg, model, prompts, T, feed=ref["fed"])
+    placed = tps_place(cfg, model, mesh, rules)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    got = tps_serve(cfg, placed, prompts, T, mesh=mesh, rules=rules,
+                    feed=ref["fed"])
+
+    def compare(a, b):
+        return {**tps_compare(a, b, 2 * TPS_LOGITS_ATOL),
+                "logits_median_abs_diff": float(
+                    (a["logits"] - b["logits"]).abs().median())}
+    report = {"arch": cfg.name, "groups": cfg.n_groups, "where": kind,
+              "batch": B, "prompt": S, "steps": T,
+              "rules": {k: rules[k] for k in ("heads", "kv_heads", "kv_seq",
+                                              "vocab", "fsdp")},
+              **compare(wit, got),
+              "logits_ulp_at_largest": 2.0 ** (math.floor(math.log2(float(
+                  ref["logits"].abs().max()))) - 7),
+              "against_unsharded": compare(ref, got),
+              "witness_against_unsharded": compare(ref, wit),
+              **tps_times(ref, got), **tps_memory(devices, placed),
+              "launches_by_position": got["launches_by_position"],
+              "heads_by_position": got["heads_by_position"]}
+    log(f"  (b) mistral-large-123b, {cfg.n_groups} groups, TP serving "
+        f"{TPS_MESH} ({card_name()}): {json.dumps(report)}")
+    if report["tokens_differing_guarded"] or not (
+            report["logits_max_abs_diff"] <= TPS_LOGITS_ATOL):
+        raise AssertionError(f"(b): {report}")
+    for pos, heads in report["heads_by_position"].items():
+        if {h[1:] for h in heads} != {(cfg.n_heads // 4, cfg.n_kv_heads
+                                       // 4)}:
+            raise AssertionError(f"(b) position {pos}: flash heads {heads}")
+    del placed, ref, wit, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 4:
+        deep = dataclasses.replace(base, n_groups=TPS_BIG_DEEP_GROUPS)
+        placed = tps_random_placed(deep, mesh, rules)
+        for dev in devices:
+            torch.cuda.reset_peak_memory_stats(dev)
+        got = tps_serve(deep, placed, prompts, T, mesh=mesh, rules=rules)
+        report["deep"] = {"groups": deep.n_groups,
+                          **{k: got[k] for k in ("ttft_s",
+                                                 "ms_per_decode_step",
+                                                 "tokens_per_s")},
+                          **tps_memory(devices, placed)}
+        log(f"  (b) mistral-large-123b, {deep.n_groups} groups, four cards "
+            f"({card_name()}): {json.dumps(report['deep'])}")
+        del placed, got
+        gc.collect()
+        for dev in devices:
+            with torch.cuda.device(dev):
+                torch.cuda.empty_cache()
+    else:
+        log(f"  (b) {TPS_BIG_DEEP_GROUPS} groups needs four cards, "
+            f"{torch.cuda.device_count()} visible: not run")
+    return report
+
+
+def tps_routes():
+    """Wrap `nn.moe.topk_route` to keep, on the device, each call's router
+    logits, its top-k indices (sorted) and each token's K-th minus
+    (K+1)-th router logit in bf16 ulps of its row's largest
+    (tests/test_torch_tp_serve.py's record), and `nn.moe._moe_tp` to
+    keep each mesh call's MoE module and its whole input. Returns (the
+    record, a function that undoes the wraps)."""
+    import torch
+    from repro_torch.nn import moe
+    route, tp = moe.topk_route, moe._moe_tp
+    rec = {"routes": [], "inputs": []}
+    bf16 = torch.finfo(torch.bfloat16)
+
+    def recording(logits, k):
+        topi, w = route(logits, k)
+        lf = logits.float()
+        if k < lf.shape[-1]:
+            top = lf.topk(k + 1, dim=-1).values
+            margin = (top[:, k - 1] - top[:, k]) / (
+                bf16.eps * lf.abs().amax(-1)).clamp_min(bf16.tiny)
+        else:
+            margin = torch.full(lf.shape[:1], math.inf, device=lf.device)
+        rec["routes"].append((lf.clone(), topi.sort(-1).values, margin))
+        return topi, w
+
+    def inputs(mod, x, cfg, split=None):
+        rec["inputs"].append((mod, x[0].reshape(-1, x[0].shape[-1]).clone()))
+        return tp(mod, x, cfg, split)
+    moe.topk_route, moe._moe_tp = recording, inputs
+
+    def undo():
+        moe.topk_route, moe._moe_tp = route, tp
+    return rec, undo
+
+
+def tps_route_check(rec, n_ref: int, model, skeleton, M: int,
+                    phases: int) -> dict:
+    """The mesh run's routing (M calls a MoE layer, one a model position,
+    after the unsharded run's `n_ref` calls): every position's router
+    logits bit for bit the unsharded router's (`model`'s module of the
+    same name) on the mesh run's own input, so every position routes
+    alike and as the unsharded router does on that input. Beside it the
+    tokens that the mesh run routes otherwise than the unsharded run (its
+    input differs by the layout's rounding), those at near-ties
+    (TPS_NEAR_TIE_ULPS), and `first_phase_rerouted`, the first phase
+    (0 the prefill, i the i-th step) with such a token: from there on the
+    capacity, shared by the batch, may move any row."""
+    import torch
+    from repro_torch.nn.layers import CDT
+    ref, got = rec["routes"][:n_ref], rec["routes"][n_ref:]
+    if len(got) != M * n_ref or len(rec["inputs"]) != n_ref \
+            or n_ref % phases:
+        raise AssertionError(f"(c) {len(got)} routing calls on the mesh, "
+                             f"{n_ref} unsharded, {len(rec['inputs'])} "
+                             "mesh MoE calls")
+    names = {id(m): n for n, m in skeleton.named_modules()}
+    whole = dict(model.named_modules())
+    per = n_ref // phases
+    rerouted = near = 0
+    first = None
+    for i, (mod, x) in enumerate(rec["inputs"]):
+        w = whole[names[id(mod)]].router
+        want = (x @ w.to(x.device, CDT)).to(torch.float32)
+        for j in range(M):
+            if not torch.equal(got[M * i + j][0], want.to(
+                    got[M * i + j][0].device)):
+                raise AssertionError(f"(c) MoE call {i}, position {j}: the "
+                                     "router logits differ from the "
+                                     "unsharded router's on its input")
+        diff = (got[M * i][1] != ref[i][1].to(got[M * i][1].device)).any(
+            -1).cpu()
+        rerouted += int(diff.sum())
+        near += int((diff & (ref[i][2] < TPS_NEAR_TIE_ULPS).cpu()).sum())
+        if bool(diff.any()) and first is None:
+            first = i // per
+    return {"calls": n_ref, "tokens_rerouted": rerouted,
+            "rerouted_at_near_ties": near, "first_phase_rerouted": first}
+
+
+def tps_layer_kinds(device) -> dict:
+    """(c) every config of ARCH_IDS reduced (flash; 2 KV heads over 4
+    positions: the KV sequence split) on TPS_MESH, and mistral reduced
+    on (2, 2) (its parameters over `data` too: fsdp_serve), each against
+    the unsharded run on the card, fed its tokens; MoE layers route on
+    their own logits, held to the unsharded router (`tps_route_check`)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import init_params
+    B, S, T = TPS_SMALL_BATCH, TPS_SMALL_PROMPT, TPS_SMALL_STEPS
+    report = {}
+    cases = [(a, TPS_MESH) for a in ARCH_IDS] + [(TP_BIG_ARCH, (2, 2))]
+    for arch, shape in cases:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base.reduced(
+            n_groups=2, d_model=256, n_heads=8, n_kv_heads=2,
+            d_ff=512 if base.d_ff else 0), attn_impl="flash")
+        mesh, kind = tp_mesh(shape)
+        devices = list(dict.fromkeys(mesh.devices.flat))
+        rules = tps_rules(mesh, cfg, arch, B, S + T)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device=device)
+        aux = None
+        if cfg.aux_kind:
+            aux = (0.1 * rng.normal(size=(B, cfg.n_aux_tokens,
+                                          cfg.d_model))).astype(np.float32)
+        model = init_params(cfg, SEED, device=device)
+        rec, undo = tps_routes()
+        try:
+            ref = tps_serve(cfg, model, tokens, T, aux=aux)
+            n_ref = len(rec["routes"])
+            placed = tps_place(cfg, model, mesh, rules)
+            for dev in devices:
+                torch.cuda.reset_peak_memory_stats(dev)
+            got = tps_serve(cfg, placed, tokens, T, mesh=mesh, rules=rules,
+                            feed=ref["fed"], aux=aux)
+        finally:
+            undo()
+        routes = None
+        if n_ref:
+            routes = tps_route_check(rec, n_ref, model, placed.skeleton,
+                                     shape[1], T + 1)
+        key = f"{arch}_{shape[0]}x{shape[1]}"
+        report[key] = {"where": kind, "rules": {k: rules[k] for k in (
+            "heads", "kv_heads", "kv_seq", "vocab", "fsdp")},
+            **tps_compare(ref, got, 2 * TPS_LOGITS_ATOL, routes and routes[
+                "first_phase_rerouted"]),
+            **tps_times(ref, got), **tps_memory(devices, placed),
+            "launches_by_position": got["launches_by_position"],
+            "heads": sorted({tuple(h) for hs in got[
+                "heads_by_position"].values() for h in hs}),
+            "routes": routes}
+        if report[key]["tokens_differing_guarded"]:
+            raise AssertionError(f"(c) {key}: {report[key]}")
+        del model, placed, ref, got, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_tp_serve(device) -> tuple[dict, dict]:
+    """Phase 22: (a)-(c). Returns (report, launches)."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    t0 = time.perf_counter()
+    report = {"card": card_name(), "pim": tps_pim(device)}
+    report["big"] = tps_big(device)
+    report["layer_kinds"] = tps_layer_kinds(device)
+    log(f"  (c) every layer kind, TP serving ({report['card']}): "
+        f"{json.dumps(report['layer_kinds'])}")
+    report["seconds"] = time.perf_counter() - t0
+    return report, dict(build.LAUNCHES)
+
+
 def check_path(name: str, launches: dict, kernels) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
@@ -4769,6 +5317,11 @@ def main() -> int:
     log(f"  launches on the tensor-parallel path: {tp_launches}")
     log(f"  phase 21 took {tp['seconds']:.1f} s")
     check_path("tensor-parallel", tp_launches, TP_KERNELS)
+    log("phase 22: tensor-parallel serving over (data, model) meshes")
+    tps, tps_launches = phase_tp_serve(device)
+    log(f"  launches on the tensor-parallel serving path: {tps_launches}")
+    log(f"  phase 22 took {tps['seconds']:.1f} s")
+    check_path("TP serving", tps_launches, TPS_KERNELS)
     log("phase 18: the port's examples")
     examples = phase_examples()
     log(f"  examples: {json.dumps(examples)}")
@@ -4776,7 +5329,8 @@ def main() -> int:
         codec_launches, serve_launches, prefill_launches, pim_launches,
         engine_launches, telemetry_launches, pim_train_launches,
         substrate_launches, campaign_launches, train_launches,
-        mesh_launches, mesh_moe_launches, fsdp_launches, tp_launches))
+        mesh_launches, mesh_moe_launches, fsdp_launches, tp_launches,
+        tps_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -4795,6 +5349,7 @@ def main() -> int:
                     "telemetry": telemetry, "pim_training": pim_training,
                     "substrate": substrate, "examples": examples,
                     "mesh": mesh_report, "fsdp": fsdp, "tp": tp,
+                    "tp_serve": tps,
                     "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
@@ -4813,6 +5368,7 @@ def main() -> int:
                     "launches_mesh_moe": mesh_moe_launches,
                     "launches_fsdp": fsdp_launches,
                     "launches_tp": tp_launches,
+                    "launches_tp_serve": tps_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

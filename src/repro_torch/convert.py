@@ -15,7 +15,9 @@ across the same way, so both packages' optimizers start from one state.
 Given `shardings` (`launch.steps.build_train`'s), both place the arrays
 onto a mesh instead, slice by slice (`params_from_arrays` then returns a
 `models.lm.PlacedLM`), so a data-parallel run starts from the JAX
-package's state.
+package's state. `caches_from_arrays` carries the JAX package's dense
+decode caches across the same way (placed by `models.lm.cache_axes`
+given a mesh), so a decode can start from the JAX prefill's caches.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from .core.construction import LDPCCode
 from .device import resolve_device
 from .distributed.sharding import place
 from .memory.array import StoredTensor
-from .models.lm import LM, PlacedLM, jax_path
+from .models.lm import (LM, PlacedLM, cache_shardings, init_caches,
+                        jax_path)
 from .optim import stacked_leaf
 
 CODE_FIELDS = ("p", "n", "k", "H", "G", "P", "cn_vns", "cn_coefs", "cn_mask",
@@ -77,8 +80,8 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None,
     precoded leaves of `repro.models.encode_params_for_pim` (`w_down_enc`,
     `w_down_alpha`, `wo_enc`, `wo_alpha`), where present, become the
     layers' PIM buffers (`LM.pim_leaves`). With `shardings` ({leaf path:
-    a `NamedSharding` a tensor}), a `PlacedLM` placed by them (no PIM
-    buffers)."""
+    a `NamedSharding` a tensor}), a `PlacedLM` placed by them, its
+    precoded leaves too (by `models.lm.pim_param_axes`' shardings)."""
     if shardings is not None:
         placed = {}
         for name, param in LM(cfg, device="meta").named_parameters():
@@ -90,7 +93,19 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None,
                                  f"parameter {tuple(param.shape)}")
             placed[name] = place(arr, shardings["/".join(path)][g or 0],
                                  name=name)
-        return PlacedLM(cfg, placed)
+        buffers = {}
+        for name, enc, alpha in _pim_arrays(tree, cfg):
+            path, g = jax_path(name + "_enc", cfg)
+            key = "/".join(path)
+            if key not in shardings:
+                raise ValueError(f"the tree holds {key} but `shardings` "
+                                 "do not (models.lm.pim_param_axes)")
+            buffers[name + "_enc"] = place(enc, shardings[key][g],
+                                           name=key)
+            buffers[name + "_alpha"] = place(
+                alpha, shardings[key[:-len("_enc")] + "_alpha"][g],
+                name=key)
+        return PlacedLM(cfg, placed, buffers)
     device = resolve_device(device)
     model = LM(cfg, device=device)
     with torch.no_grad():
@@ -102,7 +117,20 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None,
                 raise ValueError(f"{name}: array of shape {arr.shape}, "
                                  f"parameter {tuple(param.shape)}")
             param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-    for idx, blk in enumerate(model.blocks):
+    for name, enc, alpha in _pim_arrays(tree, cfg):
+        mod_name, _, weight = name.rpartition(".")
+        module = model.get_submodule(mod_name)
+        setattr(module, f"{weight}_enc", torch.tensor(enc, device=device))
+        setattr(module, f"{weight}_alpha", torch.tensor(alpha,
+                                                        device=device))
+    return model
+
+
+def _pim_arrays(tree, cfg: ArchConfig):
+    """The precoded PIM weights a parameter tree holds: (the weight's
+    name in `LM`, e.g. "blocks.3.mlp.w_down", its int8 cells, its 0-d
+    float32 scale) a layer."""
+    for idx in range(cfg.n_groups * len(cfg.group_spec)):
         g, i = divmod(idx, len(cfg.group_spec))
         node = tree["groups"][f"pos{i}"]
         for sub, weight in PIM_LEAVES:
@@ -113,12 +141,37 @@ def params_from_arrays(tree, cfg: ArchConfig, device=None,
             if enc.dtype != np.int8:
                 raise ValueError(f"{sub}/{weight}_enc: dtype {enc.dtype}, "
                                  "expected the precoded int8 cells")
-            module = getattr(blk, sub)
-            setattr(module, f"{weight}_enc",
-                    torch.tensor(enc, device=device))
-            setattr(module, f"{weight}_alpha", torch.tensor(
-                np.float32(leaf[f"{weight}_alpha"][g]), device=device))
-    return model
+            yield (f"blocks.{idx}.{sub}.{weight}", enc,
+                   np.float32(leaf[f"{weight}_alpha"][g]))
+
+
+def caches_from_arrays(cfg: ArchConfig, tree, *, device=None, mesh=None,
+                       rules=None) -> dict:
+    """The JAX package's dense decode caches as numpy arrays
+    ({"pos{i}": {name: (n_groups, B, ...)}}, e.g. its `prefill`'s,
+    bf16 entries as float32 or bf16) -> the port's `init_caches` tree:
+    tensors on `device` (the card by default) in the port's cache
+    dtypes, or with `mesh` (and `rules`) `Placed` by
+    `models.lm.cache_shardings`, so a decode can start from them."""
+    want = init_caches(cfg, 1, 1, device="meta")
+    sh = None if mesh is None else cache_shardings(cfg, mesh, rules)
+    device = None if mesh is not None else resolve_device(device)
+    out = {}
+    for pos, entry in want.items():
+        if set(tree[pos]) != set(entry):
+            raise ValueError(f"{pos}: arrays {sorted(tree[pos])}, caches "
+                             f"{sorted(entry)}")
+        out[pos] = {}
+        for name, like in entry.items():
+            arr = np.asarray(tree[pos][name], dtype=np.float32)
+            if arr.ndim != like.ndim:
+                raise ValueError(f"{pos}/{name}: array of shape "
+                                 f"{arr.shape} for a {like.ndim}-d cache")
+            out[pos][name] = (
+                torch.tensor(arr, device=device).to(like.dtype) if sh is None
+                else place(arr, sh[pos][name], name=f"{pos}/{name}",
+                           dtype=like.dtype))
+    return out
 
 
 def _node(tree, path):

@@ -19,14 +19,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 
 import torch
 
 from ..configs.base import PIMSpec
+from ..distributed.sharding import (Parts, all_gather_rows, data_shard,
+                                    max_over, relayout)
+from ..kernels import build
 from .codes import get_code
 from .pim import PIMConfig
 from .protected import (ProtectionConfig, protected_pim_matmul,
-                        protected_pim_matmul_budgeted, prepare_weights)
+                        protected_pim_matmul_budgeted,
+                        protected_pim_matmul_rows, prepare_weights)
 
 
 class PIMContext:
@@ -53,6 +58,20 @@ class PIMContext:
     through the ternary scale `alpha` (sign(W) on the kept entries over
     their count). The encode, MAC, check and decode run on integers that
     carry no gradient, and need no backward kernel.
+
+    Under tensor parallelism `matmul` takes `distributed.sharding.Parts`:
+    x split along its last dimension and the weight (`enc`, or `W`) by
+    rows over the model positions, as `wo` and `w_down` are placed. It
+    equals the unsharded call on the same x bit for bit: the scale is
+    the largest |x| over every position, each position's MAC sums its
+    rows' ADC groups, the int32 partial words are summed exactly with
+    each position keeping 1/M of them, which it checks and decodes on
+    its own device, and the faults are the unsharded call's draws
+    (`core.protected.protected_pim_matmul_rows`); the words' outputs
+    are then all-gathered, whole at every position. Its counts are
+    those of the unsharded call. Data shards run in lockstep
+    (`distributed.sharding.run_shards`) share the scale too, the largest
+    |x| of the whole batch, and add their words to one count a call.
     """
 
     FOLD = 64                   # calls whose flags are summed together
@@ -93,7 +112,8 @@ class PIMContext:
     def stats(self) -> dict:
         """{"calls", "words", "detected_words", "uncorrected_words"} over
         this context's `matmul` calls (one host read)."""
-        self._fold()
+        with self._lock:
+            self._fold()
         det, unc = (int(v) for v in self._flagged)
         return {"calls": self._calls, "words": self._words,
                 "detected_words": det, "uncorrected_words": unc}
@@ -119,7 +139,8 @@ class PIMContext:
         with one scale over the whole input (every row of a batch shares
         it). Returns (int32 xq, 0-d float32 scale)."""
         xf = x.to(torch.float32)
-        s = torch.clamp_min(xf.abs().max(), 1e-6) / self.act_levels
+        s = _shared_max(torch.clamp_min(xf.abs().max(), 1e-6)) \
+            / self.act_levels
         xq = torch.clamp(torch.round(xf / s), -self.act_levels,
                          self.act_levels).to(torch.int32)
         return xq, s
@@ -144,6 +165,8 @@ class PIMContext:
         not touched at all — the PIM array holds the encoded integers.
         `out_noise` (rows, n_enc) is added to the MAC's output as given
         (noise drawn elsewhere, e.g. by the JAX package)."""
+        if isinstance(x, Parts):
+            return self._matmul_rows(x, W, enc, alpha, out_noise)
         orig_shape = x.shape
         orig_dtype = x.dtype
         n_out = W.shape[1]
@@ -175,6 +198,57 @@ class PIMContext:
         y = res.y[:, :n_out].to(torch.float32) * (s * alpha)
         return y.reshape(orig_shape[:-1] + (n_out,)).to(orig_dtype)
 
+    def _matmul_rows(self, x, W, enc, alpha, out_noise):
+        """`matmul` over `Parts` (the class docstring): -> y whole."""
+        x = relayout(x, x[0].ndim - 1)
+        devices = x.devices
+        n_out = W[0].shape[1]
+        if enc is None:
+            # the ternary threshold and scale are the whole weight's: made
+            # once on the first position, each position's rows encoded
+            W = relayout(W, 0)
+            Wq, a = self.ternarize(torch.cat(
+                [w.to(devices[0], non_blocking=True) for w in W]))
+            encs, row0 = [], 0
+            for pos, t in zip(x.positions, x):
+                rows = Wq[row0:row0 + t.shape[-1]].to(t.device)
+                with build.at_position(pos):
+                    encs.append(prepare_weights(rows.to(torch.int8),
+                                                self.code))
+                row0 += t.shape[-1]
+            alphas = [a.to(d) for d in devices]
+        else:
+            encs = list(relayout(enc, 0))
+            alphas = list(relayout(alpha, "whole"))
+        x2 = [t.reshape(-1, t.shape[-1]).to(torch.float32) for t in x]
+        top = max_over([torch.clamp_min(t.abs().max(), 1e-6) for t in x2])
+        if data_shard() is not None:
+            top = max_over([_shared_max(top[0]), *top[1:]])
+        scales = [m / self.act_levels for m in top]
+        xq = [torch.clamp(torch.round(t / s), -self.act_levels,
+                          self.act_levels).to(torch.int8)
+              for t, s in zip(x2, scales)]
+        budget = (self.spec.correct_budget
+                  if self.spec.mode == "correct_budget" else None)
+        prot = (dataclasses.replace(self.prot, mode="correct")
+                if budget is not None else self.prot)
+        faulted = self._fault_cfg is not None
+        blocks = protected_pim_matmul_rows(
+            xq, encs, self.code, prot, self._fault_cfg or self.pim_cfg,
+            key=self.key if faulted else None, out_noise=out_noise,
+            budget=budget, positions=x.positions)
+        B = x2[0].shape[0]
+        n_words = B * (encs[0].shape[1] // self.code.n)
+        self._add(n_words, *(torch.cat([
+            b[f].to(devices[0], non_blocking=True) for b in blocks])
+            for f in (1, 2)))
+        data = all_gather_rows([b[0] for b in blocks], n_words)
+        lead = tuple(x[0].shape[:-1])
+        ys = [(d.reshape(B, -1)[:, :n_out].to(torch.float32) * (s * a))
+              .reshape(lead + (n_out,)).to(x.dtype)
+              for d, s, a in zip(data, scales, alphas)]
+        return x.like(ys, "whole", x.dtype)
+
     @contextlib.contextmanager
     def uncounted(self):
         """`matmul` calls made inside are left out of `stats()`: a remat
@@ -190,24 +264,43 @@ class PIMContext:
         self._calls = self._words = 0
         self._flagged = (0, 0)      # detected, uncorrected words folded
         self._pending = []          # (detected, uncorrected) of later calls
+        self._lock = threading.Lock()   # data shards count from threads
 
     def _count(self, res) -> None:
+        """One call's `ProtectedResult`."""
+        self._add(res.detected.numel(), res.detected, res.uncorrected)
+
+    def _add(self, words: int, detected, uncorrected) -> None:
+        """One call's words and flags; data shards in lockstep each add
+        theirs, and the first counts the call."""
         if not self._counting:
             return
-        self._calls += 1
-        self._words += res.detected.numel()
-        self._pending.append((res.detected.reshape(-1),
-                              res.uncorrected.reshape(-1)))
-        if len(self._pending) >= self.FOLD:
-            self._fold()
+        shard = data_shard()
+        with self._lock:
+            self._calls += shard is None or shard[1] == 0
+            self._words += words
+            self._pending.append((detected.reshape(-1),
+                                  uncorrected.reshape(-1)))
+            if len(self._pending) >= self.FOLD:
+                self._fold()
 
     def _fold(self) -> None:
         if not self._pending:
             return
         det, unc = zip(*self._pending)
         self._pending = []
-        self._flagged = (self._flagged[0] + torch.cat(det).sum(),
-                         self._flagged[1] + torch.cat(unc).sum())
+        dev = (self._flagged[0].device if torch.is_tensor(self._flagged[0])
+               else det[0].device)
+        self._flagged = tuple(
+            done + torch.cat([f.to(dev) for f in flags]).sum()
+            for done, flags in zip(self._flagged, (det, unc)))
+
+
+def _shared_max(top: torch.Tensor) -> torch.Tensor:
+    """`top`, or the largest over the data shards in lockstep
+    (`distributed.sharding.run_shards`): the whole batch's."""
+    shard = data_shard()
+    return top if shard is None else shard[0].max_over(top)
 
 
 __all__ = ["PIMContext"]

@@ -37,15 +37,37 @@ def flip_weights(generator: torch.Generator, W: torch.Tensor,
     """Cell-read fault: each cell independently flips to a *different* symbol
     with prob weight_flip_rate (uniform over the p-1 wrong symbols), in the
     centered-lift representation."""
+    return flip_rows(generator, W, cfg)
+
+
+def flip_rows(generator: torch.Generator, W: torch.Tensor, cfg: PIMConfig,
+              row0: int = 0, n_rows: int | None = None) -> torch.Tensor:
+    """`flip_weights` of rows [row0, row0 + len(W)) of an (n_rows, N)
+    weight: the draws of the whole shape, those rows kept, so a
+    row-parallel MAC flips each position's rows as the unsharded call
+    flips them."""
     if cfg.weight_flip_rate <= 0:
         return W
-    flip = torch.rand(W.shape, generator=generator,
-                      device=W.device) < cfg.weight_flip_rate
-    delta = torch.randint(1, cfg.p, W.shape, generator=generator,
-                          device=W.device)                    # 1..p-1
+    shape = (W.shape[0] if n_rows is None else n_rows, W.shape[1])
+    rows = slice(row0, row0 + W.shape[0])
+    flip = torch.rand(shape, generator=generator,
+                      device=W.device)[rows] < cfg.weight_flip_rate
+    delta = torch.randint(1, cfg.p, shape, generator=generator,
+                          device=W.device)[rows]              # 1..p-1
     Wf = torch.remainder(torch.remainder(W, cfg.p) + delta, cfg.p)
     Wf = torch.where(Wf > cfg.p // 2, Wf - cfg.p, Wf)        # centered lift
     return torch.where(flip, Wf.to(W.dtype), W)
+
+
+def output_errors(generator: torch.Generator, shape, cfg: PIMConfig,
+                  device) -> torch.Tensor:
+    """The additive output errors of a MAC output of `shape` (int64):
+    ±output_error_mag w.p. output_error_rate (sign uniform)."""
+    hit = torch.rand(shape, generator=generator,
+                     device=device) < cfg.output_error_rate
+    sign = torch.randint(0, 2, shape, generator=generator,
+                         device=device) * 2 - 1
+    return torch.where(hit, sign * cfg.output_error_mag, 0)
 
 
 def perturb_output(generator: torch.Generator, Y: torch.Tensor,
@@ -54,11 +76,7 @@ def perturb_output(generator: torch.Generator, Y: torch.Tensor,
     output_error_rate (sign uniform)."""
     if cfg.output_error_rate <= 0:
         return Y
-    hit = torch.rand(Y.shape, generator=generator,
-                     device=Y.device) < cfg.output_error_rate
-    sign = torch.randint(0, 2, Y.shape, generator=generator,
-                         device=Y.device) * 2 - 1
-    return Y + torch.where(hit, sign * cfg.output_error_mag, 0).to(Y.dtype)
+    return Y + output_errors(generator, Y.shape, cfg, Y.device).to(Y.dtype)
 
 
 def adc_quantize(partial: torch.Tensor, cfg: PIMConfig) -> torch.Tensor:
@@ -105,3 +123,36 @@ def pim_mac(x: torch.Tensor, W: torch.Tensor, cfg: PIMConfig,
     if out_noise is not None:
         Y = Y + out_noise.to(Y.dtype)
     return Y
+
+
+def pim_mac_rows(x: torch.Tensor, W: torch.Tensor, cfg: PIMConfig,
+                 row0: int, n_rows: int):
+    """The MAC of rows [row0, row0 + K) of an (n_rows, N) weight (x: (B,
+    K) their inputs), one position of a row-parallel MAC. Returns
+    (clipped, partials): the (B, N) int32 sum of the clipped ADC groups
+    that lie whole in these rows (None if none does), and {group index:
+    its unclipped (B, N) int32 partial} for the groups these rows share
+    with other positions' rows, which are clipped once summed. With an
+    ideal ADC nothing is clipped and the whole product is `clipped`."""
+    if x.device.type == "cuda":
+        x, W = _int8(x, "x"), _int8(W, "W")
+    K = x.shape[1]
+    if cfg.adc_levels <= 0:
+        return _pim_mac.pim_mac(x, W, row_parallelism=cfg.row_parallelism,
+                                adc_levels=0), {}
+    R = cfg.row_parallelism if cfg.row_parallelism > 0 else n_rows
+    r1 = row0 + K
+    a = -(-row0 // R) * R                 # the first group start in range
+    b = r1 // R * R                       # the last group start in range
+
+    def mac(lo, hi, adc):
+        return _pim_mac.pim_mac(x[:, lo - row0:hi - row0],
+                                W[lo - row0:hi - row0], row_parallelism=R,
+                                adc_levels=adc)
+    clipped = mac(a, b, cfg.adc_levels) if a < b else None
+    partials = {}
+    if row0 < min(a, r1):
+        partials[row0 // R] = mac(row0, min(a, r1), 0)
+    if a <= b < r1:
+        partials[b // R] = mac(b, r1, 0)
+    return clipped, partials

@@ -18,6 +18,7 @@ before the scan, so the scan sees levels in [0, p).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -25,12 +26,14 @@ import torch
 import torch.nn.functional as F
 
 from ..device import as_tensor
+from ..kernels import build
 from ..kernels.gf_matmul import scan_syndromes_routed
 from .construction import LDPCCode
 from .decode import DecodeResult, decode_integers
 from .encode import encode_weight_matrix
 from .gf import symbol_dtype
-from .pim import PIMConfig, pim_mac
+from .pim import (PIMConfig, adc_quantize, flip_rows, output_errors,
+                  pim_mac, pim_mac_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,6 +160,132 @@ def protected_pim_matmul_budgeted(x, W_enc, code: LDPCCode,
     return ProtectedResult(data, detected, uncorrected)
 
 
+def _block(t: torch.Tensor, i: int, M: int) -> torch.Tensor:
+    """Block i of `split_rows`' M row blocks of t, on t's device."""
+    per = -(-t.shape[0] // M)
+    part = t[i * per:(i + 1) * per]
+    if part.shape[0] < per:
+        part = torch.cat([part, part.new_zeros(
+            (per - part.shape[0],) + tuple(t.shape[1:]))])
+    return part
+
+
+def _tag(positions, i: int):
+    """Tag launches with mesh position `positions[i]`, where given."""
+    return (build.at_position(positions[i]) if positions
+            else contextlib.nullcontext())
+
+
+def protected_pim_matmul_rows(xs, encs, code: LDPCCode,
+                              prot: ProtectionConfig, pim_cfg: PIMConfig, *,
+                              key: int | None = None, out_noise=None,
+                              budget: int | None = None,
+                              positions=None) -> list:
+    """`protected_pim_matmul` row-parallel over M model positions:
+    position j holds `xs[j]` (B, K_j) integers on its device and
+    `encs[j]`, rows [K_0 + ... + K_{j-1}, ... + K_j) of W_enc (K, nb·n),
+    the unsharded call's x and W_enc cut by rows. Each position's MAC
+    gives int32 partial words over its rows (ADC groups shared with a
+    neighbour summed there, then clipped whole: `core.pim.pim_mac_rows`);
+    the partials are summed exactly, each position keeping 1/M of the B·nb
+    words (`distributed.sharding.reduce_scatter_rows`), which it checks
+    and decodes on its own device. With `key` the faults are the
+    unsharded call's under `torch.Generator().manual_seed(key)`: each
+    position draws the whole weight's flips and keeps its rows, then the
+    whole output's errors and keeps its words; `out_noise` (B, nb·n) is
+    added likewise. `budget` decodes at most that many flagged words of
+    the whole call, the first in word order
+    (`protected_pim_matmul_budgeted`). Returns, a position, (data (w, k)
+    int32 of its block of w = ceil(B·nb / M) words, detected, uncorrected
+    (its real words,) bool), equal to the unsharded call's on those
+    words. `positions` (mesh positions, one a position) tag each
+    position's launches (`kernels.build.at_position`)."""
+    from ..distributed.sharding import all_gather_rows, reduce_scatter_rows
+    devices = [x.device for x in xs]
+    tags = [build.at_position(p) for p in positions] if positions \
+        else [contextlib.nullcontext() for _ in xs]
+    M, B, K = len(xs), xs[0].shape[0], sum(x.shape[1] for x in xs)
+    N = encs[0].shape[1]
+    if N % code.n:
+        raise ValueError(f"W_enc width {N} is not a multiple of n={code.n}")
+    nb = N // code.n
+    n_words = B * nb
+    gens = [None if key is None else
+            torch.Generator(device=d).manual_seed(int(key)) for d in devices]
+    totals, shared = [], {}
+    row0 = 0
+    for j, (x, W, gen) in enumerate(zip(xs, encs, gens, strict=True)):
+        if gen is not None:
+            W = flip_rows(gen, W, pim_cfg, row0, K)
+        with _tag(positions, j):
+            clipped, partials = pim_mac_rows(x, W, pim_cfg, row0, K)
+        totals.append(clipped if clipped is not None else torch.zeros(
+            (B, N), dtype=torch.int32, device=x.device))
+        for g, part in partials.items():
+            shared.setdefault(g, []).append((len(totals) - 1, part))
+        row0 += x.shape[1]
+    for _g, parts in sorted(shared.items()):
+        # a group over several positions: summed where it starts, clipped
+        j0, total = parts[0]
+        for _j, part in parts[1:]:
+            total = total + part.to(total.device, non_blocking=True)
+        totals[j0] = totals[j0] + adc_quantize(total, pim_cfg)
+    words = reduce_scatter_rows([t.reshape(n_words, code.n) for t in totals],
+                                devices)
+    per = words[0].shape[0]
+    for i, gen in enumerate(gens):
+        if gen is not None and pim_cfg.output_error_rate > 0:
+            err = output_errors(gen, (B, N), pim_cfg, devices[i])
+            words[i] = words[i] + _block(err.reshape(n_words, code.n), i,
+                                         M).to(torch.int32)
+        if out_noise is not None:
+            noise = as_tensor(out_noise, devices[i]).reshape(n_words, code.n)
+            words[i] = words[i] + _block(noise, i, M).to(torch.int32)
+    real = [max(0, min(per, n_words - i * per)) for i in range(M)]
+    if prot.mode == "off":
+        return [(w[:, :code.k], *(torch.zeros(r, dtype=torch.bool,
+                                              device=w.device),) * 2)
+                for w, r in zip(words, real)]
+    flags = []
+    for i, w in enumerate(words):
+        with _tag(positions, i):
+            flags.append(_flag_words(w, code))
+    if prot.mode == "detect":
+        return [(w[:, :code.k], f[:r], f[:r])
+                for w, f, r in zip(words, flags, real)]
+    kw = dict(n_iters=prot.n_iters, llv_scale=prot.llv_scale,
+              llv_mode=prot.llv_mode, damping=prot.damping)
+    out = []
+    if budget is None:
+        for i, (w, f, r) in enumerate(zip(words, flags, real)):
+            with _tag(positions, i):
+                y_corr, res = decode_integers(code, w,
+                                              early_exit=prot.early_exit,
+                                              **kw)
+            out.append((y_corr[:, :code.k], f[:r], res.detect_fail[:r]))
+        return out
+    # the budget: the first `budget` flagged words of the whole call, by a
+    # stable descending sort of all flags, as the unsharded call selects
+    every = all_gather_rows(flags, n_words)
+    for i, (w, f, r) in enumerate(zip(words, flags, real)):
+        order = torch.sort(every[i].to(torch.float32), descending=True,
+                           stable=True).indices[:min(budget, n_words)]
+        local = order[(order >= i * per) & (order < i * per + r)] - i * per
+        fail = torch.zeros_like(f)
+        chosen = torch.zeros_like(f)
+        if local.numel():
+            sel = w[local]
+            with _tag(positions, i):
+                sel_corr, res = decode_integers(code, sel, **kw)
+            take = f[local]
+            w = w.clone()
+            w[local] = torch.where(take[:, None], sel_corr, sel)
+            fail[local] = res.detect_fail & take
+            chosen[local] = take
+        out.append((w[:, :code.k], f[:r], (fail | (f & ~chosen))[:r]))
+    return out
+
+
 def np_prod_mesh(mesh) -> int:
     """Total device count of a mesh (the product of its shape's values;
     anything with a `shape` mapping will do)."""
@@ -258,6 +387,6 @@ def decode_pipelined(code: LDPCCode, pages, *, depth: int = 1, **kw):
 
 
 __all__ = ["ProtectionConfig", "ProtectedResult", "protected_pim_matmul",
-           "protected_pim_matmul_budgeted", "prepare_weights",
+           "protected_pim_matmul_budgeted", "protected_pim_matmul_rows", "prepare_weights",
            "strip_padding", "decode_stream", "decode_pipelined",
            "np_prod_mesh", "DecodeResult"]

@@ -68,9 +68,29 @@ on its model positions, one tensor a position:
   order, so gradients repeat from run to run. `Parts` carry their
   rules, so a remat recomputation on an autograd thread resolves alike.
 
-The multi-pod table, the sequence-sharded KV rules and the serving
-cells' rules are read only by a tensor-parallel prefill and decode
-(ROADMAP Queue 1, tensor-parallel serving), and come with them.
+Serving (`launch.steps.build_prefill` / `build_serve`, under
+`no_grad`) adds three collectives, plain functions without autograd:
+
+- `softmax_merge`: the partial softmax of each position over its own
+  rows of a sequence-split KV cache, (m, l, acc), combined by
+  log-sum-exp in model order in float32; each position gets its own
+  heads of the output (or all of them).
+- `reduce_scatter_rows`: int32 partial words of a row-parallel PIM MAC
+  summed exactly, each position keeping 1/M of the words (`split_rows`'
+  blocks), and `all_gather_rows`, the blocks back at every position.
+- `max_over`: the largest of one scalar a position (the activation
+  scale of a row-parallel protected matmul).
+
+A protected projection quantizes its input with one scale over the
+whole batch, as the JAX package's does under `jit` however the batch is
+split. So a serving step over several data shards runs them in
+lockstep, one thread a shard (`run_shards`): each
+protected call's scale is the largest over the shards (`DataShards.
+max_over`, where every shard waits for the others), and the shards'
+kernels on different cards overlap.
+
+The multi-pod table (a `pod` axis) is not ported (ROADMAP Queue 1,
+item 14).
 """
 from __future__ import annotations
 
@@ -95,7 +115,9 @@ __all__ = ["Mesh", "RULES_SINGLE_POD", "use_rules", "active_mesh",
            "place_zeros", "data_mesh",
            "axis_devices", "split_rows", "gather_rows", "shard_page",
            "decode_shards", "gather_decode", "decode_sharded",
-           "scan_shards", "scan_syndromes_sharded"]
+           "scan_shards", "scan_syndromes_sharded", "softmax_merge",
+           "reduce_scatter_rows", "all_gather_rows", "max_over",
+           "DataShards", "run_shards", "data_shard"]
 
 _CTX = threading.local()
 
@@ -435,12 +457,14 @@ def place_zeros(shape, sharding: NamedSharding, *, dtype=torch.float32,
 
 def model_dim(sharding: NamedSharding, ndim: int) -> int | None:
     """The dimension the `model` axis splits under `sharding`, or None.
-    Raises where `model` shares a dimension with another axis (no rule
-    of `launch.cells.rules_for_cell` makes one)."""
+    Raises where `model` shares a dimension with another axis larger
+    than 1 (`long_500k`'s KV sequence over `data` and `model` with more
+    than one data shard: ROADMAP Queue 1, item 14)."""
+    shape = sharding.mesh.shape
     for d, e in enumerate(sharding.spec[:ndim]):
         axes = _spec_axes(e)
         if "model" in axes:
-            if len(axes) > 1:
+            if any(a != "model" and shape[a] > 1 for a in axes):
                 raise ValueError(f"spec {sharding.spec}: `model` splits a "
                                  "dimension together with other axes")
             return d
@@ -771,3 +795,141 @@ def scan_syndromes_sharded(code: LDPCCode, y, *, mesh: Mesh | None = None,
     y = as_tensor(y, devices[0])
     flags = scan_shards(code, split_rows(y, devices))
     return gather_rows(flags, y.device)[:y.shape[0]]
+
+
+# ---------------------------------------------------------------------------
+# serving collectives (no autograd: serving runs under no_grad)
+# ---------------------------------------------------------------------------
+
+
+def softmax_merge(stats, devices, split: bool) -> list:
+    """Each position's partial softmax over its own keys -> the attention
+    output at every position. `stats[j]` = (m, l, acc) on position j's
+    device: the row maximum and the sum of exp(logit - m) (B, Sq, H, 1)
+    and the exp-weighted sum of values (B, Sq, H, D), float32. They are
+    combined by log-sum-exp in model order in float32, on each target
+    device for its heads: its 1/M block of H where `split`, else all of
+    them. Returns acc / l (float32) for each of `devices`."""
+    M, H = len(stats), stats[0][0].shape[2]
+    out = []
+    for i, dev in enumerate(devices):
+        lo, hi = (i * H // M, (i + 1) * H // M) if split else (0, H)
+        mine = [tuple(t[:, :, lo:hi].to(dev, non_blocking=True) for t in st)
+                for st in stats]
+        m = mine[0][0]
+        for mj, _l, _a in mine[1:]:
+            m = torch.maximum(m, mj)
+        l = acc = None
+        for mj, lj, aj in mine:
+            w = torch.exp(mj - m)
+            l = lj * w if l is None else l + lj * w
+            acc = aj * w if acc is None else acc + aj * w
+        out.append(acc / torch.clamp_min(l, 1e-30))
+    return out
+
+
+def reduce_scatter_rows(partials, devices) -> list:
+    """Integer partials (R, n), one a position, -> the exact sum of each
+    position's block of ceil(R / M) rows (`split_rows`' blocks, the last
+    padded with zero rows) on its device, added in model order."""
+    blocks = [split_rows(p, devices) for p in partials]
+    out = []
+    for i in range(len(devices)):
+        total = blocks[0][i].clone()
+        for b in blocks[1:]:
+            total += b[i]
+        out.append(total)
+    return out
+
+
+def all_gather_rows(blocks, rows: int) -> list:
+    """Row blocks, one a position -> their first `rows` rows concatenated
+    in model order, on every block's device."""
+    made: dict = {}
+    out = []
+    for b in blocks:
+        if b.device not in made:
+            made[b.device] = gather_rows(blocks, b.device)[:rows]
+        out.append(made[b.device])
+    return out
+
+
+def max_over(values) -> list:
+    """The largest of one 0-d tensor a position, on each one's device
+    (exact: a max rounds nothing)."""
+    first = values[0].device
+    top = values[0]
+    for v in values[1:]:
+        top = torch.maximum(top, v.to(first, non_blocking=True))
+    return [top if v.device == first else top.to(v.device, copy=True)
+            for v in values]
+
+
+_SHARD = threading.local()
+
+
+class DataShards:
+    """The data shards of one step, run in lockstep by `run_shards`: one
+    thread a shard, which `data_shard()` names inside."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self._barrier = threading.Barrier(n)
+        self._vals: list = [None] * n
+
+    def max_over(self, value: torch.Tensor) -> torch.Tensor:
+        """The largest of every shard's 0-d `value`, on this shard's
+        device: each shard waits here for the others (exact: a max)."""
+        k = data_shard()[1]
+        self._vals[k] = value
+        self._barrier.wait()
+        top = max_over(self._vals)[k]
+        self._barrier.wait()             # all read before the next call
+        return top
+
+    @property
+    def broken(self) -> bool:
+        """Whether a shard has failed (the others stop waiting)."""
+        return self._barrier.broken
+
+    def abort(self) -> None:
+        self._barrier.abort()
+
+
+def data_shard():
+    """(the `DataShards` group, this thread's shard index) inside
+    `run_shards`, else None."""
+    return getattr(_SHARD, "state", None)
+
+
+def run_shards(fn, n: int) -> list:
+    """[fn(0), ..., fn(n - 1)], each call in its own thread as shard k of
+    one `DataShards` group (one shard runs in this thread, alone). The
+    first error a shard raises is raised here, after every shard's
+    thread has ended (the others stop at their next wait)."""
+    if n == 1:
+        return [fn(0)]
+    group = DataShards(n)
+    out: list = [None] * n
+    errs: list = [None] * n
+
+    def body(k):
+        _SHARD.state = (group, k)
+        try:
+            out[k] = fn(k)
+        except BaseException as e:        # noqa: BLE001 - re-raised below
+            errs[k] = e
+            group.abort()
+        finally:
+            _SHARD.state = None
+    threads = [threading.Thread(target=body, args=(k,), daemon=True)
+               for k in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = [e for e in errs if e is not None
+             and not isinstance(e, threading.BrokenBarrierError)]
+    if first or any(errs):
+        raise (first or [e for e in errs if e is not None])[0]
+    return out

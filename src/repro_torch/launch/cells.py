@@ -7,12 +7,14 @@ optimizer choice keyed by a config's name.
 and optimizer states by (`launch.train.main`, `launch.steps.build_train`
 with a mesh): `fsdp` over `data`, and the vocabulary, the heads and the
 KV projections over `model` only where they divide it (the
-tensor-parallel step's split). Its serving cells (the decode shapes'
-KV-sequence rules, FSDP while serving the largest models) have no reader
-in the port yet and come with a tensor-parallel prefill and decode
-(ROADMAP Queue 1, tensor-parallel serving); the rest of the JAX module
-(`input_specs`, `list_cells`, `skip_reason`) is the TPU dry runs' cell
-tooling and is not ported.
+tensor-parallel step's split). Its serving cells place the parameters
+and caches of `launch.steps.build_prefill` and `build_serve`: FSDP while
+serving only the largest models (`fsdp_serve`, `_BIG`), and the decode
+shapes' KV-sequence rules (the sequence over `model` where the KV heads
+do not divide it; `long_500k` splits it over `data` as well, with the
+batch whole). The rest of the JAX module (`input_specs`, `list_cells`,
+`skip_reason`) is the TPU dry runs' cell tooling and is not ported; so
+is the multi-pod table (ROADMAP Queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -21,6 +23,12 @@ import dataclasses
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed.sharding import RULES_SINGLE_POD
 
+# archs too large for replicated-over-data storage: shard params over `data`
+# (FSDP) in addition to tensor parallelism over `model`
+_BIG = {"mistral_large_123b", "arctic_480b", "llama32_vision_90b"}
+# the same models by config name, so that reduced copies keep their
+# model's serving placement
+_BIG_NAMES = {"mistral-large-123b", "arctic-480b", "llama-3.2-vision-90b"}
 # adafactor for the very large models (12B/param AdamW states do not fit)
 _ADAFACTOR = {"mistral_large_123b", "arctic_480b", "llama32_vision_90b",
               "deepseek_coder_33b", "jamba_v01_52b"}
@@ -36,6 +44,7 @@ class CellSettings:
     microbatches: int = 8          # grad-accumulation chunks per train step
     optimizer: str = "adamw"
     fsdp_train: bool = True        # shard params over `data` during training
+    fsdp_serve: bool = False       # ... and during serving (huge models only)
     remat: bool = True
     notes: str = ""
 
@@ -47,7 +56,7 @@ def settings_for(arch_id: str, shape: ShapeSpec) -> CellSettings:
     return CellSettings(
         microbatches=mb,
         optimizer="adafactor" if arch_id in _ADAFACTOR else "adamw",
-        fsdp_train=True)
+        fsdp_train=True, fsdp_serve=arch_id in _BIG)
 
 
 def optimizer_for(cfg: ArchConfig) -> str:
@@ -56,16 +65,16 @@ def optimizer_for(cfg: ArchConfig) -> str:
     return "adafactor" if cfg.name in _ADAFACTOR_NAMES else "adamw"
 
 
+def fsdp_serve_for(cfg: ArchConfig) -> bool:
+    """Whether serving splits the parameters over `data` too (the
+    `fsdp_serve` `settings_for` gives the config's architecture)."""
+    return cfg.name in _BIG_NAMES
+
+
 def rules_for_cell(mesh, cfg: ArchConfig, shape: ShapeSpec,
                    st: CellSettings) -> dict:
-    """The logical-axis rules of one (config, training shape) cell on
-    `mesh`; a serving shape raises (ROADMAP Queue 1, tensor-parallel
-    serving)."""
-    if shape.kind != "train":
-        raise ValueError(
-            f"rules_for_cell: {shape.name!r} is a {shape.kind} cell; the "
-            "serving cells' rules come with a tensor-parallel prefill and "
-            "decode (ROADMAP Queue 1, tensor-parallel serving)")
+    """The logical-axis rules of one (config, shape) cell on `mesh`, the
+    JAX package's single-pod rules."""
     rules = dict(RULES_SINGLE_POD)
     msize = mesh.shape["model"]
 
@@ -78,5 +87,19 @@ def rules_for_cell(mesh, cfg: ArchConfig, shape: ShapeSpec,
     rules["kv_flat"] = "model" if kv_div else None
     rules["kv_heads"] = "model" if kv_div else None
     rules["heads"] = "model" if cfg.n_heads % msize == 0 else None
-    rules["fsdp"] = "data" if st.fsdp_train else None
+    rules["fsdp"] = "data" if (st.fsdp_train if shape.kind == "train"
+                               else st.fsdp_serve) else None
+
+    if shape.kind == "decode":
+        if shape.name == "long_500k":
+            rules["batch"] = None          # batch=1
+            # context parallelism: the KV sequence over every idle axis
+            rules["kv_seq"] = ("data",)
+            if not kv_div:
+                rules["kv_seq"] = rules["kv_seq"] + ("model",)
+                rules["kv_heads"] = None
+        elif not kv_div:
+            # 32k-deep caches: the KV sequence over `model` when the KV
+            # heads do not divide it (sequence-parallel attention)
+            rules["kv_seq"] = "model"
     return rules

@@ -1,10 +1,10 @@
-"""The train step: loss, backward and the optimizer update, on one card or
-data-parallel over a mesh (FSDP).
+"""The train, prefill and serve steps, on one card or over a (data,
+model) mesh.
 
 The port's counterpart of the JAX package's `launch/steps.py::
-build_train` and `opt_state_axes`. Prefill and serve steps are the
-model's own `prefill` / `decode_step` (the JAX package's `build_prefill`
-and `build_serve` are the TPU dry runs' tooling).
+build_train`, `opt_state_axes`, `build_prefill` and `build_serve` (the
+JAX builders' `ShapeDtypeStruct` argument specs are the TPU dry runs'
+tooling and are not ported, nor is `build_step`).
 
 Over a mesh the step is the JAX trainer's under `rules_for_cell`: the
 batch split over `data`, every parameter and optimizer state split over
@@ -47,6 +47,16 @@ over data shards. Shards and positions are enqueued one after the other
 from the host. `launches_by_shard` lists each mesh position's kernel
 launches, in mesh order, and `heads_by_shard` the (call, query heads, KV
 heads) of its flash calls.
+
+Serving over a mesh (`build_prefill`, `build_serve`) runs the JAX
+builders' steps under a serving cell's rules: each data shard decodes
+its rows of the batch against its slices of caches placed by
+`models.lm.cache_axes`, over its model positions where `model` > 1
+(each layer's cache and PIM branches in `nn.layers`); the logits are
+gathered onto the mesh's first device. The data shards run in lockstep
+threads, so each protected projection's scale is the whole batch's as
+in the JAX step. A data axis larger than 1 with the
+KV sequence split over it (`long_500k`) raises: ROADMAP Queue 1, item 14.
 """
 from __future__ import annotations
 
@@ -54,16 +64,18 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import (NamedSharding, axis_devices,
-                                    named_sharding)
+from ..distributed.sharding import (NamedSharding, Parts, _spec_axes,
+                                    axis_devices, model_dim, named_sharding,
+                                    run_shards)
 from ..kernels import build
-from ..models.lm import (LM, PlacedLM, loss_fn, model_positions, param_axes,
-                         param_shardings)
+from ..models.lm import (LM, PlacedLM, cache_shardings, decode_step,
+                         init_caches, loss_fn, model_positions, param_axes,
+                         param_shardings, pim_param_axes, prefill)
 from ..nn.moe import DataSplit
 from ..optim import make_optimizer, stacked_leaf, warmup_cosine
 from .cells import optimizer_for
 
-__all__ = ["opt_state_axes", "build_train"]
+__all__ = ["opt_state_axes", "build_train", "build_prefill", "build_serve"]
 
 
 def opt_state_axes(opt_name: str, p_axes: dict, p_shapes: dict) -> dict:
@@ -257,3 +269,244 @@ def _sum_replica_grads(model: PlacedLM) -> None:
                 total = total + g.to(total.device)
             for c in copies:
                 c.grad = total.to(c.device, copy=True)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def _serve_ctx(cfg: ArchConfig, pim_ctx):
+    """`pim_ctx`, or the JAX `_maybe_ctx`'s fault-free context where the
+    config enables PIM."""
+    if pim_ctx is not None or not cfg.pim.enabled:
+        return pim_ctx
+    from ..core.context import PIMContext
+    return PIMContext(cfg.pim)
+
+
+def _serve_param_axes(cfg: ArchConfig) -> dict:
+    axes = param_axes(cfg)
+    if cfg.pim.enabled and cfg.pim.precoded:
+        axes = pim_param_axes(axes, cfg)
+    return axes
+
+
+def _serve_shardings(cfg: ArchConfig, mesh, rules: dict) -> tuple:
+    """(params, batch, logits, caches) shardings of a serving cell."""
+    p_sh = param_shardings(cfg, mesh, rules, _serve_param_axes(cfg))
+    b_sh = {"tokens": named_sharding(mesh, rules, ("batch", None))}
+    if cfg.aux_kind:
+        b_sh["aux"] = named_sharding(mesh, rules, ("batch", None, None))
+    lg_sh = named_sharding(mesh, rules, ("batch", None, "vocab"))
+    return p_sh, b_sh, lg_sh, cache_shardings(cfg, mesh, rules)
+
+
+def _check_serve_mesh(mesh, rules: dict) -> None:
+    """A data axis larger than 1 splits the batch, never the KV sequence:
+    `long_500k`'s context parallelism over `data` is ROADMAP Queue 1,
+    item 14."""
+    if mesh.shape["data"] > 1 and (rules.get("batch") != "data"
+                                   or "data" in _spec_axes(
+                                       rules.get("kv_seq"))):
+        raise ValueError(
+            f"serving over {mesh.shape['data']} data shards with the batch "
+            f"over {rules.get('batch')!r} and the KV sequence over "
+            f"{rules.get('kv_seq')!r}: context parallelism over `data` "
+            "(long_500k) is not ported (ROADMAP Queue 1, item 14)")
+
+
+class _Shards:
+    """The data shards of a serving step over a mesh: shard k's rows of
+    the batch on its device, its weights (`ShardWeights`, of its model
+    positions where `model` > 1) and its slices of placed caches."""
+
+    def __init__(self, mesh, rules: dict):
+        _check_serve_mesh(mesh, rules)
+        self.mesh, self.rules = mesh, rules
+        self.devices = axis_devices(mesh, "data")
+        self.tp = mesh.shape["model"] > 1
+
+    def run(self, fn) -> list:
+        """[fn(k) for each data shard k], in lockstep threads
+        (`distributed.sharding.run_shards`): a protected projection's
+        activation scale is the whole batch's."""
+        return run_shards(fn, len(self.devices))
+
+    def split(self, cfg: ArchConfig, tokens: int):
+        """The batch's `DataSplit` where MoE layers dispatch over more
+        than one data shard (the whole batch's capacity), else None."""
+        if len(self.devices) > 1 and any(s.moe for s in cfg.group_spec):
+            return DataSplit(tokens)
+        return None
+
+    def rows(self, batch: dict) -> list:
+        """Each shard's rows of `batch` ("tokens", "aux") on its device."""
+        host = {k: torch.as_tensor(np.asarray(v) if not isinstance(
+            v, torch.Tensor) else v.cpu()) for k, v in batch.items()
+            if v is not None and k != "pos"}
+        B, n = host["tokens"].shape[0], len(self.devices)
+        if B % n:
+            raise ValueError(f"batch {B} does not split over {n} data "
+                             "shards")
+        per = B // n
+        return [{k: v[i * per:(i + 1) * per].to(dev, non_blocking=True)
+                 for k, v in host.items()}
+                for i, dev in enumerate(self.devices)]
+
+    def weights(self, model: PlacedLM, k: int):
+        """Shard k's `ShardWeights`, in a skeleton of its own (shards in
+        lockstep threads swap their weights in at once)."""
+        skel = model.skeleton_of(k)
+        return (model.weights(None, shard=k, rules=self.rules,
+                              skeleton=skel) if self.tp
+                else model.weights(self.devices[k], skeleton=skel))
+
+    def view(self, caches: dict, k: int) -> dict:
+        """Shard k's slices of placed caches: `Parts` of its model
+        positions' tensors (laid out as `model` splits each entry), or
+        its one position's tensors."""
+        positions = model_positions(self.mesh, k)
+
+        def part(p):
+            if not self.tp:
+                return p.local[positions[0]]
+            md = model_dim(p.sharding, p.ndim)
+            return Parts([p.local[pos] for pos in positions],
+                         "whole" if md is None else md,
+                         positions=positions, rules=self.rules)
+        return {pos: {name: part(p) for name, p in e.items()}
+                for pos, e in caches.items()}
+
+    def gather(self, logits: list) -> torch.Tensor:
+        first = self.mesh.device
+        return torch.cat([t.to(first, non_blocking=True) for t in logits])
+
+
+def _fill(placed, caches: dict, k: int, shards: _Shards) -> None:
+    """Shard k's prompt caches (`prefill`'s) written into its slices of
+    `placed`: K/V into their first rows (each position's share of them
+    where the rules split the KV sequence), the rest whole."""
+    for pos, e in shards.view(placed, k).items():
+        for name, dst in e.items():
+            src = caches[pos][name]
+            split = isinstance(dst, Parts)
+            seq = split and name in ("k", "v") and dst.layout == 2
+            for j, (d, t) in enumerate(zip(dst, src) if split
+                                       else [(dst, src)]):
+                if name not in ("k", "v"):
+                    d.copy_(t)
+                    continue
+                if seq:                   # (G, B, W/M, ...) a position
+                    t = t[:, :, j * d.shape[2]:(j + 1) * d.shape[2]]
+                d[:, :, :t.shape[2]] = t
+
+
+def build_prefill(cfg: ArchConfig, *, mesh=None, rules=None, pim_ctx=None):
+    """-> (prefill_step, shardings), the JAX `build_prefill`'s step.
+
+    `shardings(mesh, rules)` gives ((params, batch), (logits, caches))
+    shardings as the JAX builder's: the parameters by `param_axes` (and
+    `pim_param_axes` for a precoded PIM config, whose `*_enc` weights
+    split by rows with `wo` and `w_down`), "tokens" (and "aux") over
+    `batch`, the logits over `batch` and `vocab`, the caches by
+    `cache_axes`.
+
+    `prefill_step(model, batch, max_seq=None)` -> (logits (B, S, V)
+    float32, caches): `batch` holds "tokens" (B, S) (and "aux"), numpy
+    or tensors. Without `mesh` it is `models.lm.prefill` on the model's
+    device (caches S long, as there). With `mesh` (and `rules`,
+    `rules_for_cell`'s), `model` is a `PlacedLM` placed by
+    `shardings(mesh, rules)`; each data shard runs its rows, over its
+    model positions (`Parts`) where `model` > 1, and the caches come
+    back placed by `cache_axes` (`init_caches(..., mesh=...)`),
+    `max_seq` rows long (the prompt's length by default) with the
+    prompt in their first rows; the logits are gathered onto the mesh's
+    first device. A `model` axis of 1 runs the unsharded `prefill` on
+    each data shard. MoE layers dispatch as the whole batch does (its
+    capacity, `nn.moe.DataSplit`), as the JAX dispatch of the whole
+    batch does. `pim_ctx` protects the config's target projections
+    (by default a fault-free `PIMContext(cfg.pim)` where PIM is
+    enabled)."""
+    ctx = _serve_ctx(cfg, pim_ctx)
+
+    def shardings(mesh, rules):
+        p_sh, b_sh, lg_sh, c_sh = _serve_shardings(cfg, mesh, rules)
+        return (p_sh, b_sh), (lg_sh, c_sh)
+
+    if mesh is None:
+        def prefill_step(model: LM, batch, max_seq=None):
+            tokens = torch.as_tensor(batch["tokens"], device=model.device)
+            return prefill(model, cfg, tokens, aux=batch.get("aux"),
+                           pim_ctx=ctx)
+        return prefill_step, shardings
+    shards = _Shards(mesh, rules)
+
+    def mesh_prefill_step(model: PlacedLM, batch, max_seq=None):
+        parts = shards.rows(batch)
+        B, S = np.shape(batch["tokens"])
+        caches = init_caches(cfg, B, max_seq or S, mesh=mesh, rules=rules)
+        split = shards.split(cfg, B * S)
+
+        def shard(k):
+            if split is not None:
+                split.shard = k
+            sb = parts[k]
+            weights = shards.weights(model, k)
+            with build.at_position(model_positions(mesh, k)[0]):
+                lg, c = prefill(weights.skeleton, cfg, sb["tokens"],
+                                aux=sb.get("aux"), pim_ctx=ctx,
+                                weights=weights, split=split)
+            _fill(caches, c, k, shards)
+            return lg
+        return shards.gather(shards.run(shard)), caches
+    return mesh_prefill_step, shardings
+
+
+def build_serve(cfg: ArchConfig, batch: int, max_seq: int, *, mesh=None,
+                rules=None, pim_ctx=None):
+    """-> (serve_step, shardings), the JAX `build_serve`'s one-token
+    decode against `max_seq`-deep caches of `batch` rows.
+
+    `shardings(mesh, rules)` gives ((params, caches, batch), (logits,
+    caches)) shardings as the JAX builder's ("pos" None: an int).
+    `serve_step(model, caches, batch)` -> (logits (B, 1, V) float32,
+    caches): `batch` holds "tokens" (B, 1) and "pos" (an int), and
+    "aux" where the config takes it. Without `mesh` it is
+    `models.lm.decode_step` on the model's device. With `mesh`, `model`
+    is a `PlacedLM` and `caches` the placed caches of `build_prefill`'s
+    step or of `init_caches(cfg, batch, max_seq, mesh=..., rules=...)`,
+    written in place: each data shard decodes its rows, over its model
+    positions where `model` > 1. MoE layers dispatch as the whole batch
+    does, as in `build_prefill`. `pim_ctx` as for `build_prefill`."""
+    ctx = _serve_ctx(cfg, pim_ctx)
+
+    def shardings(mesh, rules):
+        p_sh, b_sh, lg_sh, c_sh = _serve_shardings(cfg, mesh, rules)
+        return (p_sh, c_sh, dict(b_sh, pos=None)), (lg_sh, c_sh)
+
+    if mesh is None:
+        def serve_step(model: LM, caches, batch_):
+            tokens = torch.as_tensor(batch_["tokens"], device=model.device)
+            return decode_step(model, cfg, caches, tokens, batch_["pos"],
+                               aux=batch_.get("aux"), pim_ctx=ctx)
+        return serve_step, shardings
+    shards = _Shards(mesh, rules)
+
+    def mesh_serve_step(model: PlacedLM, caches, batch_):
+        split = shards.split(cfg, np.shape(batch_["tokens"])[0])
+        parts = shards.rows(batch_)
+
+        def shard(k):
+            if split is not None:
+                split.shard = k
+            sb = parts[k]
+            weights = shards.weights(model, k)
+            with build.at_position(model_positions(mesh, k)[0]):
+                return decode_step(weights.skeleton, cfg,
+                                   shards.view(caches, k), sb["tokens"],
+                                   batch_["pos"], aux=sb.get("aux"),
+                                   pim_ctx=ctx, weights=weights,
+                                   split=split)[0]
+        return shards.gather(shards.run(shard)), caches
+    return mesh_serve_step, shardings

@@ -43,6 +43,14 @@ caches of `init_caches`, which it updates in place). Both run on the
 parameters' device; `init_params` puts them on the card unless asked for
 the CPU. `attn_impl="standin"` (the JAX package's cost-lowering tooling)
 is not ported, by design.
+
+Over a mesh (`launch.steps.build_prefill` / `build_serve`) the
+parameters are a `PlacedLM` placed by `param_axes` (and
+`pim_param_axes`: the precoded `*_enc` weights split by rows with `wo`
+and `w_down`, their scales whole), the dense caches `Placed` by
+`cache_axes` (`init_caches(..., mesh=...)`), and `prefill` /
+`decode_step` run one data shard at a time with its `ShardWeights`,
+over its model positions (`Parts`) where `model` > 1.
 """
 from __future__ import annotations
 
@@ -59,13 +67,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
 from ..distributed.sharding import (Parts, Placed, constrain, model_dim,
-                                    named_sharding, place)
+                                    named_sharding, place, place_zeros)
 from ..kernels import build
 from ..nn.layers import CDT, Block, RMSNorm, _param
 from ..nn.mamba import mamba_param_axes
 
-__all__ = ["LM", "init_params", "param_axes", "param_shardings",
-           "PlacedLM", "place_params", "forward", "loss_fn", "init_caches",
+__all__ = ["LM", "init_params", "param_axes", "pim_param_axes",
+           "param_shardings", "PlacedLM", "place_params", "forward",
+           "loss_fn", "cache_axes", "cache_shardings", "init_caches",
            "prefill", "decode_step", "encode_params_for_pim"]
 
 # the encoder's layers: bidirectional attention is chosen at apply time
@@ -223,22 +232,49 @@ def layer_axes(path: str, axes: tuple) -> tuple:
     return axes[1:] if path.startswith(("groups/", "encoder/")) else axes
 
 
-def param_shardings(cfg: ArchConfig, mesh, rules: dict) -> dict:
+def pim_param_axes(axes: dict, cfg: ArchConfig) -> dict:
+    """`axes` (`param_axes`) with the precoded leaves of
+    `encode_params_for_pim` (the JAX package's `pim_param_axes`): each
+    `w_down_enc` split by rows as `w_down` (`d_ff`), each `wo_enc` as
+    `wo` (`heads_flat`), their columns whole (the check columns ride in
+    each codeword block), and the `*_alpha` scales whole."""
+    targets = set(cfg.pim.targets)
+    axes = dict(axes)
+    for i, spec in enumerate(cfg.group_spec):
+        block = _block_axes(spec, cfg)
+        pre = f"groups/pos{i}"
+        if "mlp" in block and "mlp_down" in targets:
+            axes[f"{pre}/mlp/w_down_enc"] = (None, "d_ff", None)
+            axes[f"{pre}/mlp/w_down_alpha"] = (None,)
+        if "attn" in block and "attn_o" in targets:
+            axes[f"{pre}/attn/wo_enc"] = (None, "heads_flat", None)
+            axes[f"{pre}/attn/wo_alpha"] = (None,)
+    return dict(sorted(axes.items()))
+
+
+def param_shardings(cfg: ArchConfig, mesh, rules: dict,
+                    axes: dict | None = None) -> dict:
     """{leaf path: one `NamedSharding` per tensor of the leaf} under
-    `rules` on `mesh`, keyed and listed like `LM.leaves()`."""
+    `rules` on `mesh`, keyed and listed like `LM.leaves()` (and like
+    `LM.pim_leaves()` for the leaves of `pim_param_axes`), of `axes`
+    (`param_axes(cfg)` by default)."""
     counts = {"groups": cfg.n_groups, "encoder": cfg.encoder_groups}
+    axes = param_axes(cfg) if axes is None else axes
     return {path: [named_sharding(mesh, rules, layer_axes(path, ax))]
             * counts.get(path.split("/")[0], 1)
-            for path, ax in param_axes(cfg).items()}
+            for path, ax in axes.items()}
 
 
 class PlacedLM:
     """An LM's parameters placed on a mesh (FSDP): `placed` maps each
     parameter name of `LM` to its `Placed` tensor, whose slices are
-    leaves that gather gradients; `skeleton` is the `LM` on the meta
-    device, the structure `forward` runs."""
+    leaves that gather gradients; `buffers` the precoded PIM weights'
+    (`encode_params_for_pim`'s `*_enc` and `*_alpha`), where placed;
+    `skeleton` is the `LM` on the meta device, the structure `forward`
+    runs."""
 
-    def __init__(self, cfg: ArchConfig, placed: dict[str, Placed]):
+    def __init__(self, cfg: ArchConfig, placed: dict[str, Placed],
+                 buffers: dict[str, Placed] | None = None):
         self.cfg = cfg
         self.skeleton = LM(cfg, device="meta")
         names = [n for n, _ in self.skeleton.named_parameters()]
@@ -246,6 +282,13 @@ class PlacedLM:
             raise ValueError("placed parameters do not match the model's: "
                              f"{sorted(set(names) ^ set(placed))}")
         self.placed = {n: placed[n] for n in names}
+        unknown = [n for n in sorted(buffers or {}) if n.rpartition(".")[2]
+                   not in self.skeleton.get_submodule(
+                       n.rpartition(".")[0])._buffers]
+        if unknown:
+            raise ValueError(f"placed buffers the model has no slot for: "
+                             f"{unknown}")
+        self.buffers = dict(sorted((buffers or {}).items()))
         for t in self.distinct():
             t.requires_grad_(True)
 
@@ -270,11 +313,25 @@ class PlacedLM:
             t.grad = None
 
     def weights(self, device, *, shard: int | None = None,
-                rules: dict | None = None) -> ShardWeights:
+                rules: dict | None = None,
+                skeleton: LM | None = None) -> ShardWeights:
         """The weights of the data shard on `device`, or with `shard` (and
         the step's `rules`), of data shard `shard`'s model positions
-        (tensor parallelism)."""
-        return ShardWeights(self, device, shard=shard, rules=rules)
+        (tensor parallelism), swapped into `skeleton` (this model's by
+        default)."""
+        return ShardWeights(self, device, shard=shard, rules=rules,
+                            skeleton=skeleton)
+
+    def skeleton_of(self, k: int) -> LM:
+        """A skeleton of its own for data shard k (the first is
+        `skeleton`): shards run in threads swap their weights into
+        separate modules."""
+        if k == 0:
+            return self.skeleton
+        extra = self.__dict__.setdefault("_skeletons", {})
+        if k not in extra:
+            extra[k] = LM(self.cfg, device="meta")
+        return extra[k]
 
     @torch.no_grad()
     def gather(self, device) -> LM:
@@ -286,13 +343,21 @@ class PlacedLM:
 
 
 def place_params(model: LM, shardings: dict) -> PlacedLM:
-    """`model`'s parameters placed by `shardings` (`param_shardings`)."""
-    placed = {}
-    for name, param in model.named_parameters():
-        path, g = jax_path(name, model.cfg)
-        sh = shardings["/".join(path)][g or 0]
-        placed[name] = place(param.detach(), sh, name=name)
-    return PlacedLM(model.cfg, placed)
+    """`model`'s parameters placed by `shardings` (`param_shardings`),
+    and its precoded PIM weights where `shardings` has their leaves
+    (`pim_param_axes`). Precode the whole model first
+    (`encode_params_for_pim`): the ternary threshold and scale are each
+    weight's whole mean, so slices encoded alone would differ."""
+    placed, buffers = {}, {}
+    for out, named in ((placed, model.named_parameters()),
+                       (buffers, model.named_buffers())):
+        for name, t in named:
+            path, g = jax_path(name, model.cfg)
+            key = "/".join(path)
+            if out is buffers and key not in shardings:
+                continue
+            out[name] = place(t.detach(), shardings[key][g or 0], name=name)
+    return PlacedLM(model.cfg, placed, buffers)
 
 
 def model_positions(mesh, shard: int) -> list[tuple]:
@@ -309,23 +374,26 @@ def model_positions(mesh, shard: int) -> list[tuple]:
 
 class ShardWeights:
     """One data shard's view of a `PlacedLM`: inside `use(*names)` the
-    skeleton's parameters under those module or parameter names are the
-    placed ones gathered whole onto `device`; with `shard` (tensor
+    skeleton's parameters (and placed PIM buffers) under those module or
+    parameter names are the placed ones gathered whole onto `device`; with `shard` (tensor
     parallelism), `Parts` of data shard `shard`'s model positions: each
     position's slice along `model` gathered whole over `data` onto its
     device (layout the dimension `model` splits, or "whole"; a whole
-    leaf gathered once a device), under the step's `rules`."""
+    leaf gathered once a device), under the step's `rules`. The swap
+    is made in `skeleton` (the model's own by default)."""
 
     def __init__(self, model: PlacedLM, device=None, *,
-                 shard: int | None = None, rules: dict | None = None):
+                 shard: int | None = None, rules: dict | None = None,
+                 skeleton: LM | None = None):
         self.model, self.rules = model, rules
+        self.skeleton = model.skeleton if skeleton is None else skeleton
         self.device = None if device is None else torch.device(device)
         self.positions = (None if shard is None
                           else model_positions(model.mesh, shard))
         self._under: dict[str, list[str]] = {}
 
     def _local(self, name: str):
-        placed = self.model.placed[name]
+        placed = self.model.placed.get(name) or self.model.buffers[name]
         if self.positions is None:
             return placed.gather(self.device)
         md = model_dim(placed.sharding, placed.ndim)
@@ -342,7 +410,8 @@ class ShardWeights:
 
     def _names(self, prefix: str) -> list[str]:
         if prefix not in self._under:
-            self._under[prefix] = [n for n in self.model.placed
+            self._under[prefix] = [n for n in (*self.model.placed,
+                                               *self.model.buffers)
                                    if n == prefix or
                                    n.startswith(prefix + ".")]
         return self._under[prefix]
@@ -354,13 +423,15 @@ class ShardWeights:
             for prefix in prefixes:
                 for name in self._names(prefix):
                     mod_name, _, leaf = name.rpartition(".")
-                    mod = self.model.skeleton.get_submodule(mod_name)
-                    swapped.append((mod, leaf, mod._parameters[leaf]))
-                    mod._parameters[leaf] = self._local(name)
+                    mod = self.skeleton.get_submodule(mod_name)
+                    slots = (mod._parameters if leaf in mod._parameters
+                             else mod._buffers)
+                    swapped.append((slots, leaf, slots[leaf]))
+                    slots[leaf] = self._local(name)
             yield
         finally:
-            for mod, leaf, p in reversed(swapped):
-                mod._parameters[leaf] = p
+            for slots, leaf, p in reversed(swapped):
+                slots[leaf] = p
 
 
 def _using(weights: ShardWeights | None, *prefixes):
@@ -478,13 +549,48 @@ def _block_cache(spec: LayerSpec, cfg: ArchConfig, batch: int, max_seq: int,
     return c
 
 
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes of the dense caches, parallel to
+    `init_caches`' tree (the JAX package's `cache_axes`): K/V over
+    `batch`, `kv_seq` and `kv_heads`, cross K/V over `batch` and
+    `kv_heads`, a mamba layer's state over `batch` and `d_inner`; each
+    with the stacking axis first."""
+    def block(spec: LayerSpec) -> dict:
+        if spec.kind == "mamba":
+            return {"conv": (None, "batch", None, "d_inner"),
+                    "ssm": (None, "batch", "d_inner", None)}
+        c = {}
+        if spec.kind == "encdec" or not spec.cross:
+            c["k"] = c["v"] = (None, "batch", "kv_seq", "kv_heads", None)
+        if spec.kind == "encdec" or spec.cross:
+            c["ck"] = c["cv"] = (None, "batch", None, "kv_heads", None)
+        return c
+    return {f"pos{i}": block(spec) for i, spec in enumerate(cfg.group_spec)}
+
+
+def cache_shardings(cfg: ArchConfig, mesh, rules: dict) -> dict:
+    """`cache_axes` as `NamedSharding`s under `rules` on `mesh`."""
+    return {pos: {name: named_sharding(mesh, rules, ax)
+                  for name, ax in e.items()}
+            for pos, e in cache_axes(cfg).items()}
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
-                protected_kv=None, device=None):
+                protected_kv=None, device=None, mesh=None, rules=None):
     """Dense decode caches, stacked over `n_groups`:
     {"pos{i}": {name: (n_groups, ...)}} with each layer's entries of
     `_block_cache` (cross K/V `cfg.n_aux_tokens` long). With
     `protected_kv` (a `models.kv.ProtectedKVConfig`), a
-    `ProtectedKVCaches` manager instead."""
+    `ProtectedKVCaches` manager instead. With `mesh` (and `rules`,
+    `launch.cells.rules_for_cell`'s), each entry is zeros `Placed` by
+    `cache_shardings` (made slice by slice), on the mesh's devices."""
+    if mesh is not None:
+        shapes = init_caches(cfg, batch, max_seq, device="meta")
+        sh = cache_shardings(cfg, mesh, rules)
+        return {pos: {name: place_zeros(t.shape, sh[pos][name],
+                                        dtype=t.dtype, name=f"{pos}/{name}")
+                      for name, t in e.items()}
+                for pos, e in shapes.items()}
     device = resolve_device(device)
     if protected_kv is not None:
         from .kv import ProtectedKVCaches
@@ -661,9 +767,30 @@ def loss_fn(params: LM, cfg: ArchConfig, batch, *, pim_ctx=None,
 # ---------------------------------------------------------------------------
 
 
+def _roll_ring(t, S: int, W: int):
+    """The prompt's last W rows of (B, S, ...) K or V, rolled so that the
+    token at position q sits at slot q % W (a ring); over `Parts` at
+    each position."""
+    if isinstance(t, Parts):
+        return t.map(lambda a: _roll_ring(a, S, W))
+    return torch.roll(t[:, -W:], S % W, dims=1)
+
+
+def _stack(bufs):
+    """Per-group tensors, or `Parts`, stacked over a new first axis."""
+    if not isinstance(bufs[0], Parts):
+        return torch.stack(bufs)
+    first = bufs[0]
+    layout = first.layout + 1 if isinstance(first.layout, int) \
+        else first.layout
+    return first.like([torch.stack([b[j] for b in bufs])
+                       for j in range(len(first))], layout, first.dtype)
+
+
 @torch.no_grad()
 def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
-            protected_kv=None, max_seq: int | None = None):
+            protected_kv=None, max_seq: int | None = None, weights=None,
+            split=None):
     """Run the full prompt (B, S) and build decode caches. Returns (logits
     (B, S, V) float32, caches): stacked over groups, {"pos{i}": {name:
     (n_groups, B, ...)}}, with the prompt's RoPE'd K/V ("k", "v", S' long,
@@ -671,43 +798,60 @@ def prefill(params: LM, cfg: ArchConfig, tokens, *, aux=None, pim_ctx=None,
     "cv", of `aux` or the encoder's output) and mamba layers' final state
     ("conv", "ssm"); or with `protected_kv` a `ProtectedKVCaches` manager
     that has ingested them (`max_seq` sizes its dense entries; the prompt
-    length by default). `pim_ctx` protects its target projections."""
+    length by default). `pim_ctx` protects its target projections.
+
+    One data shard of a placed model runs with `params` its
+    `PlacedLM.skeleton`, `weights` its `ShardWeights` and `split` the
+    batch's `nn.moe.DataSplit` (MoE layers dispatch as the whole batch
+    does, as in `forward`); with
+    `ShardWeights(shard=k)` (tensor parallelism) every cache entry is
+    `Parts`: each position's KV heads where the rules split them (all
+    of them at every position where they do not) and its d_inner slice
+    of a mamba state, and the logits are gathered onto the first
+    position (`launch.steps.build_prefill` places the caches)."""
     B, S = tokens.shape
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(S, device=params.device)
+    with _using(weights, "embed"):
+        x = _embed(params, cfg, tokens)
+    positions = _positions(x)
     aux = _aux(aux, x)
     if cfg.encoder_groups > 0:
-        aux = _run_encoder(params, cfg, aux)
+        aux = _run_encoder(params, cfg, aux, weights=weights)
     entries: dict[str, dict[str, list]] = {
         f"pos{i}": {} for i in range(len(cfg.group_spec))}
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.group_spec):
-            blk = params.block(g, i)
-            entry = {}
-            if spec.kind != "mamba":
-                if spec.kind == "encdec" or not spec.cross:
-                    # capture K/V by recomputing the projections (cheap
-                    # next to the attention itself)
-                    k, v = blk.attn.project_kv(blk.norm1(x), cfg, positions)
-                    if spec.local_window and spec.local_window < S:
-                        # ring alignment: the token at position q sits at
-                        # q % W
-                        Wd = spec.local_window
-                        k = torch.roll(k[:, -Wd:], S % Wd, dims=1)
-                        v = torch.roll(v[:, -Wd:], S % Wd, dims=1)
-                    entry["k"], entry["v"] = k, v
-                if spec.kind == "encdec" or spec.cross:
-                    attn = blk.xattn if spec.kind == "encdec" else blk.attn
-                    entry["ck"], entry["cv"] = attn.cross_kv(aux, cfg)
-            x, nc = blk(x, spec, cfg, positions=positions, aux=aux,
-                        pim_ctx=pim_ctx)
+            idx = g * len(cfg.group_spec) + i
+            with _using(weights, f"blocks.{idx}"):
+                blk = params.blocks[idx]
+                entry = {}
+                if spec.kind != "mamba":
+                    if spec.kind == "encdec" or not spec.cross:
+                        # capture K/V by recomputing the projections (cheap
+                        # next to the attention itself)
+                        k, v = blk.attn.project_kv(blk.norm1(x), cfg,
+                                                   positions)
+                        if spec.local_window and spec.local_window < S:
+                            # ring alignment: the token at position q sits
+                            # at q % W
+                            k = _roll_ring(k, S, spec.local_window)
+                            v = _roll_ring(v, S, spec.local_window)
+                        entry["k"], entry["v"] = k, v
+                    if spec.kind == "encdec" or spec.cross:
+                        attn = blk.xattn if spec.kind == "encdec" \
+                            else blk.attn
+                        entry["ck"], entry["cv"] = attn.cross_kv(
+                            aux, cfg, cached=True)
+                x, nc = blk(x, spec, cfg, positions=positions, aux=aux,
+                            pim_ctx=pim_ctx, split=split)
             if spec.kind == "mamba":
                 entry = nc                  # the full pass's final state
             for name, val in entry.items():
                 entries[f"pos{i}"].setdefault(name, []).append(val)
-    caches = {pos: {name: torch.stack(bufs) for name, bufs in e.items()}
+    caches = {pos: {name: _stack(bufs) for name, bufs in e.items()}
               for pos, e in entries.items()}
-    logits = _head_logits(params, cfg, x)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    with _using(weights, "final_norm", head):
+        logits = _head_logits(params, cfg, x)
     if protected_kv is not None:
         from .kv import ProtectedKVCaches
         pkv_caches = ProtectedKVCaches(cfg, protected_kv, B, max_seq or S,
@@ -737,9 +881,25 @@ def _decode_step_protected(params: LM, cfg: ArchConfig, caches, token, pos,
     return _head_logits(params, cfg, x), caches
 
 
+def _layer(buf, g: int):
+    """Layer g's view of a stacked cache entry (a tensor or `Parts`)."""
+    if not isinstance(buf, Parts):
+        return buf[g]
+    layout = buf.layout - 1 if isinstance(buf.layout, int) else buf.layout
+    return buf.like([t[g] for t in buf], layout, buf.dtype)
+
+
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, Parts):
+        for d, t in zip(dst, src, strict=True):
+            d.copy_(t)
+    else:
+        dst.copy_(src)
+
+
 @torch.no_grad()
 def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
-                aux=None, pim_ctx=None):
+                aux=None, pim_ctx=None, weights=None, split=None):
     """One-token decode. token: (B, 1) ints; pos: the position (an int).
     `caches` is the stacked dense caches of `init_caches` or `prefill`,
     written in place (cross entries must hold K/V, from `prefill`: a
@@ -748,27 +908,41 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
     any manager with the same `view`/`update` surface and
     `is_protected_manager = True` (the serving engine's batched caches,
     which take a (B,) per-slot `pos`). Returns (logits (B, 1, V)
-    float32, caches). `pim_ctx` protects its target projections."""
+    float32, caches). `pim_ctx` protects its target projections.
+    `weights` and `split` as for `prefill`: with `ShardWeights(shard=k)` the dense
+    caches are `Parts` of each position's slices of a placed cache
+    (`launch.steps.build_serve`), each written in place at its
+    position."""
     from .kv import ProtectedKVCaches
     if (isinstance(caches, ProtectedKVCaches)
             or getattr(caches, "is_protected_manager", False)):
         return _decode_step_protected(params, cfg, caches, token, pos,
                                       aux, pim_ctx)
-    B = token.shape[0]
-    x = _embed(params, cfg, token)
-    positions = torch.full((B, 1), int(pos), dtype=torch.int32,
-                           device=params.device)
+    with _using(weights, "embed"):
+        x = _embed(params, cfg, token)
+
+    def at(t):
+        return torch.full((t.shape[0], 1), int(pos), dtype=torch.int32,
+                          device=t.device)
+    positions = (x.like([at(t) for t in x], "whole")
+                 if isinstance(x, Parts) else at(x))
     aux = _aux(aux, x)
     for g in range(cfg.n_groups):
         for i, spec in enumerate(cfg.group_spec):
-            view = {name: buf[g] for name, buf in caches[f"pos{i}"].items()}
-            x, nc = params.block(g, i)(x, spec, cfg, positions=positions,
-                                       aux=aux, cache=view, cache_pos=pos,
-                                       pim_ctx=pim_ctx)
+            idx = g * len(cfg.group_spec) + i
+            view = {name: _layer(buf, g)
+                    for name, buf in caches[f"pos{i}"].items()}
+            with _using(weights, f"blocks.{idx}"):
+                x, nc = params.blocks[idx](x, spec, cfg, positions=positions,
+                                           aux=aux, cache=view,
+                                           cache_pos=pos, pim_ctx=pim_ctx,
+                                           split=split)
             for name, val in (nc or {}).items():
                 if val is not view[name]:       # a mamba layer's new state
-                    view[name].copy_(val)
-    return _head_logits(params, cfg, x), caches
+                    _copy_into(view[name], val)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    with _using(weights, "final_norm", head):
+        return _head_logits(params, cfg, x), caches
 
 
 # ---------------------------------------------------------------------------

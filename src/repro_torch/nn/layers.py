@@ -47,6 +47,14 @@ JAX layers call `constrain`:
   over positions in float32 and rounded to bf16 once by `constrain`'s
   all-reduce: it differs from the unsharded bf16 product only in the
   order of the float32 adds.
+- Serving: a dense decode cache is `Parts` too (`_write_cache`). Split
+  over `kv_heads`, each position writes and reads its heads; split over
+  `kv_seq` (the KV heads do not divide `model`), the position that owns
+  slot `pos % W` writes the token, q is all-gathered and each position's
+  partial softmax over its rows is merged by `softmax_merge`; whole, each
+  position holds all of it. With a `pim_ctx`, `wo` and `w_down` split by
+  rows run `PIMContext.matmul`'s row-parallel protected path (`project`),
+  equal to the unsharded call bit for bit on the same input.
 
 Not ported, by design: `attn_impl="standin"`, the JAX package's
 cost-lowering tooling (it raises `NotImplementedError`).
@@ -59,7 +67,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..distributed.sharding import (Parts, _spec_axes, constrain, relayout,
-                                    resolve_spec)
+                                    resolve_spec, softmax_merge)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import (NEG_INF, paged_softmax_finalize,
                                        paged_softmax_init,
@@ -73,9 +81,13 @@ ACTS = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
 
 def project(x, w, pim_ctx, target: str, enc, alpha):
     """x @ w in bf16, or through `pim_ctx`'s protected PIM path when its
-    targets hold `target` (precoded from `enc`/`alpha` when given)."""
+    targets hold `target` (precoded from `enc`/`alpha` when given). Over
+    `Parts` with w split by rows: `tp_matmul`'s float32 partial sums, or
+    the row-parallel protected matmul (whole at every position)."""
     if pim_ctx is not None and target in pim_ctx.targets:
         return pim_ctx.matmul(x, w, target, enc=enc, alpha=alpha)
+    if isinstance(x, Parts):
+        return tp_matmul(x, w)
     return x @ w.to(CDT)
 
 
@@ -192,21 +204,15 @@ class MLP(nn.Module):
 
     def forward(self, x, pim_ctx=None):
         if isinstance(x, Parts):
-            _no_pim(pim_ctx)
             h = tp_matmul(x, self.w_gate).map(self.act)
             h = h.map(torch.mul, tp_matmul(x, self.w_up))
             h = constrain(h, "batch", None, "d_ff")
-            return constrain(tp_matmul(h, self.w_down), "batch", None, None)
+            return constrain(project(h, self.w_down, pim_ctx, "mlp_down",
+                                     self.w_down_enc, self.w_down_alpha),
+                             "batch", None, None)
         h = self.act(x @ self.w_gate.to(CDT)) * (x @ self.w_up.to(CDT))
         return project(h, self.w_down, pim_ctx, "mlp_down",
                        self.w_down_enc, self.w_down_alpha)
-
-
-def _no_pim(pim_ctx) -> None:
-    if pim_ctx is not None:
-        raise ValueError("a PIM context under tensor parallelism: the "
-                         "protected projections are not a tensor-parallel "
-                         "path of the JAX package")
 
 
 def _softcap(logits, cap):
@@ -283,19 +289,25 @@ class Attention(nn.Module):
                        self.wo_alpha)
 
     def project_kv(self, x, cfg: ArchConfig, positions):
-        """(B, S, d) -> RoPE'd K and V, each (B, S, Hkv, D) in bf16."""
+        """(B, S, d) -> RoPE'd K and V, each (B, S, Hkv, D) in bf16. Over
+        `Parts`, each position's KV heads where the KV heads split, else
+        all of them at every position (what a cache holds)."""
+        if isinstance(x, Parts):
+            return self._kv_tp(x, cfg, positions, q_split=False)
         B, S, _ = x.shape
         shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
         k = (x @ self.wk.to(CDT)).reshape(shape)
         v = (x @ self.wv.to(CDT)).reshape(shape)
         return rope(k, positions, cfg.rope_theta), v
 
-    def cross_kv(self, aux, cfg: ArchConfig):
+    def cross_kv(self, aux, cfg: ArchConfig, *, cached: bool = False):
         """Cross-attention K/V of auxiliary embeddings (B, Na, d): each
         (B, Na, Hkv, D) bf16, without RoPE (the JAX package's
-        `_cross_kv`). Over `Parts`, each position's KV heads."""
+        `_cross_kv`). Over `Parts`, each position's KV heads (`cached`:
+        those a cache holds, as `project_kv`)."""
         if isinstance(aux, Parts):
-            return self._kv_tp(aux.to(CDT), cfg)
+            return self._kv_tp(aux.to(CDT), cfg,
+                               q_split=False if cached else None)
         B, Na, _ = aux.shape
         aux = aux.to(CDT)
         shape = (B, Na, cfg.n_kv_heads, cfg.head_dim)
@@ -307,7 +319,7 @@ class Attention(nn.Module):
         `encoder_attention_apply`): (B, S, d) -> (B, S, d), RoPE'd q and
         k, no mask, no PIM path."""
         if isinstance(x, Parts):
-            return self._tp(x, cfg, positions=positions, causal=False)
+            return self._tp(x, cfg, positions=positions, causal=False)[0]
         B, S, _ = x.shape
         hq, dh = cfg.n_heads, cfg.head_dim
         q = rope((x @ self.wq.to(CDT)).reshape(B, S, hq, dh), positions,
@@ -327,16 +339,12 @@ class Attention(nn.Module):
         sliding layers) and returned; a `KVSource` appends the token's K/V
         and serves the read through its `attend`. `wo` runs on `pim_ctx`'s
         protected path where it targets "attn_o". Over `Parts` (tensor
-        parallelism) the training pass only: no cache, no PIM."""
+        parallelism) `_tp`, with a dense cache of `Parts` too."""
         if isinstance(x, Parts):
-            _no_pim(pim_ctx)
-            if kv_cache is not None:
-                raise ValueError("tensor-parallel attention is the training "
-                                 "pass: decode caches are not split over "
-                                 "`model` (ROADMAP: tensor-parallel serving)")
             return self._tp(x, cfg, positions=positions, aux_kv=aux_kv,
-                            causal=not spec.cross,
-                            window=spec.local_window), None
+                            causal=not spec.cross, window=spec.local_window,
+                            kv_cache=kv_cache, cache_pos=cache_pos,
+                            pim_ctx=pim_ctx)
         B, S, _ = x.shape
         hq, dh = cfg.n_heads, cfg.head_dim
         q = (x @ self.wq.to(CDT)).reshape(B, S, hq, dh)
@@ -379,30 +387,52 @@ class Attention(nn.Module):
     # -- tensor parallelism ------------------------------------------------
 
     def _tp(self, x: Parts, cfg: ArchConfig, *, positions, aux_kv=None,
-            causal: bool = True, window: int = 0) -> Parts:
+            causal: bool = True, window: int = 0, kv_cache=None,
+            cache_pos=None, pim_ctx=None) -> tuple[Parts, dict | None]:
         """Attention over `Parts` (the JAX `attention_apply`'s constrain
         sites): self-attention (RoPE'd, causal or not) of x, or cross
-        attention over `aux_kv` (each position's K/V heads); -> y whole."""
+        attention over `aux_kv` (each position's K/V heads); -> (y whole,
+        the cache). A dense decode cache of `Parts` (`_write_cache`) is
+        split over `kv_heads` (each position attends over its heads), or
+        over `kv_seq` (q all-gathered, each position's partial softmax
+        over its rows for every head, merged by `softmax_merge`), or is
+        whole at every position. `wo` runs on `pim_ctx`'s row-parallel
+        protected path where it targets "attn_o"."""
         B, S = x[0].shape[:2]
         q = _heads(tp_matmul(x, self.wq), cfg.head_dim, "heads")
         q = constrain(q, "batch", None, "heads", None)
+        ok = None
         if aux_kv is None:
-            k, v = self._kv_tp(x, cfg, positions, q_split=q.layout == 2)
+            k, v = self._kv_tp(x, cfg, positions, q_split=q.layout == 2
+                               and kv_cache is None)
             q = q.map(lambda t, p: rope(t, p, cfg.rope_theta), positions)
+            if kv_cache is not None:
+                k, v, ok = _write_cache(kv_cache, k, v, cache_pos, window)
         else:
             k, v = aux_kv
-        flash = cfg.attn_impl == "flash" and S > 1
+        if ok is not None and k.layout == 1:
+            out = _attend_seq_split(relayout(q, "whole"), k, v, ok,
+                                    cfg.softcap_attn,
+                                    splits(q.rules, "heads"))
+        else:
+            k, v = _own_heads(k, q, cfg), _own_heads(v, q, cfg)
+            flash = cfg.attn_impl == "flash" and S > 1 and ok is None
 
-        def attend(qj, kj, vj):
-            mask = None
-            if causal and not flash:
-                mask = causal_mask(S, window, qj.device)[None, None]
-            return _attend(qj, kj, vj, mask, cfg.softcap_attn,
-                           impl=cfg.attn_impl, causal=causal, window=window)
-        out = constrain(q.map(attend, k, v), "batch", None, "heads", None)
+            def attend(qj, kj, vj, okj=None):
+                mask = None
+                if okj is not None:
+                    mask = okj[None, None, None, :]
+                elif causal and not flash:
+                    mask = causal_mask(S, window, qj.device)[None, None]
+                return _attend(qj, kj, vj, mask, cfg.softcap_attn,
+                               impl=cfg.attn_impl if ok is None else "naive",
+                               causal=causal, window=window)
+            out = q.map(attend, k, v, *(() if ok is None else (ok,)))
+        out = constrain(out, "batch", None, "heads", None)
         out = out.map(lambda t: t.reshape(B, S, -1),
                       layout=out.layout if out.layout == "whole" else 2)
-        return constrain(tp_matmul(out, self.wo), "batch", None, None)
+        y = constrain(self.out_proj(out, pim_ctx), "batch", None, None)
+        return y, kv_cache
 
     def _kv_tp(self, src: Parts, cfg: ArchConfig, positions=None, *,
                q_split: bool | None = None) -> tuple[Parts, Parts]:
@@ -431,6 +461,72 @@ class Attention(nn.Module):
         if positions is not None:
             k = k.map(lambda t, p: rope(t, p, cfg.rope_theta), positions)
         return k, v
+
+
+def _write_cache(cache: dict, k: Parts, v: Parts, cache_pos, window: int):
+    """The token's K/V written into a dense cache of `Parts` at slot
+    `cache_pos % W` (a ring of W = the window for sliding layers), in
+    place: each position its heads, or, where the rows split over
+    `kv_seq`, only the position that owns the slot (k and v are then
+    whole at every position). Returns (cache k, cache v, each
+    position's visible rows: (its rows,) bool)."""
+    ck, cv = cache["k"], cache["v"]
+    M, Wl, S = len(ck), ck[0].shape[1], k[0].shape[1]
+    seq = ck.layout == 1
+    W = Wl * M if seq else Wl
+    slot = int(cache_pos) % W
+    oks = []
+    for j in range(M):
+        lo = j * Wl if seq else 0
+        a, b = max(slot, lo), min(slot + S, lo + Wl)
+        if a < b:
+            ck[j][:, a - lo:b - lo] = k[j][:, a - slot:b - slot]
+            cv[j][:, a - lo:b - lo] = v[j][:, a - slot:b - slot]
+        kv_pos = torch.arange(lo, lo + Wl, device=ck[j].device)
+        ok = kv_pos <= cache_pos                       # ring full: all True
+        if window and window < W:
+            ok &= kv_pos > cache_pos - window
+        oks.append(ok)
+    return ck, cv, ck.like(oks, "own")
+
+
+def _attend_seq_split(q: Parts, k: Parts, v: Parts, ok: Parts, softcap,
+                      split: bool) -> Parts:
+    """Decode attention over a cache whose rows split over `kv_seq`: q
+    whole at every position, each position's partial softmax (m, l, acc)
+    over its rows for every head, merged in model order
+    (`softmax_merge`) into each position's heads (all of them where the
+    heads do not split)."""
+    stats = []
+    for j in range(len(q)):
+        qj, kj = q[j], k[j]
+        B, Sq, Hq, D = qj.shape
+        Hkv = kj.shape[2]
+        qg = qj.reshape(B, Sq, Hkv, Hq // Hkv, D)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj).to(torch.float32)
+        logits = _softcap(logits / torch.tensor(float(D)).sqrt(), softcap)
+        logits = torch.where(ok[j][None, None, None, None, :], logits,
+                             NEG_INF)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v[j].to(torch.float32))
+
+        def heads(t):                   # (B, Hkv, G, Sq, .) -> (B, Sq, Hq, .)
+            return t.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, -1)
+        stats.append((heads(m), heads(p.sum(dim=-1, keepdim=True)),
+                      heads(acc)))
+    outs = softmax_merge(stats, q.devices, split)
+    return q.like([o.to(CDT) for o in outs], 2 if split else "whole", CDT)
+
+
+def _own_heads(k: Parts, q: Parts, cfg: ArchConfig) -> Parts:
+    """K or V whole at every position, read by query heads split over
+    `model`: each position's KV heads (`kv_heads_of`), layout "own"."""
+    if k.layout != "whole" or q.layout != 2:
+        return k
+    M = len(k)
+    return k.like([t[:, :, kv_heads_of(j, M, cfg.n_heads, cfg.n_kv_heads)]
+                   for j, t in enumerate(k)], "own")
 
 
 def _heads(t: Parts, dh: int, axis: str) -> Parts:

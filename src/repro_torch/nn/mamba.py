@@ -23,9 +23,11 @@ A decode step is one recurrence step on the carried state: the conv
 tail (B, d_conv - 1, d_inner) bf16 and the SSM state (B, d_inner,
 d_state) float32, as `init_mamba_state` makes them.
 
-Under tensor parallelism (`distributed.sharding.Parts`, the training
-pass) `d_inner` splits over `model` (the JAX `constrain` sites): each
-position runs the conv, the scan and the gate on its d_inner slice;
+Under tensor parallelism (`distributed.sharding.Parts`: the training
+pass, prefill and the decode step) `d_inner` splits over `model` (the
+JAX `constrain` sites): each position runs the conv, the scan or the
+decode step and the gate on its d_inner slice, carrying its slice of
+the conv tail and the SSM state;
 `x_proj` and `out_proj` are row-parallel (their partial sums added over
 positions, the first so that every position reads the whole (dt, B,
 C)). `in_proj` stays placed as the JAX package places it, one block of
@@ -193,10 +195,7 @@ def mamba_apply(m: Mamba, x, cfg: ArchConfig, state: MambaState | None = None,
     `state` is a `MambaState` or any (conv, ssm) pair.
     """
     if isinstance(x, Parts):
-        if state is not None or decode:
-            raise ValueError("tensor-parallel mamba is the training pass: "
-                             "no carried state")
-        return _mamba_tp(m, x, cfg), None
+        return _mamba_tp(m, x, cfg, state, decode)
     B, L, _ = x.shape
     di, ds, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank
     xz = x @ m.in_proj.to(CDT)                          # (B, L, 2di)
@@ -241,9 +240,13 @@ def _in_proj_local(w: Parts, di: int) -> Parts:
                    for j, d in enumerate(w.devices)])
 
 
-def _mamba_tp(m: Mamba, x: Parts, cfg: ArchConfig) -> Parts:
-    """The full-sequence pass over `Parts`, d_inner split over `model`
-    where the rules split it (else every position runs it whole)."""
+def _mamba_tp(m: Mamba, x: Parts, cfg: ArchConfig, state=None,
+              decode: bool = False) -> tuple[Parts, MambaState]:
+    """The full-sequence pass or a decode step over `Parts`, d_inner
+    split over `model` where the rules split it (else every position
+    runs it whole); `state` and the returned state are `Parts` of each
+    position's d_inner slice of the conv tail (B, d_conv - 1, di) and the
+    SSM state (B, di, ds)."""
     B, L, _ = x[0].shape
     ds, dtr = cfg.d_state, cfg.dt_rank
     # each position's (u, z) columns: what the JAX constrain of xz over
@@ -252,23 +255,38 @@ def _mamba_tp(m: Mamba, x: Parts, cfg: ArchConfig) -> Parts:
     dl = xz[0].shape[-1] // 2
     u = xz.map(lambda t: t[..., :dl])
     z = xz.map(lambda t: t[..., dl:])
-    u_conv = u.map(lambda t, w, b: causal_conv(t, w.to(F32), b)[0],
-                   m.conv_w, m.conv_b)
+    tails = list(state[0]) if state is not None else [None] * len(u)
+    conv = [causal_conv(t, w.to(F32), b, tail)
+            for t, w, b, tail in zip(u, m.conv_w, m.conv_b, tails)]
+    u_conv = u.like([c[0] for c in conv])
     u_conv = u_conv.map(lambda t: F.silu(t.to(F32)).to(CDT))
     u_conv = constrain(u_conv, "batch", None, "d_inner")
     proj = constrain(tp_matmul(u_conv, m.x_proj), "batch", None, None)
+    h0s = list(state[1]) if state is not None else [None] * len(u)
 
-    def scan(uc, pr, w_dt, b_dt, a_log, D):
+    def scan(uc, pr, w_dt, b_dt, a_log, D, h0):
         dt, Bm, Cm = pr.to(F32).split([dtr, ds, ds], dim=-1)
         delta = F.softplus(_fp32_matmul(dt, w_dt) + b_dt)
-        h0 = torch.zeros((B, uc.shape[-1], ds), dtype=F32, device=uc.device)
-        return ssm_chunked(uc, delta, -torch.exp(a_log), Bm, Cm, D, h0,
-                           min(cfg.mamba_chunk, L))[0]
-    y = u_conv.map(scan, proj, m.dt_proj_w, m.dt_proj_b, m.A_log, m.D)
-    y = y.map(lambda a, zz: a.to(CDT) * F.silu(zz.to(F32)).to(CDT), z,
-              dtype=CDT)
+        A = -torch.exp(a_log)
+        if h0 is None:
+            h0 = torch.zeros((B, uc.shape[-1], ds), dtype=F32,
+                             device=uc.device)
+        if decode:
+            y, h = ssm_step(uc[:, 0].to(F32), delta[:, 0], A, Bm[:, 0],
+                            Cm[:, 0], D, h0)
+            return y[:, None], h
+        return ssm_chunked(uc, delta, A, Bm, Cm, D, h0,
+                           min(cfg.mamba_chunk, L))
+    ys = [scan(*args) for args in zip(u_conv, proj, m.dt_proj_w,
+                                      m.dt_proj_b, m.A_log, m.D, h0s)]
+    y = u_conv.like([t[0] for t in ys]).map(
+        lambda a, zz: a.to(CDT) * F.silu(zz.to(F32)).to(CDT), z, dtype=CDT)
     y = constrain(y, "batch", None, "d_inner")
-    return constrain(tp_matmul(y, m.out_proj), "batch", None, None)
+    split = u.layout == 2
+    new = MambaState(u.like([c[1] for c in conv], 2 if split else "whole"),
+                     u.like([t[1] for t in ys], 1 if split else "whole",
+                            F32))
+    return constrain(tp_matmul(y, m.out_proj), "batch", None, None), new
 
 
 def init_mamba_state(cfg: ArchConfig, batch: int, device=None) -> MambaState:

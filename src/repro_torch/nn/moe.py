@@ -56,13 +56,14 @@ Two rules keep the routing and the combine exact and repeatable:
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import Parts, constrain
+from ..distributed.sharding import Parts, constrain, data_shard
 from .layers import ACTS, CDT, _param
 
 __all__ = ["MoE", "Dispatch", "DataSplit", "router_logits", "topk_route",
@@ -106,7 +107,10 @@ class DataSplit:
     (and records the shard's own for the next); a remat recomputation
     gets the same offsets again. `dropped` collects each first pass's
     count of slots dropped at capacity (0-d tensors on the shards'
-    devices)."""
+    devices). A layer is known by the order in which a shard meets it.
+    Shards run in lockstep threads (`distributed.sharding.run_shards`)
+    take their index from there, and each waits at a layer for the
+    shards before it."""
 
     def __init__(self, tokens: int):
         self.tokens = tokens
@@ -114,19 +118,35 @@ class DataSplit:
         self.dropped: list[torch.Tensor] = []
         self._after: dict = {}       # layer -> counts of the shards so far
         self._offsets: dict = {}     # (shard, layer) -> its offsets
+        self._done: dict = {}        # layer -> shards that recorded it
+        self._seen: dict = {}        # shard -> {id(module): layer}
+        self._cond = threading.Condition()
 
     def offsets(self, layer, counts) -> tuple[torch.Tensor, bool]:
         """(E,) slots of each expert of `layer` before this shard's, on
         counts' device, and whether this is the shard's first pass."""
-        key = (self.shard, layer)
-        first = key not in self._offsets
-        if first:
-            before = self._after.get(layer)
-            off = torch.zeros_like(counts) if before is None else \
-                before.to(counts.device, non_blocking=True)
-            self._offsets[key] = off
-            self._after[layer] = off + counts
-        return self._offsets[key], first
+        group = data_shard()
+        k = self.shard if group is None else group[1]
+        with self._cond:
+            # a layer is the n-th one the shard meets: shards may run
+            # skeletons of their own, so the modules differ, the order not
+            seen = self._seen.setdefault(k, {})
+            layer = seen.setdefault(id(layer), len(seen))
+            key = (k, layer)
+            first = key not in self._offsets
+            if first:
+                while group is not None and self._done.get(layer, 0) < k:
+                    if group[0].broken:
+                        raise threading.BrokenBarrierError
+                    self._cond.wait(0.1)
+                before = self._after.get(layer)
+                off = torch.zeros_like(counts) if before is None else \
+                    before.to(counts.device, non_blocking=True)
+                self._offsets[key] = off
+                self._after[layer] = off + counts
+                self._done[layer] = k + 1
+                self._cond.notify_all()
+            return self._offsets[key], first
 
 
 def router_logits(moe: MoE, x2d) -> torch.Tensor:

@@ -20,7 +20,8 @@ the same with TF32 allowed); a data-parallel (FSDP) step over two shards,
 on one card or on two, against the unsharded trainer; a tensor-parallel
 step over a (1, 4) mesh on one card against the unsharded trainer and
 the same mesh on the CPU, its flash launches carrying each position's
-heads.
+heads; tensor-parallel serving of a precoded PIM model over a (1, 4)
+mesh on one card against the unsharded prefill and decode.
 Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
@@ -1595,3 +1596,87 @@ def test_tp_step_on_one_card(dev, tmp_path):
     cpu = hists["cpu"][0]
     assert hist[0]["loss"] == pytest.approx(cpu["loss"], rel=1e-4)
     assert hist[0]["grad_norm"] == pytest.approx(cpu["grad_norm"], rel=2e-3)
+
+
+def test_tp_serve_on_one_card(dev):
+    """Reduced paper_pim precoded on wl320_r08 (flash, 8 heads, 4 KV
+    heads) served over a (1, 4) mesh on one card: the prefill and four
+    decode steps against the unsharded steps on the card, logits within
+    2^-6 (tests/test_torch_serving.py's LOGITS_ATOL: the protected rows
+    are summed exactly, the rest split by columns, as chip_smoke's phase
+    22 (a) holds them) and their greedy tokens equal where the top-2
+    margin clears twice that; every position launches `flash_fwd` with
+    2 query heads, `pim_mac`, `scan_syndromes` and `fbp_cn`, and the
+    precode `gf_matmul`; a
+    faulted context (PIM output errors, corrected) gives the clean run's
+    logits bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.context import PIMContext
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import build
+    from repro_torch.launch.cells import rules_for_cell, settings_for
+    from repro_torch.launch.steps import build_prefill, build_serve
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.models.lm import encode_params_for_pim, place_params
+    base = get_config("paper_pim")
+    cfg = dataclasses.replace(base.reduced(
+        n_groups=2, d_model=256, n_heads=8, n_kv_heads=4, d_ff=512),
+        attn_impl="flash", pim=dataclasses.replace(base.pim, precoded=True))
+    B, S, T = 2, 64, 4
+    n0 = LAUNCHES["gf_matmul"]
+    model = init_params(cfg, 0, device=dev)
+    encode_params_for_pim(model, cfg)
+    assert LAUNCHES["gf_matmul"] > n0
+    tokens = torch.randint(0, cfg.vocab_size, (T + 1, B, S),
+                           generator=torch.Generator().manual_seed(1))
+
+    def serve(step_pf, step_sv, m, ctx_caches=None):
+        lg, caches = step_pf(m, {"tokens": tokens[0]}, max_seq=S + T)
+        if ctx_caches is not None:
+            caches = ctx_caches(caches)
+        out = [lg[:, -1:]]
+        for i in range(T):            # the same tokens fed to both runs
+            lg, caches = step_sv(m, caches, {"tokens": tokens[i + 1, :, :1],
+                                             "pos": S + i})
+            out.append(lg)
+        return torch.cat(out, 1).float().cpu()
+
+    def grown(pre):
+        caches = init_caches(cfg, B, S + T, device=dev)
+        for pos, e in pre.items():
+            for nm, val in e.items():
+                caches[pos][nm][:, :, :val.shape[2]] = val
+        return caches
+    want = serve(build_prefill(cfg)[0], build_serve(cfg, B, S + T)[0],
+                 model, grown)
+    mesh = sharding.Mesh(np.array([[dev] * 4], dtype=object),
+                         ("data", "model"))
+    shape = ShapeSpec("custom", S + T, B, "decode")
+    rules = rules_for_cell(mesh, cfg, shape, settings_for("paper_pim",
+                                                          shape))
+    (p_sh, _), _ = build_prefill(cfg)[1](mesh, rules)
+    placed = place_params(model, p_sh)
+    assert len(placed.buffers) == 4 * cfg.n_groups
+    runs = {}
+    for name, ctx in (("clean", PIMContext(cfg.pim)),
+                      ("faulted", PIMContext(cfg.pim).with_faults(5, 2e-5))):
+        with build.by_position() as log:
+            runs[name] = serve(
+                build_prefill(cfg, mesh=mesh, rules=rules, pim_ctx=ctx)[0],
+                build_serve(cfg, B, S + T, mesh=mesh, rules=rules,
+                            pim_ctx=ctx)[0], placed)
+        assert ctx.stats()["uncorrected_words"] == 0, ctx.stats()
+        if name == "clean":
+            for j in range(4):
+                got = log.launches[(0, j)]
+                assert all(got[k] > 0 for k in (
+                    "flash_fwd", "pim_mac", "scan_syndromes", "fbp_cn")), got
+                assert {h[1:] for h in log.heads[(0, j)]} == {(2, 1)}
+    d = float((runs["clean"] - want).abs().max())
+    assert d <= 2 ** -6, d
+    top2 = want.topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > 2 * 2 ** -6
+    assert torch.equal(runs["clean"].argmax(-1)[sure], want.argmax(-1)[sure])
+    assert torch.equal(runs["faulted"], runs["clean"])
