@@ -286,9 +286,33 @@ Phases (any failure exits non-zero):
      (counted, and those at near-ties). TTFT, ms a step and tokens/s
      against the unsharded run, peak and placed bytes a card, launches
      and flash heads by position.
+ 23. context parallelism over `data` and the `pod` axis (a `long_500k`
+     cell's `rules_for_cell`: the batch whole on every data shard, the
+     KV rows over `data` / `pod`; every position on the one card or one
+     a card): (a) gemma2-27b (arXiv:2408.00118) at full width, 2 of its
+     23 groups, one sequence decoding 16 tokens against 524,288-deep
+     caches filled on the card from seeds (`cp_fill`), over (2, 2) (the
+     KV heads over `model`) and (4, 1), fed the unsharded run's tokens
+     and held to it as the layout orders its adds (`cp_witness`) within
+     2^-6, tokens equal where the top-2 margin clears twice that, every
+     data shard's logits bit for bit, each position holding 1/4 of the
+     K/V; the gap to the plain unsharded run reported; with four cards
+     also all 23 groups over (2, 2) (bf16 weights drawn slice by slice,
+     `cp_random_placed`) against the (1, 4) tensor-parallel run, the gap
+     reported; (b) a 4,096-token flash prefill over (2, 2) into those
+     caches (the second data shard's rows all masked), then 16 steps,
+     under (a)'s gates; (c) falcon-mamba-7b, a jamba block (MoE beside
+     attention; its tokens reported, not gated: MoE routes by its own
+     logits), precoded paper_pim (PIM counts equal) reduced on (2, 2),
+     and granite with 2 KV heads on (2, 4) (the rows over `data` and
+     `model`), 2 x 256 prompts in 2,048-deep caches, 8 steps, tokens
+     equal where the margin clears 2^-5; (d) granite reduced served over
+     (2, 1, 2) (the batch over `("pod", "data")`) and (2, 2, 1) pod
+     meshes as (c), and granite-3-2b at full width trained over (2, 1, 2)
+     for 2 steps against the unsharded trainer under phase 21's gates.
 
 The phases run in the order 1-9, 12, 14, 15, 19 (a, b), 17, 16, 19 (c),
-13, 10, 11, 20, 21, 22, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
+13, 10, 11, 20, 21, 22, 23, 18 (phases 12, 14, 15 and 19 (b) need phase 8's model,
 which is freed before phase 17). Phase 2
 also holds flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
 versions (o to a few bf16 ulps, lse to rtol 1e-5, gradients
@@ -308,8 +332,9 @@ telemetry (phase 15, run (f) and the memory-mode read), PIM training
 (phase 16, each of (b)-(d) and (b)'s flash prefill),
 the campaign (phase 13), training (phases 10-11), the mesh (phase 19,
 (a)-(b) and (c) each), data-parallel training (phase 20),
-tensor-parallel training (phase 21) and tensor-parallel serving (phase
-22, from (a)'s precode to (c)'s last run), and read
+tensor-parallel training (phase 21), tensor-parallel serving (phase
+22, from (a)'s precode to (c)'s last run) and context parallelism and
+the pod axis (phase 23, from (a) to (d)'s trainer), and read
 just after it: every kernel must have run on its path. Each entry-point call of phases
 3-4 (write, read, scrub, prepare_weights, each protected_pim_matmul) also
 reports the launches it made itself, and phase 8 the launches of each
@@ -464,6 +489,24 @@ TPS_BIG_BATCH, TPS_BIG_PROMPT, TPS_BIG_STEPS = 4, 4096, 32
 TPS_SMALL_BATCH, TPS_SMALL_PROMPT, TPS_SMALL_STEPS = 2, 256, 8
 TPS_KERNELS = ("flash_fwd", "pim_mac", "scan_syndromes", "fbp_cn",
                "gf_matmul")
+# phase 23: context parallelism over `data` and the `pod` axis
+CP_ARCH = "gemma2_27b"         # (a), (b): a long_500k model, full width
+CP_DEEP = 524288               # long_500k's cache depth (configs.SHAPES)
+CP_GROUPS = 2                  # (a), (b) on one card: n_groups 23 -> 2
+CP_STEPS = 16
+CP_WITNESS_DEEP = 65536        # (a) on four cards: every group held to its
+                               # witness, which then fits the first card
+CP_PLAIN_ULPS = 2              # (a), (b): the gap to the plain unsharded
+                               # run, in bf16 ulps at its largest logit
+CP_MESHES = ((2, 2), (4, 1))   # (a); (b) on the first
+CP_FILL_ROWS = 16384           # (a) rows of K/V drawn from one seed
+CP_PROMPT = 4096               # (b)
+CP_SMALL_BATCH, CP_SMALL_PROMPT, CP_SMALL_STEPS = 2, 256, 8   # (c), (d)
+CP_SMALL_DEEP = 2048           # (c), (d): the prompt in the first quarter
+CP_TRAIN_MESH = (2, 1, 2)      # (d) the pod trainer's mesh
+CP_TRAIN_STEPS = 2
+CP_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "pim_mac",
+              "scan_syndromes", "fbp_cn", "gf_matmul")
 
 REPLACES = {
     "gf_matmul": "src/repro/kernels/gf_matmul.py:51",
@@ -4336,21 +4379,25 @@ def phase_fsdp(device) -> tuple[dict, dict]:
 
 
 def tp_mesh(shape):
-    """A (data, model) mesh of `shape`: position (k, j) on card k·model + j
-    where that many cards are visible, else every position on card 0;
-    and which it was."""
+    """A (data, model) mesh of `shape`, or a (pod, data, model) one for a
+    shape of three: position i in mesh order on card i where that many
+    cards are visible, else every position on card 0; and which it
+    was."""
     import numpy as np
     import torch
     from repro_torch.distributed.sharding import Mesh
-    n, (data, model) = torch.cuda.device_count(), shape
-    if n >= data * model:
-        devs = [[torch.device("cuda", k * model + j) for j in range(model)]
-                for k in range(data)]
-        kind = f"{data * model} cards"
+    n, size = torch.cuda.device_count(), math.prod(shape)
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    devs = np.empty(size, dtype=object)
+    if n >= size:
+        for i in range(size):
+            devs[i] = torch.device("cuda", i)
+        kind = f"{size} cards"
     else:
-        devs = [[torch.device("cuda", 0)] * model] * data
-        kind = f"one card, {data * model} positions on it"
-    return Mesh(np.array(devs, dtype=object), ("data", "model")), kind
+        for i in range(size):
+            devs[i] = torch.device("cuda", 0)
+        kind = f"one card, {size} positions on it"
+    return Mesh(devs.reshape(shape), axes), kind
 
 
 def tp_checks(cfg, mesh, placed, hist, per_layer: int | None) -> dict:
@@ -4362,7 +4409,7 @@ def tp_checks(cfg, mesh, placed, hist, per_layer: int | None) -> dict:
     forward (twice a layer: remat) and the backward kernels. Returns the
     flash launches and heads by position of the first step."""
     from repro_torch.distributed.sharding import model_dim
-    data, M = mesh.devices.shape
+    M = mesh.devices.shape[-1]
     for name, p in placed.placed.items():
         if model_dim(p.sharding, p.ndim) is None:
             continue
@@ -4408,7 +4455,7 @@ def tp_against_unsharded(cfg, arch: str, shape, *, rows: int, steps: int,
     from repro_torch.models import init_params
     from repro_torch.models.lm import param_shardings, place_params
     mesh, kind = tp_mesh(shape)
-    data = shape[0]
+    data = math.prod(shape[:-1])          # the data shards (pod-major)
     devices = list(dict.fromkeys(mesh.devices.flat))
     batch = rows * data
     rules = fsdp_rules(mesh, cfg, arch, batch, TRAIN_SEQ)
@@ -4654,30 +4701,40 @@ def phase_tp(device) -> tuple[dict, dict]:
 
 
 def tps_serve(cfg, model, tokens, steps: int, *, mesh=None, rules=None,
-              ctx=None, feed=None, aux=None) -> dict:
+              ctx=None, feed=None, aux=None, deep=None) -> dict:
     """`build_prefill` of `tokens` (B, S) then `steps` `build_serve` steps
-    (over `mesh` where given, `model` then a `PlacedLM`): greedy, or fed
-    `feed`'s tokens (B, steps) so that two runs see the same inputs.
-    Returns the tokens fed and each position's argmax, the logits of the
-    last prompt position and of every step (B, steps + 1, V) on the
-    host, TTFT and decode times, and the launches and flash heads by
-    mesh position."""
+    (over `mesh` where given, `model` then a `PlacedLM`) against caches
+    `deep` rows deep (S + steps by default): greedy, or fed `feed`'s
+    tokens (B, steps) so that two runs see the same inputs. Returns the
+    tokens fed and each position's argmax, the logits of the last prompt
+    position and of every step (B, steps + 1, V) on the host, TTFT and
+    decode times, the launches and flash heads by mesh position, and
+    over a mesh whether every data shard's logits were equal bit for bit
+    at every call (replicas: the batch whole)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.launch.steps import build_prefill, build_serve
     from repro_torch.models import init_caches
     B, S = tokens.shape
+    deep = deep or S + steps
     pf = build_prefill(cfg, mesh=mesh, rules=rules, pim_ctx=ctx)[0]
-    sv = build_serve(cfg, B, S + steps, mesh=mesh, rules=rules,
-                     pim_ctx=ctx)[0]
+    sv = build_serve(cfg, B, deep, mesh=mesh, rules=rules, pim_ctx=ctx)[0]
+    same = []
+
+    def replicas(step):
+        if mesh is not None and step.shards.layout.replicated:
+            got = step.shards.by_shard
+            same.append(all(torch.equal(g.to(got[0].device), got[0])
+                            for g in got))
     batch = {"tokens": tokens} if aux is None else {"tokens": tokens,
                                                     "aux": aux}
     with build.by_position() as log:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, caches = pf(model, batch, max_seq=S + steps)
+        lg, caches = pf(model, batch, max_seq=deep)
+        replicas(pf)
         if mesh is None:          # the unsharded prompt caches, S long
-            pre, caches = caches, init_caches(cfg, B, S + steps,
+            pre, caches = caches, init_caches(cfg, B, deep,
                                               device=lg.device)
             for pos, e in pre.items():
                 for name, val in e.items():
@@ -4693,6 +4750,7 @@ def tps_serve(cfg, model, tokens, steps: int, *, mesh=None, rules=None,
         for i in range(steps):
             b = dict(batch, tokens=fed[-1].to(tok.device), pos=S + i)
             lg, caches = sv(model, caches, b)
+            replicas(sv)
             out.append(lg.float().cpu())
             fed.append(lg.argmax(-1).cpu() if feed is None
                        else feed[:, i + 1:i + 2])
@@ -4709,7 +4767,8 @@ def tps_serve(cfg, model, tokens, steps: int, *, mesh=None, rules=None,
             "launches_by_position": {str(k): dict(v) for k, v in
                                      sorted(log.launches.items())},
             "heads_by_position": {str(k): sorted(v) for k, v in
-                                  sorted(log.heads.items())}}
+                                  sorted(log.heads.items())},
+            "replicas_equal": all(same) if same else None}
 
 
 def tps_compare(ref: dict, got: dict, guard: float,
@@ -4905,8 +4964,10 @@ def tps_witness(M: int):
                     and args[1].ndim == 2 and args[1].shape[1] % M == 0:
                 x, w = args
                 n = w.shape[1] // M
-                return torch.cat([x @ w.narrow(1, j * n, n).contiguous()
-                                  for j in range(M)], -1)
+                blocks = [w.narrow(1, j * n, n) for j in range(M)]
+                if w.stride(1) == 1:           # a row-major slice each
+                    blocks = [b.contiguous() for b in blocks]
+                return torch.cat([x @ b for b in blocks], -1)
             return func(*args, **(kwargs or {}))
     layers.project = project
     try:
@@ -5157,6 +5218,620 @@ def phase_tp_serve(device) -> tuple[dict, dict]:
     return report, dict(build.LAUNCHES)
 
 
+def cp_rules(mesh, cfg, arch: str, batch: int, long: bool = True) -> dict:
+    """`rules_for_cell`'s rules of a `long_500k` cell (context
+    parallelism) or, with `long` False, of a decode cell."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import rules_for_cell, settings_for
+    shape = SHAPES["long_500k"] if long else ShapeSpec(
+        "custom", CP_SMALL_DEEP, batch, "decode")
+    return rules_for_cell(mesh, cfg, shape, settings_for(arch, shape))
+
+
+def cp_draw(c, dim: int, rows: int, seed: int, scale: float = 1.0) -> None:
+    """Rows [0, rows) along `dim` of `c`, a tensor or a `Placed` one, drawn
+    N(0, scale^2) in its dtype block by block of CP_FILL_ROWS rows, block
+    r0 // CP_FILL_ROWS from `seed` plus its index, on the device of each
+    slice that holds a part of it: a tensor and any placement of it hold
+    the same values, and nothing crosses the host."""
+    import torch
+    from repro_torch.distributed.sharding import Placed
+
+    def block(r0, r1, device, dtype):
+        gen = torch.Generator(device=device).manual_seed(
+            seed + r0 // CP_FILL_ROWS)
+        shape = list(c.shape)
+        shape[dim] = r1 - r0
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+    if not isinstance(c, Placed):
+        for r0 in range(0, rows, CP_FILL_ROWS):
+            r1 = min(rows, r0 + CP_FILL_ROWS)
+            c.narrow(dim, r0, r1 - r0).copy_(block(r0, r1, c.device,
+                                                   c.dtype))
+        return
+    done = set()
+    for pos, t in c.positions():
+        if id(t) in done:
+            continue
+        done.add(id(t))
+        idx = c.sharding.index(pos, c.ndim)
+        lo = idx[dim] * t.shape[dim]
+        hi = min(lo + t.shape[dim], rows)
+        for r0 in range(lo - lo % CP_FILL_ROWS, hi, CP_FILL_ROWS):
+            r1 = min(rows, r0 + CP_FILL_ROWS)
+            a, b = max(r0, lo), min(r1, hi)
+            blk = block(r0, r1, t.device, t.dtype).narrow(dim, a - r0, b - a)
+            for e in range(c.ndim):
+                if e != dim:
+                    blk = blk.narrow(e, idx[e] * t.shape[e], t.shape[e])
+            t.narrow(dim, a - lo, b - a).copy_(blk)
+
+
+def cp_fill(cfg, caches, deep: int | None = None) -> None:
+    """(a)'s caches, `deep` rows (CP_DEEP by default): rows [0, deep -
+    CP_STEPS) of every global layer's K and V and every row of each ring,
+    N(0, 1) in bf16 (`cp_draw`, a seed an entry): unsharded caches and
+    caches placed over a mesh hold the same values."""
+    deep = deep or CP_DEEP
+    for i, spec in enumerate(cfg.group_spec):
+        for name in ("k", "v"):
+            c = caches[f"pos{i}"][name]
+            cp_draw(c, 2, c.shape[2] if spec.local_window
+                    else deep - CP_STEPS,
+                    SEED + 1_000_003 * (2 * i + (name == "v")))
+
+
+def cp_random_placed(cfg, mesh, rules):
+    """`cfg`'s parameters placed slice by slice in bf16 (serving casts
+    every weight to bf16 at use), each N(0, 0.02^2) from a seed of its
+    own (`cp_draw` along its first dimension; norm scales 1): the same
+    model over any mesh, which no card holds whole."""
+    import torch
+    from repro_torch.distributed.sharding import place_zeros
+    from repro_torch.launch.steps import build_prefill
+    from repro_torch.models.lm import LM, PlacedLM, jax_path
+    (p_sh, _), _ = build_prefill(cfg)[1](mesh, rules)
+    placed = {}
+    for i, (name, p) in enumerate(LM(cfg, device="meta").named_parameters()):
+        path, g = jax_path(name, cfg)
+        pl = place_zeros(p.shape, p_sh["/".join(path)][g or 0],
+                         dtype=torch.bfloat16, name=name)
+        if name.endswith("scale"):
+            for t in pl.distinct():
+                t.fill_(1.0)
+        else:
+            cp_draw(pl, 0, p.shape[0], SEED + 7919 * (i + 1), 0.02)
+        placed[name] = pl
+    return PlacedLM(cfg, placed)
+
+
+def cp_random_model(cfg, device):
+    """`cp_random_placed`'s model unsharded on `device`: the same bf16
+    values, leaf by leaf."""
+    import torch
+    from repro_torch.models.lm import LM
+    model = LM(cfg, device="meta")
+    for i, (name, p) in enumerate(list(model.named_parameters())):
+        t = torch.empty(p.shape, dtype=torch.bfloat16, device=device)
+        if name.endswith("scale"):
+            t.fill_(1.0)
+        else:
+            cp_draw(t, 0, p.shape[0], SEED + 7919 * (i + 1), 0.02)
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf,
+                torch.nn.Parameter(t, requires_grad=False))
+    return model
+
+
+def cp_deep_run(cfg, shape, deep: int, feed=None) -> dict:
+    """`cfg` (bf16 weights from `cp_random_placed`) over the mesh `shape`
+    under `long_500k`'s rules: CP_STEPS steps against `deep`-deep caches
+    (`cp_fill`), greedy from token 0 or fed `feed`'s tokens; `cp_decode`'s
+    result with "report": the figures of the run. The weights and caches
+    are freed before it returns."""
+    import torch
+    from repro_torch.models import init_caches
+    mesh, kind = tp_mesh(shape)
+    devices = list(dict.fromkeys(mesh.devices.flat))
+    rules = cp_rules(mesh, cfg, CP_ARCH, 1)
+    placed = cp_random_placed(cfg, mesh, rules)
+    caches = init_caches(cfg, 1, deep, mesh=mesh, rules=rules)
+    cp_fill(cfg, caches, deep)
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    first = torch.zeros((1, 1), dtype=torch.int64, device=devices[0])
+    got = cp_decode(cfg, placed, caches, first, mesh=mesh, rules=rules,
+                    feed=feed, deep=deep)
+    got["report"] = {
+        "where": kind, "rules": {k: rules[k] for k in (
+            "batch", "heads", "kv_heads", "kv_seq", "vocab")},
+        "ms_per_decode_step": got["ms_per_decode_step"],
+        "replicas_equal": got["replicas_equal"],
+        **cp_kv_bytes(caches), **tps_memory(devices, placed)}
+    del placed, caches
+    gc.collect()
+    for dev in devices:
+        with torch.cuda.device(dev):
+            torch.cuda.empty_cache()
+    return got
+
+
+def cp_long_deep(device) -> dict:
+    """(a) on four cards: gemma2-27b at full width and depth (all its
+    groups), one sequence, CP_STEPS steps over (1, 4) (tensor parallel:
+    the KV heads over `model`), greedy, then over (2, 2) (context
+    parallel over `data`, the KV heads over `model`), fed its tokens
+    (`cp_deep_run`, each run's weights and caches drawn anew from the
+    seeds, since the two do not fit together). At CP_DEEP rows the gap
+    between the two is reported: no card holds the unsharded model with
+    them. At CP_WITNESS_DEEP rows each mesh is also held to its witness,
+    the unsharded model (`cp_random_model`) on `device` with the mesh's
+    order of adds (`cp_witness`), within TPS_LOGITS_ATOL, no guarded
+    token differing: the gap between the meshes is then the gap between
+    two orders of the same adds. The data shards' logits must be equal
+    bit for bit and each card hold 1/4 of the K/V."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_caches
+    cfg = get_config(CP_ARCH)
+    report = {"groups": cfg.n_groups, "card": card_name()}
+    for deep in (CP_DEEP, CP_WITNESS_DEEP):
+        runs = {(1, 4): cp_deep_run(cfg, (1, 4), deep)}
+        runs[(2, 2)] = cp_deep_run(cfg, (2, 2), deep, runs[(1, 4)]["fed"])
+        r = {"deep": deep, "tp_1x4": runs[(1, 4)]["report"],
+             "cp_2x2": runs[(2, 2)]["report"],
+             **tps_compare(runs[(1, 4)], runs[(2, 2)], 2 * TPS_LOGITS_ATOL)}
+        if deep == CP_WITNESS_DEEP:
+            model = cp_random_model(cfg, device)
+            first = torch.zeros((1, 1), dtype=torch.int64, device=device)
+            wits = {}
+            for shape, key in (((1, 4), "tp_1x4"), ((2, 2), "cp_2x2")):
+                mesh, _ = tp_mesh(shape)
+                caches = init_caches(cfg, 1, deep, device=device)
+                cp_fill(cfg, caches, deep)
+                with cp_witness(*cp_witness_layout(
+                        shape, cp_rules(mesh, cfg, CP_ARCH, 1))):
+                    wits[shape] = cp_decode(cfg, model, caches, first,
+                                            feed=runs[(1, 4)]["fed"],
+                                            deep=deep)
+                del caches
+                gc.collect()
+                torch.cuda.empty_cache()
+                r[key]["against_witness"] = {
+                    **tps_compare(wits[shape], runs[shape],
+                                  2 * TPS_LOGITS_ATOL),
+                    "bit_for_bit": torch.equal(wits[shape]["logits"],
+                                               runs[shape]["logits"]),
+                    "witness_ms_per_decode_step":
+                        wits[shape]["ms_per_decode_step"]}
+            r["witnesses"] = tps_compare(wits[(1, 4)], wits[(2, 2)],
+                                         2 * TPS_LOGITS_ATOL)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        report[f"deep_{deep}"] = r
+        log(f"  (a) {cfg.name}, all {cfg.n_groups} groups, {deep}-deep "
+            f"caches, four cards, (2, 2) against (1, 4) ({report['card']}): "
+            f"{json.dumps(r)}")
+        for key in ("tp_1x4", "cp_2x2"):
+            got = r[key]
+            if got["replicas_equal"] is False or \
+                    4 * got["kv_bytes_per_position"] != got["kv_bytes_whole"]:
+                raise AssertionError(f"(a) four cards, {key}, {deep}: {r}")
+            wit = got.get("against_witness")
+            if wit and (wit["tokens_differing_guarded"] or not (
+                    wit["logits_max_abs_diff"] <= TPS_LOGITS_ATOL)):
+                raise AssertionError(f"(a) four cards, {key} against its "
+                                     f"witness, {deep}: {r}")
+    return report
+
+
+@contextlib.contextmanager
+def cp_witness(blocks: int, M: int):
+    """Inside, the unsharded model's decode attention runs as a context-
+    parallel mesh of `blocks` blocks of KV rows and M model positions
+    does (`nn.layers._decode_split`): each of M blocks of heads' partial
+    softmax over each block of rows (`_partial_softmax`), merged by
+    `lse_merge` in row order, rounded to bf16 (one block: each position
+    attends its heads whole, as the plain run does); and its products as
+    `tps_witness(M)` computes them. Only the order of the adds is the
+    layout's."""
+    import torch
+    from repro_torch.distributed.sharding import lse_merge
+    from repro_torch.nn import layers
+    plain = layers._attend
+
+    def attend(q, k, v, mask, softcap, *, impl="naive", causal=True,
+               window=0):
+        if q.shape[1] != 1 or mask is None or blocks == 1:
+            return plain(q, k, v, mask, softcap, impl=impl, causal=causal,
+                         window=window)
+        ok = mask.reshape(-1)
+        n, hq, hkv = k.shape[1] // blocks, q.shape[2] // M, k.shape[2] // M
+        outs = []
+        for j in range(M):
+            heads = slice(j * hkv, (j + 1) * hkv)
+            parts = [layers._partial_softmax(
+                q[:, :, j * hq:(j + 1) * hq].contiguous(),
+                k[:, b * n:(b + 1) * n, heads].contiguous(),
+                v[:, b * n:(b + 1) * n, heads].contiguous(),
+                ok[b * n:(b + 1) * n], softcap) for b in range(blocks)]
+            outs.append(lse_merge(parts).to(layers.CDT))
+        return torch.cat(outs, 2)
+    layers._attend = attend
+    try:
+        with tps_witness(M) if M > 1 else contextlib.nullcontext():
+            yield
+    finally:
+        layers._attend = plain
+
+
+def cp_witness_layout(shape, rules) -> tuple[int, int]:
+    """`cp_witness`'s (blocks of KV rows, M) for a (data, model) mesh of
+    `shape` under `rules`: the KV rows over `data` (and `model` where the
+    rules name it), the heads' and the products' blocks over `model`
+    where the rows are not."""
+    kv_model = "model" in (rules["kv_seq"] or ())
+    return (math.prod(shape) // (1 if kv_model else shape[-1]),
+            1 if kv_model else shape[-1])
+
+
+def cp_decode(cfg, model, caches, first, *, mesh=None, rules=None,
+              feed=None, deep: int | None = None) -> dict:
+    """CP_STEPS `build_serve` steps of one sequence against `caches`
+    (`deep` deep, CP_DEEP by default, rows [0, deep - CP_STEPS) filled) from position
+    deep - CP_STEPS, greedy from token `first` or fed `feed`'s tokens
+    (1, CP_STEPS): the logits (1, CP_STEPS, V) on the host, ms a step,
+    launches by mesh position and whether every data shard's logits were
+    equal bit for bit at every step."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import build_serve
+    deep = deep or CP_DEEP
+    sv = build_serve(cfg, 1, deep, mesh=mesh, rules=rules)[0]
+    out, fed, same = [], [first.cpu()], []
+    dev = first.device
+    with build.by_position() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(CP_STEPS):
+            tok = (fed[-1] if feed is None else feed[:, i:i + 1]).to(dev)
+            lg, caches = sv(model, caches, {"tokens": tok,
+                                            "pos": deep - CP_STEPS + i})
+            if mesh is not None:
+                got = sv.shards.by_shard
+                same.append(all(torch.equal(g.to(got[0].device), got[0])
+                                for g in got))
+            out.append(lg.float().cpu())
+            fed.append(lg.argmax(-1).cpu())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    logits = torch.cat(out, 1)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: long-context logits not finite")
+    return {"fed": torch.cat(fed[:-1], 1) if feed is None else feed,
+            "logits": logits, "argmax": logits.argmax(-1),
+            "ms_per_decode_step": secs / CP_STEPS * 1e3,
+            "launches_by_position": {str(k): dict(v) for k, v in
+                                     sorted(log.launches.items())},
+            "replicas_equal": all(same) if same else None}
+
+
+def cp_ulp(ref: dict) -> float:
+    """One bf16 ulp at the largest |logit| of the run `ref`."""
+    return 2.0 ** (math.floor(math.log2(float(ref["logits"].abs().max())))
+                   - 7)
+
+
+def cp_near_plain(gap: dict, ulp: float) -> bool:
+    """Whether a run's `tps_compare` against the plain unsharded run is
+    within CP_PLAIN_ULPS bf16 ulps at its largest logit (`ulp`), no
+    guarded token differing."""
+    return gap["tokens_differing_guarded"] == 0 and \
+        gap["logits_max_abs_diff"] <= CP_PLAIN_ULPS * ulp
+
+
+def cp_kv_bytes(caches) -> dict:
+    """The K/V bytes of `caches` whole, and the most that one mesh
+    position holds (over every layer)."""
+    from repro_torch.distributed.sharding import Placed
+    whole, by_pos = 0, {}
+    for e in caches.values():
+        for name, c in e.items():
+            if name not in ("k", "v"):
+                continue
+            if not isinstance(c, Placed):
+                whole += c.numel() * c.element_size()
+                continue
+            size = c.local.flat[0].element_size()
+            whole += math.prod(c.shape) * size
+            for pos, t in c.positions():
+                by_pos[pos] = by_pos.get(pos, 0) + t.numel() * size
+    return {"kv_bytes_whole": whole,
+            "kv_bytes_per_position": max(by_pos.values()) if by_pos
+            else whole}
+
+
+def cp_long(device) -> dict:
+    """(a) gemma2-27b at full width, CP_GROUPS groups, one sequence
+    decoding CP_STEPS tokens against CP_DEEP-deep caches (cp_fill) over
+    each of CP_MESHES under `long_500k`'s rules, fed the unsharded run's
+    tokens: held to the unsharded run as the layout orders its adds
+    (`cp_witness`), and within CP_PLAIN_ULPS ulps of the plain unsharded
+    run, no guarded token differing; every data shard's logits equal bit
+    for bit; each position holding 1/4 of the KV bytes."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_caches, init_params
+    cfg = dataclasses.replace(get_config(CP_ARCH), n_groups=CP_GROUPS)
+    model = init_params(cfg, SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    first = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                          device=device)
+    ref_caches = init_caches(cfg, 1, CP_DEEP, device=device)
+    cp_fill(cfg, ref_caches)
+    torch.cuda.reset_peak_memory_stats(device)
+    ref = cp_decode(cfg, model, ref_caches, first)
+    report = {"arch": cfg.name, "groups": cfg.n_groups, "deep": CP_DEEP,
+              "steps": CP_STEPS, "card": card_name(),
+              "reference_ms_per_decode_step": ref["ms_per_decode_step"],
+              "reference_peak_gb": torch.cuda.max_memory_allocated(device)
+              / 1e9, **cp_kv_bytes(ref_caches)}
+    wits = {}
+    for shape in CP_MESHES:
+        mesh, _ = tp_mesh(shape)
+        rules = cp_rules(mesh, cfg, CP_ARCH, 1)
+        cp_fill(cfg, ref_caches)
+        with cp_witness(*cp_witness_layout(shape, rules)):
+            wits[shape] = cp_decode(cfg, model, ref_caches, first,
+                                    feed=ref["fed"])
+    del ref_caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def compare(a, b):
+        return {**tps_compare(a, b, 2 * TPS_LOGITS_ATOL),
+                "logits_median_abs_diff": float(
+                    (a["logits"] - b["logits"]).abs().median())}
+    for shape in CP_MESHES:
+        mesh, kind = tp_mesh(shape)
+        devices = list(dict.fromkeys(mesh.devices.flat))
+        rules = cp_rules(mesh, cfg, CP_ARCH, 1)
+        placed = tps_place(cfg, model, mesh, rules)
+        caches = init_caches(cfg, 1, CP_DEEP, mesh=mesh, rules=rules)
+        cp_fill(cfg, caches)
+        for dev in devices:
+            torch.cuda.reset_peak_memory_stats(dev)
+        got = cp_decode(cfg, placed, caches, first, mesh=mesh, rules=rules,
+                        feed=ref["fed"])
+        key = f"{shape[0]}x{shape[1]}"
+        report[key] = {
+            "where": kind, "rules": {k: rules[k] for k in (
+                "batch", "heads", "kv_heads", "kv_seq", "vocab")},
+            **compare(wits[shape], got),
+            "against_unsharded": compare(ref, got),
+            "witness_against_unsharded": compare(ref, wits[shape]),
+            "logits_ulp_at_largest": cp_ulp(ref),
+            "ms_per_decode_step": got["ms_per_decode_step"],
+            "witness_ms_per_decode_step": wits[shape]["ms_per_decode_step"],
+            "replicas_equal": got["replicas_equal"],
+            **cp_kv_bytes(caches), **tps_memory(devices, placed),
+            "launches_by_position": got["launches_by_position"]}
+        r = report[key]
+        log(f"  (a) {cfg.name}, {cfg.n_groups} groups, long_500k over "
+            f"{shape} ({report['card']}): {json.dumps(r)}")
+        del placed, caches, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not r["replicas_equal"]:
+            raise AssertionError(f"(a) {key}: data shards' logits differ")
+        if r["kv_bytes_per_position"] * math.prod(shape) != \
+                r["kv_bytes_whole"]:
+            raise AssertionError(f"(a) {key}: KV bytes a position "
+                                 f"{r['kv_bytes_per_position']} of "
+                                 f"{r['kv_bytes_whole']}")
+        if r["tokens_differing_guarded"] or not (
+                r["logits_max_abs_diff"] <= TPS_LOGITS_ATOL) or \
+                not cp_near_plain(r["against_unsharded"],
+                                  r["logits_ulp_at_largest"]):
+            raise AssertionError(f"(a) {key}: {r}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (a) {cfg.name}, {cfg.n_groups} groups, the unsharded run "
+        f"({report['card']}): " + json.dumps(
+            {k: v for k, v in report.items() if not isinstance(v, dict)}))
+    if torch.cuda.device_count() >= 4:
+        report["deep"] = cp_long_deep(device)
+    else:
+        log(f"  (a) all {get_config(CP_ARCH).n_groups} groups needs four "
+            f"cards, {torch.cuda.device_count()} visible: not run")
+    return report
+
+
+def cp_prefill(device) -> dict:
+    """(b) gemma2-27b at full width, CP_GROUPS groups (flash): a
+    CP_PROMPT-token prefill over CP_MESHES[0] under `long_500k`'s rules
+    into CP_DEEP-deep caches (the prompt in the first data shard's block
+    of rows; the other's has no visible row), then CP_STEPS steps, fed
+    the unsharded run's tokens and held to it as the layout orders its
+    adds (`cp_witness`), and within CP_PLAIN_ULPS ulps of the plain
+    unsharded run, no guarded token differing."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(CP_ARCH), n_groups=CP_GROUPS,
+                              attn_impl="flash")
+    shape = CP_MESHES[0]
+    mesh, kind = tp_mesh(shape)
+    devices = list(dict.fromkeys(mesh.devices.flat))
+    rules = cp_rules(mesh, cfg, CP_ARCH, 1)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, CP_PROMPT), generator=gen,
+                           device=device)
+    model = init_params(cfg, SEED, device=device)
+    ref = tps_serve(cfg, model, prompt, CP_STEPS, deep=CP_DEEP)
+    with cp_witness(shape[0], shape[1]):
+        wit = tps_serve(cfg, model, prompt, CP_STEPS, deep=CP_DEEP,
+                        feed=ref["fed"])
+    placed = tps_place(cfg, model, mesh, rules)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    got = tps_serve(cfg, placed, prompt, CP_STEPS, mesh=mesh, rules=rules,
+                    feed=ref["fed"], deep=CP_DEEP)
+    report = {"arch": cfg.name, "groups": cfg.n_groups, "where": kind,
+              "mesh": list(shape), "prompt": CP_PROMPT, "deep": CP_DEEP,
+              "steps": CP_STEPS, **tps_compare(wit, got, 2 * TPS_LOGITS_ATOL),
+              "against_unsharded": tps_compare(ref, got,
+                                               2 * TPS_LOGITS_ATOL),
+              "logits_ulp_at_largest": cp_ulp(ref),
+              **tps_times(ref, got), **tps_memory(devices, placed),
+              "replicas_equal": got["replicas_equal"],
+              "launches_by_position": got["launches_by_position"],
+              "heads_by_position": got["heads_by_position"]}
+    log(f"  (b) {cfg.name} flash prefill over {shape} into {CP_DEEP}-deep "
+        f"caches ({card_name()}): {json.dumps(report)}")
+    del placed, ref, wit, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not report["replicas_equal"] or report["tokens_differing_guarded"] \
+            or not report["logits_max_abs_diff"] <= TPS_LOGITS_ATOL or \
+            not cp_near_plain(report["against_unsharded"],
+                              report["logits_ulp_at_largest"]):
+        raise AssertionError(f"(b): {report}")
+    return report
+
+
+def cp_small(device, arch: str, shape, *, long: bool = True, kw=None,
+             pim: bool = False, gate: bool = True,
+             witness: bool = False) -> dict:
+    """(c), (d): `arch` reduced, CP_SMALL_BATCH x CP_SMALL_PROMPT prompts
+    and CP_SMALL_STEPS steps against CP_SMALL_DEEP-deep caches over
+    `shape` under `long_500k`'s rules (or a decode cell's), fed the
+    unsharded run's tokens: tokens equal where the top-2 margin clears
+    2^-5 (unless `gate` is False: MoE layers route by their own logits),
+    every data shard's logits equal bit for bit, and with `pim` (paper_pim
+    precoded, its projections protected) the PIM counts equal. With
+    `witness`, held instead to the unsharded run with the layout's order
+    of adds (`cp_witness`) within TPS_LOGITS_ATOL, no guarded token
+    differing, and its gap to the plain unsharded run reported."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.context import PIMContext
+    from repro_torch.models import encode_params_for_pim, init_params
+    base = get_config(arch)
+    cfg = dataclasses.replace(base.reduced(**(kw or dict(
+        n_groups=2, d_model=256, n_heads=8, n_kv_heads=2,
+        d_ff=512 if base.d_ff else 0))), attn_impl="flash")
+    if pim:
+        cfg = dataclasses.replace(cfg, pim=dataclasses.replace(
+            cfg.pim, precoded=True))
+    mesh, kind = tp_mesh(shape)
+    devices = list(dict.fromkeys(mesh.devices.flat))
+    rules = cp_rules(mesh, cfg, arch, CP_SMALL_BATCH, long)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (CP_SMALL_BATCH, CP_SMALL_PROMPT), generator=gen,
+                           device=device)
+    model = init_params(cfg, SEED, device=device)
+    if pim:
+        encode_params_for_pim(model, cfg)
+    ctxs = [PIMContext(cfg.pim) if pim else None for _ in range(3)]
+    ref = tps_serve(cfg, model, tokens, CP_SMALL_STEPS, ctx=ctxs[0],
+                    deep=CP_SMALL_DEEP)
+    wit = ref
+    if witness:
+        with cp_witness(*cp_witness_layout(shape, rules)):
+            wit = tps_serve(cfg, model, tokens, CP_SMALL_STEPS, ctx=ctxs[2],
+                            feed=ref["fed"], deep=CP_SMALL_DEEP)
+    placed = tps_place(cfg, model, mesh, rules)
+    for dev in devices:
+        torch.cuda.reset_peak_memory_stats(dev)
+    got = tps_serve(cfg, placed, tokens, CP_SMALL_STEPS, mesh=mesh,
+                    rules=rules, ctx=ctxs[1], feed=ref["fed"],
+                    deep=CP_SMALL_DEEP)
+    report = {"arch": cfg.name, "mesh": list(shape), "where": kind,
+              "rules": {k: rules[k] for k in ("batch", "heads", "kv_heads",
+                                              "kv_seq", "fsdp")},
+              **tps_compare(wit, got, 2 * TPS_LOGITS_ATOL),
+              **tps_times(ref, got), **tps_memory(devices, placed),
+              "replicas_equal": got["replicas_equal"],
+              "launches_by_position": got["launches_by_position"]}
+    if witness:
+        report["against_unsharded"] = tps_compare(ref, got,
+                                                  2 * TPS_LOGITS_ATOL)
+        report["witness_against_unsharded"] = tps_compare(
+            ref, wit, 2 * TPS_LOGITS_ATOL)
+    if pim:
+        report["pim"], report["reference_pim"], witness_pim = (
+            c.stats() for c in ctxs)
+        if witness:
+            report["witness_pim"] = witness_pim
+    del model, placed, ref, wit, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (gate and report["tokens_differing_guarded"]) or \
+            report["replicas_equal"] is False or \
+            (witness and not report["logits_max_abs_diff"]
+             <= TPS_LOGITS_ATOL) or \
+            (pim and report["pim"] != report["reference_pim"]) or \
+            (pim and witness and report["witness_pim"]
+             != report["reference_pim"]):
+        raise AssertionError(f"{cfg.name} over {shape}: {report}")
+    return report
+
+
+def phase_cp_serve(device) -> tuple[dict, dict]:
+    """Phase 23: (a)-(d). Returns (report, launches)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    build.reset_launches()
+    t0 = time.perf_counter()
+    report = {"card": card_name(), "long": cp_long(device),
+              "prefill": cp_prefill(device)}
+    small = {}
+    for label, arch, shape, kw in (
+            ("falcon_mamba", "falcon_mamba_7b", (2, 2), None),
+            ("jamba_block", "jamba_v01_52b", (2, 2), dict(
+                n_groups=1, d_model=256, n_heads=8, n_kv_heads=2,
+                d_ff=512, n_experts=4)),
+            ("paper_pim", "paper_pim", (2, 2), dict(
+                n_groups=2, d_model=256, n_heads=8, n_kv_heads=4,
+                d_ff=512)),
+            ("granite_data_model", "granite_3_2b", (2, 4), None)):
+        small[label] = cp_small(device, arch, shape, kw=kw,
+                                pim=arch == "paper_pim",
+                                gate=arch != "jamba_v01_52b",
+                                witness=arch == "paper_pim")
+        log(f"  (c) {label} over {shape}, long_500k ({report['card']}): "
+            f"{json.dumps(small[label])}")
+    report["reduced"] = small
+    pods = {}
+    for label, shape, long in (("decode_2x1x2", (2, 1, 2), False),
+                               ("long_2x2x1", (2, 2, 1), True)):
+        pods[label] = cp_small(device, "granite_3_2b", shape, long=long)
+        log(f"  (d) granite reduced over the pod mesh {shape} "
+            f"({report['card']}): {json.dumps(pods[label])}")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), attn_impl="flash")
+    pods["train"] = tp_against_unsharded(
+        cfg, TRAIN_ARCH, CP_TRAIN_MESH, rows=TP_ROWS, steps=CP_TRAIN_STEPS,
+        label=f"(d) pod {CP_TRAIN_MESH}")
+    log(f"  (d) {cfg.name} trained over the pod mesh {CP_TRAIN_MESH} "
+        f"({report['card']}): {json.dumps(pods['train'])}")
+    report["pod"] = pods
+    report["seconds"] = time.perf_counter() - t0
+    return report, dict(build.LAUNCHES)
+
+
 def check_path(name: str, launches: dict, kernels) -> None:
     missing = [k for k in kernels if launches.get(k, 0) <= 0]
     if missing:
@@ -5322,6 +5997,11 @@ def main() -> int:
     log(f"  launches on the tensor-parallel serving path: {tps_launches}")
     log(f"  phase 22 took {tps['seconds']:.1f} s")
     check_path("TP serving", tps_launches, TPS_KERNELS)
+    log("phase 23: context parallelism over `data` and the `pod` axis")
+    cps, cps_launches = phase_cp_serve(device)
+    log(f"  launches on the context-parallel and pod paths: {cps_launches}")
+    log(f"  phase 23 took {cps['seconds']:.1f} s")
+    check_path("context-parallel and pod", cps_launches, CP_KERNELS)
     log("phase 18: the port's examples")
     examples = phase_examples()
     log(f"  examples: {json.dumps(examples)}")
@@ -5330,7 +6010,7 @@ def main() -> int:
         engine_launches, telemetry_launches, pim_train_launches,
         substrate_launches, campaign_launches, train_launches,
         mesh_launches, mesh_moe_launches, fsdp_launches, tp_launches,
-        tps_launches))
+        tps_launches, cps_launches))
         for k in KERNELS}
 
     # one row per kernel, at the shape its first check used (the main
@@ -5349,7 +6029,7 @@ def main() -> int:
                     "telemetry": telemetry, "pim_training": pim_training,
                     "substrate": substrate, "examples": examples,
                     "mesh": mesh_report, "fsdp": fsdp, "tp": tp,
-                    "tp_serve": tps,
+                    "tp_serve": tps, "cp_serve": cps,
                     "campaign": campaign,
                     "small_training": small_training,
                     "full_training": full_training,
@@ -5369,6 +6049,7 @@ def main() -> int:
                     "launches_fsdp": fsdp_launches,
                     "launches_tp": tp_launches,
                     "launches_tp_serve": tps_launches,
+                    "launches_cp_serve": cps_launches,
                     "seconds": time.perf_counter() - t0}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -71,7 +71,10 @@ class PIMContext:
     are then all-gathered, whole at every position. Its counts are
     those of the unsharded call. Data shards run in lockstep
     (`distributed.sharding.run_shards`) share the scale too, the largest
-    |x| of the whole batch, and add their words to one count a call.
+    |x| of the whole batch, and add their words to one count a call; a
+    replica (a shard holding rows an earlier one holds: context
+    parallelism's whole batch) adds none, and draws the faults its first
+    copy draws.
     """
 
     FOLD = 64                   # calls whose flags are summed together
@@ -272,10 +275,11 @@ class PIMContext:
 
     def _add(self, words: int, detected, uncorrected) -> None:
         """One call's words and flags; data shards in lockstep each add
-        theirs, and the first counts the call."""
-        if not self._counting:
-            return
+        theirs, and the first counts the call; replicas add nothing."""
         shard = data_shard()
+        if not self._counting or (shard is not None
+                                  and shard[0].layout.replica[shard[1]]):
+            return
         with self._lock:
             self._calls += shard is None or shard[1] == 0
             self._words += words

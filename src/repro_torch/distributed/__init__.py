@@ -2,3 +2,6 @@
 (`sharding`), fault tolerance for the training loop (`fault`: the restart
 manager and the straggler watchdog) and error-feedback int8 compression
 (`compression`)."""
+from .sharding import (RULES_MULTI_POD, RULES_SINGLE_POD, active_mesh,
+                       constrain, named_sharding, resolve_spec, rules_for,
+                       use_rules)

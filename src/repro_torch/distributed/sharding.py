@@ -15,10 +15,12 @@ and how one card runs a 4-shard mesh. `data_mesh()` and
 mixes CPU and CUDA devices raises.
 
 - `use_rules(mesh, rules=None)` and `active_mesh`: the ambient mesh
-  and its logical-axis rules (`RULES_SINGLE_POD` by default), whose mesh
+  and its logical-axis rules (`rules_for(mesh)` by default), whose mesh
   `nn.moe`'s `moe_impl="shard_ep"` reads, as in the JAX module.
-- `RULES_SINGLE_POD`: the default logical-to-mesh axis table, which
-  `launch.cells.rules_for_cell` starts from.
+- `RULES_SINGLE_POD`, `RULES_MULTI_POD` (the batch over `("pod",
+  "data")`) and `rules_for(mesh, seq_sharded_kv=False)`: the default
+  logical-to-mesh axis tables, which `launch.cells.rules_for_cell`
+  starts from.
 - `NamedSharding` and `named_sharding(mesh, rules, axes)`: a mesh and a
   spec (one entry a dimension: `None` whole, or the mesh axis, or tuple
   of axes, that splits it), as `jax.sharding.NamedSharding`.
@@ -68,13 +70,28 @@ on its model positions, one tensor a position:
   order, so gradients repeat from run to run. `Parts` carry their
   rules, so a remat recomputation on an autograd thread resolves alike.
 
+A step over a mesh runs one data shard a position of the axes other
+than `model` (`shard_positions`: shard k is the k-th in mesh order, so
+pod-major on a (pod, data, model) mesh), each over its model positions.
+`ShardLayout` says what each shard holds under the step's rules: its
+block of the batch's rows (the axes the `batch` rule names; shards that
+differ only along other axes hold the same rows and are replicas of
+each other: a whole batch, `long_500k`'s, makes every shard one), and
+each of its positions' block of a KV cache's rows (the `kv_seq` rule's
+axes, in the spec's order, as `NamedSharding` splits a dimension). A
+mesh axis other than `pod`, `data` and `model` raises: no rule names
+it, and no position of it is left unrun.
+
 Serving (`launch.steps.build_prefill` / `build_serve`, under
 `no_grad`) adds three collectives, plain functions without autograd:
 
-- `softmax_merge`: the partial softmax of each position over its own
-  rows of a sequence-split KV cache, (m, l, acc), combined by
-  log-sum-exp in model order in float32; each position gets its own
-  heads of the output (or all of them).
+- `ShardLayout.merge`: the partial softmax of each position over its
+  own rows of a sequence-split KV cache, (m, l, acc), exchanged between
+  the data shards at a barrier (`DataShards.exchange`) and combined by
+  log-sum-exp in the `kv_seq` order in float32, the same adds in the
+  same order at every position that reads them, so replicas stay equal
+  bit for bit; each position gets its own heads of the output (or all
+  of them). A block with no visible row (m = NEG_INF) weighs exactly 0.
 - `reduce_scatter_rows`: int32 partial words of a row-parallel PIM MAC
   summed exactly, each position keeping 1/M of the words (`split_rows`'
   blocks), and `all_gather_rows`, the blocks back at every position.
@@ -89,8 +106,9 @@ protected call's scale is the largest over the shards (`DataShards.
 max_over`, where every shard waits for the others), and the shards'
 kernels on different cards overlap.
 
-The multi-pod table (a `pod` axis) is not ported (ROADMAP Queue 1,
-item 14).
+Replicas count once: a protected call's words are counted by the
+first replica of each block of rows (`DataShards.replica`), and an MoE
+layer dispatches each replica's batch as the unsharded call does.
 """
 from __future__ import annotations
 
@@ -109,15 +127,17 @@ from ..device import as_tensor, resolve_device
 from ..kernels import build
 from ..kernels.gf_matmul import scan_syndromes_routed
 
-__all__ = ["Mesh", "RULES_SINGLE_POD", "use_rules", "active_mesh",
+__all__ = ["Mesh", "RULES_SINGLE_POD", "RULES_MULTI_POD", "rules_for",
+           "use_rules", "active_mesh",
            "active_rules", "resolve_spec", "constrain", "Parts",
            "model_dim", "NamedSharding", "named_sharding", "Placed", "place",
            "place_zeros", "data_mesh",
            "axis_devices", "split_rows", "gather_rows", "shard_page",
            "decode_shards", "gather_decode", "decode_sharded",
-           "scan_shards", "scan_syndromes_sharded", "softmax_merge",
+           "scan_shards", "scan_syndromes_sharded", "lse_merge",
            "reduce_scatter_rows", "all_gather_rows", "max_over",
-           "DataShards", "run_shards", "data_shard"]
+           "MESH_AXES", "shard_positions", "ShardLayout", "DataShards",
+           "run_shards", "data_shard", "sync_replicas"]
 
 _CTX = threading.local()
 
@@ -192,15 +212,29 @@ RULES_SINGLE_POD = {
     "d_model": None,
     "code_blocks": "model",
 }
+RULES_MULTI_POD = dict(RULES_SINGLE_POD, batch=("pod", "data"))
+
+
+def rules_for(mesh: Mesh, *, seq_sharded_kv: bool = False) -> dict:
+    """The default rules of `mesh`: `RULES_MULTI_POD` where it has a
+    `pod` axis, else `RULES_SINGLE_POD`; with `seq_sharded_kv`
+    (`long_500k`, one sequence) the KV sequence over `data` and the
+    batch over `pod` (whole without one)."""
+    rules = dict(RULES_MULTI_POD if "pod" in mesh.axis_names
+                 else RULES_SINGLE_POD)
+    if seq_sharded_kv:
+        rules["kv_seq"] = "data"
+        rules["batch"] = "pod" if "pod" in mesh.axis_names else None
+    return rules
 
 
 @contextmanager
 def use_rules(mesh: Mesh | None, rules: dict | None = None):
-    """Make `mesh` and its logical-axis `rules` (`RULES_SINGLE_POD` when
+    """Make `mesh` and its logical-axis `rules` (`rules_for(mesh)` when
     None) the ambient ones for this thread; `None` clears them."""
     prev = getattr(_CTX, "state", None)
     _CTX.state = None if mesh is None else (
-        mesh, dict(RULES_SINGLE_POD) if rules is None else rules)
+        mesh, rules_for(mesh) if rules is None else rules)
     try:
         yield
     finally:
@@ -384,6 +418,11 @@ class Placed:
         parts = self.sharding.parts(self.ndim)
         slices = self.slices()
         md = None if model is None else model_dim(self.sharding, self.ndim)
+        if md is not None and _spec_axes(self.sharding.spec[md]) != (
+                "model",):
+            raise ValueError(f"spec {self.sharding.spec}: a model "
+                             "position's block of a dimension that other "
+                             "axes split too")
 
         def pick(copies):
             for t in copies:
@@ -456,17 +495,11 @@ def place_zeros(shape, sharding: NamedSharding, *, dtype=torch.float32,
 
 
 def model_dim(sharding: NamedSharding, ndim: int) -> int | None:
-    """The dimension the `model` axis splits under `sharding`, or None.
-    Raises where `model` shares a dimension with another axis larger
-    than 1 (`long_500k`'s KV sequence over `data` and `model` with more
-    than one data shard: ROADMAP Queue 1, item 14)."""
-    shape = sharding.mesh.shape
+    """The dimension the `model` axis splits under `sharding` (alone or
+    with other axes: `long_500k`'s KV sequence over `data` and `model`),
+    or None."""
     for d, e in enumerate(sharding.spec[:ndim]):
-        axes = _spec_axes(e)
-        if "model" in axes:
-            if any(a != "model" and shape[a] > 1 for a in axes):
-                raise ValueError(f"spec {sharding.spec}: `model` splits a "
-                                 "dimension together with other axes")
+        if "model" in _spec_axes(e):
             return d
     return None
 
@@ -672,8 +705,11 @@ def data_mesh(axis_name: str = "data", devices=None) -> Mesh:
 
 def axis_devices(mesh: Mesh, axis_name: str = "data") -> list:
     """The devices along `axis_name`, at the first position of every
-    other axis: one per shard of a batch split over that axis (the other
-    axes' devices hold replicas in the JAX `shard_map`)."""
+    other axis: one per shard of a batch split over that axis, for the
+    codec (`decode_sharded`, `shard_page`, `compressed_psum`). The other
+    axes' positions would hold replicas in the JAX `shard_map`, computing
+    the same words, so they are not run; a step's data shards are
+    `shard_positions`'."""
     if axis_name not in mesh.axis_names:
         raise ValueError(f"mesh axes {mesh.axis_names} have no "
                          f"{axis_name!r} axis")
@@ -802,30 +838,22 @@ def scan_syndromes_sharded(code: LDPCCode, y, *, mesh: Mesh | None = None,
 # ---------------------------------------------------------------------------
 
 
-def softmax_merge(stats, devices, split: bool) -> list:
-    """Each position's partial softmax over its own keys -> the attention
-    output at every position. `stats[j]` = (m, l, acc) on position j's
-    device: the row maximum and the sum of exp(logit - m) (B, Sq, H, 1)
-    and the exp-weighted sum of values (B, Sq, H, D), float32. They are
-    combined by log-sum-exp in model order in float32, on each target
-    device for its heads: its 1/M block of H where `split`, else all of
-    them. Returns acc / l (float32) for each of `devices`."""
-    M, H = len(stats), stats[0][0].shape[2]
-    out = []
-    for i, dev in enumerate(devices):
-        lo, hi = (i * H // M, (i + 1) * H // M) if split else (0, H)
-        mine = [tuple(t[:, :, lo:hi].to(dev, non_blocking=True) for t in st)
-                for st in stats]
-        m = mine[0][0]
-        for mj, _l, _a in mine[1:]:
-            m = torch.maximum(m, mj)
-        l = acc = None
-        for mj, lj, aj in mine:
-            w = torch.exp(mj - m)
-            l = lj * w if l is None else l + lj * w
-            acc = aj * w if acc is None else acc + aj * w
-        out.append(acc / torch.clamp_min(l, 1e-30))
-    return out
+def lse_merge(stats) -> torch.Tensor:
+    """Partial softmaxes (m, l, acc), each over its own keys and on one
+    device, in the order given -> acc / l (float32): the row maximum m and
+    the sum l of exp(logit - m) (B, Sq, H, 1), the exp-weighted sum of
+    values acc (B, Sq, H, D), combined by log-sum-exp in float32. A
+    part with no visible key (m = NEG_INF, -1e30) weighs exp(-1e30 - m)
+    = 0 exactly beside any part that has one."""
+    m = stats[0][0]
+    for mj, _l, _a in stats[1:]:
+        m = torch.maximum(m, mj)
+    l = acc = None
+    for mj, lj, aj in stats:
+        w = torch.exp(mj - m)
+        l = lj * w if l is None else l + lj * w
+        acc = aj * w if acc is None else acc + aj * w
+    return acc / torch.clamp_min(l, 1e-30)
 
 
 def reduce_scatter_rows(partials, devices) -> list:
@@ -865,27 +893,137 @@ def max_over(values) -> list:
             for v in values]
 
 
+# ---------------------------------------------------------------------------
+# the data shards of a step
+# ---------------------------------------------------------------------------
+
+
+MESH_AXES = ("pod", "data", "model")
+
+
+def shard_positions(mesh: Mesh) -> list[list[tuple]]:
+    """Each data shard's mesh positions, in `model` order: shard k is the
+    k-th position of the axes other than `model` in mesh order (pod-major
+    on a (pod, data, model) mesh). Raises on an axis no rule names (any
+    but `MESH_AXES`)."""
+    names = mesh.axis_names
+    unknown = [a for a in names if a not in MESH_AXES]
+    if unknown:
+        raise ValueError(f"mesh axes {unknown}: no rule names them (a step "
+                         f"runs over {MESH_AXES})")
+    m = names.index("model") if "model" in names else None
+    out: dict[tuple, list] = {}
+    for pos in np.ndindex(mesh.devices.shape):
+        out.setdefault(tuple(p for i, p in enumerate(pos) if i != m),
+                       []).append(pos)
+    return [out[key] for key in sorted(out)]
+
+
+class ShardLayout:
+    """The data shards of a step over `mesh` under `rules`.
+
+    - `positions[k]`: shard k's mesh positions in `model` order
+      (`shard_positions`), `devices[k]` the first one's device.
+    - `row[k]`: shard k's block of the batch's rows, of `row_blocks` (the
+      axes the `batch` rule names, in its order); `replica[k]`: its
+      index among the shards with the same rows (0 for the first).
+    - `kv_block[k][j]`: the block of a KV cache's rows that position j of
+      shard k holds, of `kv_count` (the `kv_seq` rule's axes, in its
+      order: `NamedSharding`'s index of the position).
+    """
+
+    def __init__(self, mesh: Mesh, rules: dict):
+        self.mesh, self.rules = mesh, rules
+        self.positions = shard_positions(mesh)
+        self.devices = [mesh.devices[ps[0]] for ps in self.positions]
+        if "model" in _spec_axes(rules.get("batch")):
+            raise ValueError(f"the batch over {rules.get('batch')!r}: a "
+                             "step splits it over the data shards only")
+        rows = NamedSharding(mesh, (rules.get("batch"),))
+        self.row_blocks = rows.parts(1)[0]
+        self.row = [rows.index(ps[0], 1)[0] for ps in self.positions]
+        seen: dict[int, int] = {}
+        self.replica = []
+        for r in self.row:
+            self.replica.append(seen.get(r, 0))
+            seen[r] = seen.get(r, 0) + 1
+        kv = NamedSharding(mesh, (rules.get("kv_seq"),))
+        self.kv_count = kv.parts(1)[0]
+        self.kv_block = [[kv.index(p, 1)[0] for p in ps]
+                         for ps in self.positions]
+        kv_model = "model" in _spec_axes(rules.get("kv_seq"))
+        self._sources = [[self._merged(k, j, kv_model) for j in range(
+            len(ps))] for k, ps in enumerate(self.positions)]
+
+    def __len__(self) -> int:
+        return len(self.positions)
+
+    @property
+    def replicated(self) -> bool:
+        """Whether some shards are replicas (hold the same rows)."""
+        return any(self.replica)
+
+    def _merged(self, k: int, j: int, kv_model: bool) -> list:
+        """The (shard, position) whose partial softmaxes position j of
+        shard k merges: one holder of each block of the KV rows among the
+        shards with its batch rows (the first in mesh order), at its own
+        model position unless `model` splits the rows too, in block
+        order."""
+        first: dict[int, tuple] = {}
+        for s in range(len(self.positions)):
+            if self.row[s] != self.row[k]:
+                continue
+            for jj in (range(len(self.positions[s])) if kv_model else (j,)):
+                first.setdefault(self.kv_block[s][jj], (s, jj))
+        return [first[b] for b in sorted(first)]
+
+    def merge(self, stats: list, split: bool) -> list:
+        """This shard's partial softmaxes, (m, l, acc) of each of its
+        model positions (float32, on its device), -> the attention output
+        of each (`lse_merge` of `_merged`'s parts, on its device): all
+        the heads its parts hold, or its 1/M block of them where `split`
+        (the parts then hold every head). Every shard of the step calls
+        it at once, inside `run_shards` (`DataShards.exchange`)."""
+        group, k = data_shard()
+        every = group.exchange(stats)
+        out = []
+        M = len(stats)
+        for j, st in enumerate(stats):
+            dev, H = st[0].device, st[0].shape[2]
+            lo, hi = (j * H // M, (j + 1) * H // M) if split else (0, H)
+            out.append(lse_merge([tuple(
+                t[:, :, lo:hi].to(dev, non_blocking=True)
+                for t in every[s][jj]) for s, jj in self._sources[k][j]]))
+        return out
+
+
 _SHARD = threading.local()
 
 
 class DataShards:
     """The data shards of one step, run in lockstep by `run_shards`: one
-    thread a shard, which `data_shard()` names inside."""
+    thread a shard, which `data_shard()` names inside; `layout` is the
+    step's `ShardLayout`."""
 
-    def __init__(self, n: int):
-        self.n = n
-        self._barrier = threading.Barrier(n)
-        self._vals: list = [None] * n
+    def __init__(self, layout: ShardLayout):
+        self.n, self.layout = len(layout), layout
+        self._barrier = threading.Barrier(self.n)
+        self._vals: list = [None] * self.n
 
-    def max_over(self, value: torch.Tensor) -> torch.Tensor:
-        """The largest of every shard's 0-d `value`, on this shard's
-        device: each shard waits here for the others (exact: a max)."""
+    def exchange(self, value) -> list:
+        """Every shard's `value`, in shard order: each shard waits here
+        for the others."""
         k = data_shard()[1]
         self._vals[k] = value
         self._barrier.wait()
-        top = max_over(self._vals)[k]
+        out = list(self._vals)
         self._barrier.wait()             # all read before the next call
-        return top
+        return out
+
+    def max_over(self, value: torch.Tensor) -> torch.Tensor:
+        """The largest of every shard's 0-d `value`, on this shard's
+        device (exact: a max)."""
+        return max_over(self.exchange(value))[data_shard()[1]]
 
     @property
     def broken(self) -> bool:
@@ -902,14 +1040,29 @@ def data_shard():
     return getattr(_SHARD, "state", None)
 
 
-def run_shards(fn, n: int) -> list:
-    """[fn(0), ..., fn(n - 1)], each call in its own thread as shard k of
-    one `DataShards` group (one shard runs in this thread, alone). The
-    first error a shard raises is raised here, after every shard's
-    thread has ended (the others stop at their next wait)."""
+def sync_replicas() -> None:
+    """Inside a step whose shards include replicas, wait for every shard:
+    a replicated state that they all read is then read before any of them
+    writes it (its copies on one device are one tensor)."""
+    shard = data_shard()
+    if shard is not None and shard[0].layout.replicated:
+        shard[0].exchange(None)
+
+
+def run_shards(fn, layout: ShardLayout) -> list:
+    """[fn(0), ..., fn(n - 1)] for the n data shards of the step's
+    `layout`, each call in its own thread as shard k of one `DataShards`
+    group (one shard runs in this thread). The first error a shard raises
+    is raised here, after every shard's thread has ended (the others stop
+    at their next wait)."""
+    group = DataShards(layout)
+    n = group.n
     if n == 1:
-        return [fn(0)]
-    group = DataShards(n)
+        prev, _SHARD.state = data_shard(), (group, 0)
+        try:
+            return [fn(0)]
+        finally:
+            _SHARD.state = prev
     out: list = [None] * n
     errs: list = [None] * n
 

@@ -11,17 +11,19 @@ tensor-parallel step's split). Its serving cells place the parameters
 and caches of `launch.steps.build_prefill` and `build_serve`: FSDP while
 serving only the largest models (`fsdp_serve`, `_BIG`), and the decode
 shapes' KV-sequence rules (the sequence over `model` where the KV heads
-do not divide it; `long_500k` splits it over `data` as well, with the
-batch whole). The rest of the JAX module (`input_specs`, `list_cells`,
-`skip_reason`) is the TPU dry runs' cell tooling and is not ported; so
-is the multi-pod table (ROADMAP Queue 1, item 14).
+do not divide it; `long_500k` splits it over `data`, and `pod`, as
+well, with the batch whole: context parallelism). On a mesh with a
+`pod` axis the table starts from `RULES_MULTI_POD` (the batch over
+`("pod", "data")`). The rest of the JAX module (`input_specs`,
+`list_cells`, `skip_reason`) is the TPU dry runs' cell tooling and is
+not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..configs.base import ArchConfig, ShapeSpec
-from ..distributed.sharding import RULES_SINGLE_POD
+from ..distributed.sharding import RULES_MULTI_POD, RULES_SINGLE_POD
 
 # archs too large for replicated-over-data storage: shard params over `data`
 # (FSDP) in addition to tensor parallelism over `model`
@@ -74,8 +76,9 @@ def fsdp_serve_for(cfg: ArchConfig) -> bool:
 def rules_for_cell(mesh, cfg: ArchConfig, shape: ShapeSpec,
                    st: CellSettings) -> dict:
     """The logical-axis rules of one (config, shape) cell on `mesh`, the
-    JAX package's single-pod rules."""
-    rules = dict(RULES_SINGLE_POD)
+    JAX package's: the multi-pod table where `mesh` has a `pod` axis."""
+    multi = "pod" in mesh.axis_names
+    rules = dict(RULES_MULTI_POD if multi else RULES_SINGLE_POD)
     msize = mesh.shape["model"]
 
     rules["heads_flat"] = "model"
@@ -94,7 +97,7 @@ def rules_for_cell(mesh, cfg: ArchConfig, shape: ShapeSpec,
         if shape.name == "long_500k":
             rules["batch"] = None          # batch=1
             # context parallelism: the KV sequence over every idle axis
-            rules["kv_seq"] = ("data",)
+            rules["kv_seq"] = ("pod", "data") if multi else ("data",)
             if not kv_div:
                 rules["kv_seq"] = rules["kv_seq"] + ("model",)
                 rules["kv_heads"] = None

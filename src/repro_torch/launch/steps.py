@@ -1,5 +1,5 @@
 """The train, prefill and serve steps, on one card or over a (data,
-model) mesh.
+model) or (pod, data, model) mesh.
 
 The port's counterpart of the JAX package's `launch/steps.py::
 build_train`, `opt_state_axes`, `build_prefill` and `build_serve` (the
@@ -7,9 +7,11 @@ JAX builders' `ShapeDtypeStruct` argument specs are the TPU dry runs'
 tooling and are not ported, nor is `build_step`).
 
 Over a mesh the step is the JAX trainer's under `rules_for_cell`: the
-batch split over `data`, every parameter and optimizer state split over
-`data` on its `fsdp` dimension (`models.lm.place_params`). The data
-shards run one after the other from the host, each on its own device:
+batch split over `data` (over `("pod", "data")`, pod-major, on a pod
+mesh: `distributed.sharding.ShardLayout`), every parameter and
+optimizer state split over `data` on its `fsdp` dimension and
+replicated over `pod` (`models.lm.place_params`). The data shards run
+one after the other from the host, each on its own device:
 
 - shard k takes rows [kB/N, (k+1)B/N) of the batch (of microbatch i,
   rows [iB/m, (i+1)B/m), with m microbatches: the JAX `lax.scan`'s);
@@ -55,8 +57,14 @@ its rows of the batch against its slices of caches placed by
 (each layer's cache and PIM branches in `nn.layers`); the logits are
 gathered onto the mesh's first device. The data shards run in lockstep
 threads, so each protected projection's scale is the whole batch's as
-in the JAX step. A data axis larger than 1 with the
-KV sequence split over it (`long_500k`) raises: ROADMAP Queue 1, item 14.
+in the JAX step. Two layouts of the batch (`ShardLayout`): split over
+the axes its rule names (rows pod-major), or whole (`long_500k`'s one
+sequence), every data shard then a replica of the others but for its
+block of the KV rows (context parallelism: the prefill runs whole on
+each replica and keeps each position's rows; a decode step's attention
+merges every block's partial softmax, `nn.layers._decode_split`). A
+replica's protected words are not counted again, and its MoE layers
+dispatch its batch as the unsharded call does.
 """
 from __future__ import annotations
 
@@ -64,13 +72,13 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
-from ..distributed.sharding import (NamedSharding, Parts, _spec_axes,
-                                    axis_devices, model_dim, named_sharding,
+from ..distributed.sharding import (NamedSharding, Parts, ShardLayout,
+                                    _spec_axes, model_dim, named_sharding,
                                     run_shards)
 from ..kernels import build
 from ..models.lm import (LM, PlacedLM, cache_shardings, decode_step,
-                         init_caches, loss_fn, model_positions, param_axes,
-                         param_shardings, pim_param_axes, prefill)
+                         init_caches, loss_fn, param_axes, param_shardings,
+                         pim_param_axes, prefill)
 from ..nn.moe import DataSplit
 from ..optim import make_optimizer, stacked_leaf, warmup_cosine
 from .cells import optimizer_for
@@ -104,11 +112,15 @@ def _leaf_shapes(cfg: ArchConfig) -> dict:
             for path, ps in LM(cfg, device="meta").leaves().items()}
 
 
-def _check_mesh(mesh, rules: dict) -> None:
-    """The mesh step's condition on its rules."""
-    if rules.get("batch") != "data":
+def _check_mesh(mesh, rules: dict) -> ShardLayout:
+    """The mesh step's condition on its rules: the batch split over every
+    data shard (no replicas), over `data` (and `pod`)."""
+    layout = ShardLayout(mesh, rules)
+    if layout.replicated or "data" not in _spec_axes(rules.get("batch")):
         raise ValueError(f"the data-parallel step splits the batch over "
-                         f"`data`; the rules give {rules.get('batch')!r}")
+                         f"every data shard (`data`, and `pod`); the rules "
+                         f"give {rules.get('batch')!r} on {mesh}")
+    return layout
 
 
 def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
@@ -189,9 +201,9 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
 
     if mesh is None:
         return train_step, tx, shardings
-    _check_mesh(mesh, rules)
+    layout = _check_mesh(mesh, rules)
     moe = any(spec.moe for spec in cfg.group_spec)
-    devices = axis_devices(mesh, "data")      # data shard k on devices[k]
+    devices = layout.devices                  # data shard k on devices[k]
     tp = mesh.shape.get("model", 1) > 1
     order = list(np.ndindex(mesh.devices.shape))
 
@@ -214,14 +226,14 @@ def build_train(cfg: ArchConfig, microbatches: int = 1, *, mesh=None,
                 split = DataSplit(host["tokens"][rows].numel()) if moe \
                     else None
                 for k, dev in enumerate(devices):
-                    r0 = rows.start + k * per
+                    r0 = rows.start + layout.row[k] * per
                     sb = {key: v[r0:r0 + per].to(dev, non_blocking=True)
                           for key, v in host.items()}
                     if split is not None:
-                        split.shard = k
+                        split.shard = layout.row[k]
                     weights = (model.weights(None, shard=k, rules=rules)
                                if tp else model.weights(dev))
-                    with build.at_position(model_positions(mesh, k)[0]):
+                    with build.at_position(layout.positions[k][0]):
                         part = loss_fn(model.skeleton, cfg, sb,
                                        weights=weights, split=split,
                                        count=count)
@@ -302,57 +314,48 @@ def _serve_shardings(cfg: ArchConfig, mesh, rules: dict) -> tuple:
     return p_sh, b_sh, lg_sh, cache_shardings(cfg, mesh, rules)
 
 
-def _check_serve_mesh(mesh, rules: dict) -> None:
-    """A data axis larger than 1 splits the batch, never the KV sequence:
-    `long_500k`'s context parallelism over `data` is ROADMAP Queue 1,
-    item 14."""
-    if mesh.shape["data"] > 1 and (rules.get("batch") != "data"
-                                   or "data" in _spec_axes(
-                                       rules.get("kv_seq"))):
-        raise ValueError(
-            f"serving over {mesh.shape['data']} data shards with the batch "
-            f"over {rules.get('batch')!r} and the KV sequence over "
-            f"{rules.get('kv_seq')!r}: context parallelism over `data` "
-            "(long_500k) is not ported (ROADMAP Queue 1, item 14)")
-
-
 class _Shards:
-    """The data shards of a serving step over a mesh: shard k's rows of
-    the batch on its device, its weights (`ShardWeights`, of its model
+    """The data shards of a serving step over a mesh (`ShardLayout`):
+    shard k's rows of the batch on its device (the whole batch where the
+    rules keep it whole), its weights (`ShardWeights`, of its model
     positions where `model` > 1) and its slices of placed caches."""
 
     def __init__(self, mesh, rules: dict):
-        _check_serve_mesh(mesh, rules)
         self.mesh, self.rules = mesh, rules
-        self.devices = axis_devices(mesh, "data")
-        self.tp = mesh.shape["model"] > 1
+        self.layout = ShardLayout(mesh, rules)
+        self.devices = self.layout.devices
+        self.tp = mesh.shape.get("model", 1) > 1
+        self.by_shard: list = []         # the last step's logits a shard
 
     def run(self, fn) -> list:
         """[fn(k) for each data shard k], in lockstep threads
         (`distributed.sharding.run_shards`): a protected projection's
         activation scale is the whole batch's."""
-        return run_shards(fn, len(self.devices))
+        return run_shards(fn, self.layout)
 
     def split(self, cfg: ArchConfig, tokens: int):
-        """The batch's `DataSplit` where MoE layers dispatch over more
-        than one data shard (the whole batch's capacity), else None."""
-        if len(self.devices) > 1 and any(s.moe for s in cfg.group_spec):
-            return DataSplit(tokens)
-        return None
+        """Each shard's `DataSplit` where MoE layers dispatch over more
+        than one block of rows (the whole batch's capacity; one for each
+        replica index, so replicas dispatch apart), else None."""
+        if self.layout.row_blocks > 1 and any(s.moe for s in cfg.group_spec):
+            splits = [DataSplit(tokens)
+                      for _ in range(max(self.layout.replica) + 1)]
+            return [splits[r] for r in self.layout.replica]
+        return [None] * len(self.devices)
 
     def rows(self, batch: dict) -> list:
         """Each shard's rows of `batch` ("tokens", "aux") on its device."""
         host = {k: torch.as_tensor(np.asarray(v) if not isinstance(
             v, torch.Tensor) else v.cpu()) for k, v in batch.items()
             if v is not None and k != "pos"}
-        B, n = host["tokens"].shape[0], len(self.devices)
+        B, n = host["tokens"].shape[0], self.layout.row_blocks
         if B % n:
             raise ValueError(f"batch {B} does not split over {n} data "
                              "shards")
         per = B // n
-        return [{k: v[i * per:(i + 1) * per].to(dev, non_blocking=True)
+        return [{k: v[r * per:(r + 1) * per].to(dev, non_blocking=True)
                  for k, v in host.items()}
-                for i, dev in enumerate(self.devices)]
+                for r, dev in zip(self.layout.row, self.devices)]
 
     def weights(self, model: PlacedLM, k: int):
         """Shard k's `ShardWeights`, in a skeleton of its own (shards in
@@ -366,7 +369,7 @@ class _Shards:
         """Shard k's slices of placed caches: `Parts` of its model
         positions' tensors (laid out as `model` splits each entry), or
         its one position's tensors."""
-        positions = model_positions(self.mesh, k)
+        positions = self.layout.positions[k]
 
         def part(p):
             if not self.tp:
@@ -379,26 +382,34 @@ class _Shards:
                 for pos, e in caches.items()}
 
     def gather(self, logits: list) -> torch.Tensor:
+        """Each block of rows' logits (its first replica's), in row order,
+        on the mesh's first device; every shard's are kept in
+        `by_shard`."""
+        self.by_shard = logits
         first = self.mesh.device
-        return torch.cat([t.to(first, non_blocking=True) for t in logits])
+        rows: dict = {}
+        for r, lg in zip(self.layout.row, logits):
+            rows.setdefault(r, lg)
+        return torch.cat([rows[r].to(first, non_blocking=True)
+                          for r in sorted(rows)])
 
 
 def _fill(placed, caches: dict, k: int, shards: _Shards) -> None:
-    """Shard k's prompt caches (`prefill`'s) written into its slices of
-    `placed`: K/V into their first rows (each position's share of them
-    where the rules split the KV sequence), the rest whole."""
+    """Shard k's prompt caches (`prefill`'s, whole over the sequence)
+    written into its slices of `placed`: each position's block of the K/V
+    rows into its first rows, the rest whole."""
+    blocks = shards.layout.kv_block[k]
     for pos, e in shards.view(placed, k).items():
         for name, dst in e.items():
             src = caches[pos][name]
             split = isinstance(dst, Parts)
-            seq = split and name in ("k", "v") and dst.layout == 2
             for j, (d, t) in enumerate(zip(dst, src) if split
                                        else [(dst, src)]):
                 if name not in ("k", "v"):
                     d.copy_(t)
                     continue
-                if seq:                   # (G, B, W/M, ...) a position
-                    t = t[:, :, j * d.shape[2]:(j + 1) * d.shape[2]]
+                Wl = d.shape[2]               # (G, B, Wl, ...) a position
+                t = t[:, :, blocks[j] * Wl:(blocks[j] + 1) * Wl]
                 d[:, :, :t.shape[2]] = t
 
 
@@ -422,8 +433,9 @@ def build_prefill(cfg: ArchConfig, *, mesh=None, rules=None, pim_ctx=None):
     back placed by `cache_axes` (`init_caches(..., mesh=...)`),
     `max_seq` rows long (the prompt's length by default) with the
     prompt in their first rows; the logits are gathered onto the mesh's
-    first device. A `model` axis of 1 runs the unsharded `prefill` on
-    each data shard. MoE layers dispatch as the whole batch does (its
+    first device (each data shard's, replicas' too, stay in the step's
+    `shards.by_shard`). A `model` axis of 1 runs the unsharded `prefill`
+    on each data shard. MoE layers dispatch as the whole batch does (its
     capacity, `nn.moe.DataSplit`), as the JAX dispatch of the whole
     batch does. `pim_ctx` protects the config's target projections
     (by default a fault-free `PIMContext(cfg.pim)` where PIM is
@@ -446,20 +458,20 @@ def build_prefill(cfg: ArchConfig, *, mesh=None, rules=None, pim_ctx=None):
         parts = shards.rows(batch)
         B, S = np.shape(batch["tokens"])
         caches = init_caches(cfg, B, max_seq or S, mesh=mesh, rules=rules)
-        split = shards.split(cfg, B * S)
+        splits = shards.split(cfg, B * S)
 
         def shard(k):
-            if split is not None:
-                split.shard = k
+            split = splits[k]
             sb = parts[k]
             weights = shards.weights(model, k)
-            with build.at_position(model_positions(mesh, k)[0]):
+            with build.at_position(shards.layout.positions[k][0]):
                 lg, c = prefill(weights.skeleton, cfg, sb["tokens"],
                                 aux=sb.get("aux"), pim_ctx=ctx,
                                 weights=weights, split=split)
             _fill(caches, c, k, shards)
             return lg
         return shards.gather(shards.run(shard)), caches
+    mesh_prefill_step.shards = shards
     return mesh_prefill_step, shardings
 
 
@@ -494,19 +506,19 @@ def build_serve(cfg: ArchConfig, batch: int, max_seq: int, *, mesh=None,
     shards = _Shards(mesh, rules)
 
     def mesh_serve_step(model: PlacedLM, caches, batch_):
-        split = shards.split(cfg, np.shape(batch_["tokens"])[0])
+        splits = shards.split(cfg, np.shape(batch_["tokens"])[0])
         parts = shards.rows(batch_)
 
         def shard(k):
-            if split is not None:
-                split.shard = k
+            split = splits[k]
             sb = parts[k]
             weights = shards.weights(model, k)
-            with build.at_position(model_positions(mesh, k)[0]):
+            with build.at_position(shards.layout.positions[k][0]):
                 return decode_step(weights.skeleton, cfg,
                                    shards.view(caches, k), sb["tokens"],
                                    batch_["pos"], aux=sb.get("aux"),
                                    pim_ctx=ctx, weights=weights,
                                    split=split)[0]
         return shards.gather(shards.run(shard)), caches
+    mesh_serve_step.shards = shards
     return mesh_serve_step, shardings

@@ -50,14 +50,16 @@ parameters are a `PlacedLM` placed by `param_axes` (and
 and `w_down`, their scales whole), the dense caches `Placed` by
 `cache_axes` (`init_caches(..., mesh=...)`), and `prefill` /
 `decode_step` run one data shard at a time with its `ShardWeights`,
-over its model positions (`Parts`) where `model` > 1.
+over its model positions (`Parts`) where `model` > 1. Under context
+parallelism (`long_500k`: the batch whole, the KV sequence over `data`,
+`pod` and maybe `model`) each data shard is a replica but for its block
+of the caches' rows; the mamba states and cross K/V are replicated.
 """
 from __future__ import annotations
 
 import functools
 from contextlib import contextmanager, nullcontext
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -67,7 +69,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device
 from ..distributed.sharding import (Parts, Placed, constrain, model_dim,
-                                    named_sharding, place, place_zeros)
+                                    named_sharding, place, place_zeros,
+                                    shard_positions, sync_replicas)
 from ..kernels import build
 from ..nn.layers import CDT, Block, RMSNorm, _param
 from ..nn.mamba import mamba_param_axes
@@ -360,18 +363,6 @@ def place_params(model: LM, shardings: dict) -> PlacedLM:
     return PlacedLM(model.cfg, placed, buffers)
 
 
-def model_positions(mesh, shard: int) -> list[tuple]:
-    """The mesh positions of data shard `shard`, in `model` order."""
-    names = mesh.axis_names
-    out = []
-    for pos in np.ndindex(mesh.devices.shape):
-        if pos[names.index("data")] == shard and all(
-                pos[i] == 0 for i, a in enumerate(names)
-                if a not in ("data", "model")):
-            out.append(pos)
-    return sorted(out, key=lambda p: p[names.index("model")])
-
-
 class ShardWeights:
     """One data shard's view of a `PlacedLM`: inside `use(*names)` the
     skeleton's parameters (and placed PIM buffers) under those module or
@@ -389,7 +380,7 @@ class ShardWeights:
         self.skeleton = model.skeleton if skeleton is None else skeleton
         self.device = None if device is None else torch.device(device)
         self.positions = (None if shard is None
-                          else model_positions(model.mesh, shard))
+                          else shard_positions(model.mesh)[shard])
         self._under: dict[str, list[str]] = {}
 
     def _local(self, name: str):
@@ -583,7 +574,11 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, *,
     `protected_kv` (a `models.kv.ProtectedKVConfig`), a
     `ProtectedKVCaches` manager instead. With `mesh` (and `rules`,
     `launch.cells.rules_for_cell`'s), each entry is zeros `Placed` by
-    `cache_shardings` (made slice by slice), on the mesh's devices."""
+    `cache_shardings` (made slice by slice), on the mesh's devices: K/V
+    split over `batch` and `kv_seq` (over `data`, `pod` and `model` as
+    the rules say: `long_500k` keeps the batch whole on every data shard
+    and splits the rows) and `kv_heads`, the other entries replicated
+    over the axes their rules do not name."""
     if mesh is not None:
         shapes = init_caches(cfg, batch, max_seq, device="meta")
         sh = cache_shardings(cfg, mesh, rules)
@@ -937,9 +932,12 @@ def decode_step(params: LM, cfg: ArchConfig, caches, token, pos, *,
                                            aux=aux, cache=view,
                                            cache_pos=pos, pim_ctx=pim_ctx,
                                            split=split)
-            for name, val in (nc or {}).items():
-                if val is not view[name]:       # a mamba layer's new state
-                    _copy_into(view[name], val)
+            new = {name: val for name, val in (nc or {}).items()
+                   if val is not view[name]}    # a mamba layer's new state
+            if new:
+                sync_replicas()         # every replica has read the state
+            for name, val in new.items():
+                _copy_into(view[name], val)
     head = "embed" if cfg.tie_embeddings else "lm_head"
     with _using(weights, "final_norm", head):
         return _head_logits(params, cfg, x), caches

@@ -49,12 +49,23 @@ JAX layers call `constrain`:
   order of the float32 adds.
 - Serving: a dense decode cache is `Parts` too (`_write_cache`). Split
   over `kv_heads`, each position writes and reads its heads; split over
-  `kv_seq` (the KV heads do not divide `model`), the position that owns
-  slot `pos % W` writes the token, q is all-gathered and each position's
-  partial softmax over its rows is merged by `softmax_merge`; whole, each
-  position holds all of it. With a `pim_ctx`, `wo` and `w_down` split by
+  `kv_seq` on `model` (the KV heads do not divide it), q is all-gathered
+  and each position's partial softmax over its rows, for every head, is
+  merged (`ShardLayout.merge`) into its heads; whole, each position
+  holds all of it. With a `pim_ctx`, `wo` and `w_down` split by
   rows run `PIMContext.matmul`'s row-parallel protected path (`project`),
   equal to the unsharded call bit for bit on the same input.
+
+Context parallelism (`long_500k`: the `kv_seq` rule names `data`, or
+`pod`, and the batch is whole): each data shard holds its block of
+every cache's rows, whether or not `model` splits them too, and a
+decode step's attention runs as that split says (`_decode_split`): only
+the position that holds slot `pos % W` writes the token (rings too),
+each position takes its partial softmax over its rows, and the partials
+of every block are merged by log-sum-exp in the `kv_seq` order
+(`ShardLayout.merge`, across the data shards), so each shard holds the
+same output. The step's `ShardLayout` says which block a position holds
+(`distributed.sharding.data_shard`); a plain tensor is one position.
 
 Not ported, by design: `attn_impl="standin"`, the JAX package's
 cost-lowering tooling (it raises `NotImplementedError`).
@@ -66,8 +77,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
-from ..distributed.sharding import (Parts, _spec_axes, constrain, relayout,
-                                    resolve_spec, softmax_merge)
+from ..distributed.sharding import (Parts, _spec_axes, constrain,
+                                    data_shard, relayout, resolve_spec)
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import (NEG_INF, paged_softmax_finalize,
                                        paged_softmax_init,
@@ -362,6 +373,12 @@ class Attention(nn.Module):
             return self.out_proj(out.reshape(B, S, hq * dh), pim_ctx), None
 
         new_cache = None
+        if kv_cache is not None and _kv_split() is not None:
+            out = _decode_split([q], [kv_cache["k"]], [kv_cache["v"]], [k],
+                                [v], cache_pos, spec.local_window,
+                                cfg.softcap_attn, False)[0].to(CDT)
+            return (self.out_proj(out.reshape(B, S, hq * dh), pim_ctx),
+                    kv_cache)
         if kv_cache is not None:
             W = kv_cache["k"].shape[1]
             slot = int(cache_pos) % W
@@ -393,11 +410,13 @@ class Attention(nn.Module):
         sites): self-attention (RoPE'd, causal or not) of x, or cross
         attention over `aux_kv` (each position's K/V heads); -> (y whole,
         the cache). A dense decode cache of `Parts` (`_write_cache`) is
-        split over `kv_heads` (each position attends over its heads), or
-        over `kv_seq` (q all-gathered, each position's partial softmax
-        over its rows for every head, merged by `softmax_merge`), or is
-        whole at every position. `wo` runs on `pim_ctx`'s row-parallel
-        protected path where it targets "attn_o"."""
+        split over `kv_heads` (each position attends over its heads) or
+        whole at every position; where its rows split over positions (of
+        this shard or of others), `_decode_split`: q all-gathered where
+        `model` splits the rows (each position's partial softmax over
+        its rows for every head), else each position's heads. `wo` runs
+        on `pim_ctx`'s row-parallel protected path where it targets
+        "attn_o"."""
         B, S = x[0].shape[:2]
         q = _heads(tp_matmul(x, self.wq), cfg.head_dim, "heads")
         q = constrain(q, "batch", None, "heads", None)
@@ -406,33 +425,45 @@ class Attention(nn.Module):
             k, v = self._kv_tp(x, cfg, positions, q_split=q.layout == 2
                                and kv_cache is None)
             q = q.map(lambda t, p: rope(t, p, cfg.rope_theta), positions)
+            if kv_cache is not None and _kv_split() is not None:
+                ck, cv = kv_cache["k"], kv_cache["v"]
+                heads = splits(q.rules, "heads")
+                if ck.layout == 1:     # rows over `model`: every head
+                    q = relayout(q, "whole")
+                else:                  # each position its KV heads
+                    k, v = _own_heads(k, q, cfg), _own_heads(v, q, cfg)
+                    heads = False
+                outs = _decode_split(list(q), list(ck), list(cv), list(k),
+                                     list(v), cache_pos, window,
+                                     cfg.softcap_attn, heads)
+                out = q.like([o.to(CDT) for o in outs],
+                             2 if heads else q.layout, CDT)
+                return self._tp_out(out, B, S, pim_ctx), kv_cache
             if kv_cache is not None:
                 k, v, ok = _write_cache(kv_cache, k, v, cache_pos, window)
         else:
             k, v = aux_kv
-        if ok is not None and k.layout == 1:
-            out = _attend_seq_split(relayout(q, "whole"), k, v, ok,
-                                    cfg.softcap_attn,
-                                    splits(q.rules, "heads"))
-        else:
-            k, v = _own_heads(k, q, cfg), _own_heads(v, q, cfg)
-            flash = cfg.attn_impl == "flash" and S > 1 and ok is None
+        k, v = _own_heads(k, q, cfg), _own_heads(v, q, cfg)
+        flash = cfg.attn_impl == "flash" and S > 1 and ok is None
 
-            def attend(qj, kj, vj, okj=None):
-                mask = None
-                if okj is not None:
-                    mask = okj[None, None, None, :]
-                elif causal and not flash:
-                    mask = causal_mask(S, window, qj.device)[None, None]
-                return _attend(qj, kj, vj, mask, cfg.softcap_attn,
-                               impl=cfg.attn_impl if ok is None else "naive",
-                               causal=causal, window=window)
-            out = q.map(attend, k, v, *(() if ok is None else (ok,)))
+        def attend(qj, kj, vj, okj=None):
+            mask = None
+            if okj is not None:
+                mask = okj[None, None, None, :]
+            elif causal and not flash:
+                mask = causal_mask(S, window, qj.device)[None, None]
+            return _attend(qj, kj, vj, mask, cfg.softcap_attn,
+                           impl=cfg.attn_impl if ok is None else "naive",
+                           causal=causal, window=window)
+        out = q.map(attend, k, v, *(() if ok is None else (ok,)))
+        return self._tp_out(out, B, S, pim_ctx), kv_cache
+
+    def _tp_out(self, out: Parts, B: int, S: int, pim_ctx) -> Parts:
+        """The attention output (B, S, H, D) at each position -> y whole."""
         out = constrain(out, "batch", None, "heads", None)
         out = out.map(lambda t: t.reshape(B, S, -1),
                       layout=out.layout if out.layout == "whole" else 2)
-        y = constrain(self.out_proj(out, pim_ctx), "batch", None, None)
-        return y, kv_cache
+        return constrain(self.out_proj(out, pim_ctx), "batch", None, None)
 
     def _kv_tp(self, src: Parts, cfg: ArchConfig, positions=None, *,
                q_split: bool | None = None) -> tuple[Parts, Parts]:
@@ -463,60 +494,91 @@ class Attention(nn.Module):
         return k, v
 
 
-def _write_cache(cache: dict, k: Parts, v: Parts, cache_pos, window: int):
-    """The token's K/V written into a dense cache of `Parts` at slot
-    `cache_pos % W` (a ring of W = the window for sliding layers), in
-    place: each position its heads, or, where the rows split over
-    `kv_seq`, only the position that owns the slot (k and v are then
-    whole at every position). Returns (cache k, cache v, each
-    position's visible rows: (its rows,) bool)."""
-    ck, cv = cache["k"], cache["v"]
-    M, Wl, S = len(ck), ck[0].shape[1], k[0].shape[1]
-    seq = ck.layout == 1
-    W = Wl * M if seq else Wl
+def _kv_split():
+    """(the step's `ShardLayout`, this shard's index) where the step's KV
+    caches split their rows over positions (its `kv_count` > 1), else
+    None."""
+    shard = data_shard()
+    if shard is None or shard[0].layout.kv_count == 1:
+        return None
+    return shard[0].layout, shard[1]
+
+
+def _write_rows(cks, cvs, ks, vs, cache_pos, window: int, blocks,
+                count: int) -> list:
+    """The token's K/V (`ks[j]`, `vs[j]`: (B, S, H, D)) written into each
+    position's cache rows (`cks[j]`, `cvs[j]`: (B, Wl, H, D), block
+    `blocks[j]` of `count` of the W = Wl·count rows: a ring of W = the
+    window for sliding layers) at slot `cache_pos % W`, by the position
+    that holds it. Returns each position's visible rows, (Wl,) bool."""
+    Wl, S = cks[0].shape[1], ks[0].shape[1]
+    W = Wl * count
     slot = int(cache_pos) % W
     oks = []
-    for j in range(M):
-        lo = j * Wl if seq else 0
-        a, b = max(slot, lo), min(slot + S, lo + Wl)
-        if a < b:
-            ck[j][:, a - lo:b - lo] = k[j][:, a - slot:b - slot]
-            cv[j][:, a - lo:b - lo] = v[j][:, a - slot:b - slot]
-        kv_pos = torch.arange(lo, lo + Wl, device=ck[j].device)
+    for ck, cv, k, v, b in zip(cks, cvs, ks, vs, blocks, strict=True):
+        lo = b * Wl
+        a, e = max(slot, lo), min(slot + S, lo + Wl)
+        if a < e:
+            ck[:, a - lo:e - lo] = k[:, a - slot:e - slot]
+            cv[:, a - lo:e - lo] = v[:, a - slot:e - slot]
+        kv_pos = torch.arange(lo, lo + Wl, device=ck.device)
         ok = kv_pos <= cache_pos                       # ring full: all True
         if window and window < W:
             ok &= kv_pos > cache_pos - window
         oks.append(ok)
+    return oks
+
+
+def _write_cache(cache: dict, k: Parts, v: Parts, cache_pos, window: int):
+    """The token's K/V written into a dense cache of `Parts` whose rows do
+    not split (`_write_rows`): each position its heads (k and v laid out
+    as the cache). Returns (cache k, cache v, each position's visible
+    rows)."""
+    ck, cv = cache["k"], cache["v"]
+    if ck.layout == 1:
+        raise ValueError("a KV cache split over its rows needs its step's "
+                         "ShardLayout (launch.steps)")
+    oks = _write_rows(list(ck), list(cv), list(k), list(v), cache_pos,
+                      window, [0] * len(ck), 1)
     return ck, cv, ck.like(oks, "own")
 
 
-def _attend_seq_split(q: Parts, k: Parts, v: Parts, ok: Parts, softcap,
-                      split: bool) -> Parts:
-    """Decode attention over a cache whose rows split over `kv_seq`: q
-    whole at every position, each position's partial softmax (m, l, acc)
-    over its rows for every head, merged in model order
-    (`softmax_merge`) into each position's heads (all of them where the
-    heads do not split)."""
-    stats = []
-    for j in range(len(q)):
-        qj, kj = q[j], k[j]
-        B, Sq, Hq, D = qj.shape
-        Hkv = kj.shape[2]
-        qg = qj.reshape(B, Sq, Hkv, Hq // Hkv, D)
-        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj).to(torch.float32)
-        logits = _softcap(logits / torch.tensor(float(D)).sqrt(), softcap)
-        logits = torch.where(ok[j][None, None, None, None, :], logits,
-                             NEG_INF)
-        m = logits.amax(dim=-1, keepdim=True)
-        p = torch.exp(logits - m)
-        acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v[j].to(torch.float32))
+def _partial_softmax(q, k, v, ok, softcap) -> tuple:
+    """One position's partial softmax over its cache rows: q (B, Sq, Hq,
+    D), k/v (B, Wl, Hkv, D), ok (Wl,) its visible rows -> (m, l, acc) as
+    `distributed.sharding.lse_merge` takes them, float32. With no
+    visible row m is NEG_INF."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).to(torch.float32)
+    logits = _softcap(logits / torch.tensor(float(D)).sqrt(), softcap)
+    logits = torch.where(ok[None, None, None, None, :], logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
 
-        def heads(t):                   # (B, Hkv, G, Sq, .) -> (B, Sq, Hq, .)
-            return t.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, -1)
-        stats.append((heads(m), heads(p.sum(dim=-1, keepdim=True)),
-                      heads(acc)))
-    outs = softmax_merge(stats, q.devices, split)
-    return q.like([o.to(CDT) for o in outs], 2 if split else "whole", CDT)
+    def heads(t):                       # (B, Hkv, G, Sq, .) -> (B, Sq, Hq, .)
+        return t.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, -1)
+    return heads(m), heads(p.sum(dim=-1, keepdim=True)), heads(acc)
+
+
+def _decode_split(qs, cks, cvs, ks, vs, cache_pos, window: int, softcap,
+                  heads: bool) -> list:
+    """A decode step's attention over caches whose rows split over
+    positions (the module docstring): this shard's positions' q, cache
+    K/V rows and token K/V, one of each a position. The token is written
+    by the position that holds its slot (`_write_rows`), each position
+    takes its partial softmax over its rows and `ShardLayout.merge`
+    merges every block's in the `kv_seq` order -> each position's output
+    (float32): its 1/M block of the heads where `heads` (q holds every
+    head), else the heads of its q."""
+    layout, k = _kv_split()
+    oks = _write_rows(cks, cvs, ks, vs, cache_pos, window,
+                      layout.kv_block[k], layout.kv_count)
+    stats = [_partial_softmax(q, ck, cv, ok, softcap)
+             for q, ck, cv, ok in zip(qs, cks, cvs, oks, strict=True)]
+    return layout.merge(stats, heads)
 
 
 def _own_heads(k: Parts, q: Parts, cfg: ArchConfig) -> Parts:

@@ -109,8 +109,9 @@ class DataSplit:
     count of slots dropped at capacity (0-d tensors on the shards'
     devices). A layer is known by the order in which a shard meets it.
     Shards run in lockstep threads (`distributed.sharding.run_shards`)
-    take their index from there, and each waits at a layer for the
-    shards before it."""
+    take their index from there (their block of the batch's rows: each
+    set of replicas has a `DataSplit` of its own), and each waits at a
+    layer for the shards before it."""
 
     def __init__(self, tokens: int):
         self.tokens = tokens
@@ -126,7 +127,7 @@ class DataSplit:
         """(E,) slots of each expert of `layer` before this shard's, on
         counts' device, and whether this is the shard's first pass."""
         group = data_shard()
-        k = self.shard if group is None else group[1]
+        k = self.shard if group is None else group[0].layout.row[group[1]]
         with self._cond:
             # a layer is the n-th one the shard meets: shards may run
             # skeletons of their own, so the modules differ, the order not

@@ -21,7 +21,9 @@ on one card or on two, against the unsharded trainer; a tensor-parallel
 step over a (1, 4) mesh on one card against the unsharded trainer and
 the same mesh on the CPU, its flash launches carrying each position's
 heads; tensor-parallel serving of a precoded PIM model over a (1, 4)
-mesh on one card against the unsharded prefill and decode.
+mesh on one card against the unsharded prefill and decode, and a
+reduced granite over a (2, 2) mesh under `long_500k`'s context
+parallelism.
 Marked
 `cuda`: skipped without a GPU. Run on a GPU machine with
 
@@ -1680,3 +1682,71 @@ def test_tp_serve_on_one_card(dev):
     sure = top2[..., 0] - top2[..., 1] > 2 * 2 ** -6
     assert torch.equal(runs["clean"].argmax(-1)[sure], want.argmax(-1)[sure])
     assert torch.equal(runs["faulted"], runs["clean"])
+
+
+def test_cp_serve_on_one_card(dev):
+    """Reduced granite-3-2b (flash, 8 heads, 4 KV heads) served over a
+    (2, 2) mesh on one card under a `long_500k` cell's rules (the batch
+    whole on both data shards, the KV rows over `data`, the KV heads over
+    `model`), the prompt in the first of the two blocks of rows: the
+    prefill and four decode steps against the unsharded steps on the
+    card, logits within 2^-6 and greedy tokens equal where the top-2
+    margin clears twice that (test_tp_serve_on_one_card's bounds; a PIM
+    model is held on the card by chip_smoke's phase 23, since the merge's
+    ulps can move a quantization level), both data shards' logits equal
+    bit for bit, and every position launching `flash_fwd` with 4 query
+    and 2 KV heads."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import build
+    from repro_torch.launch.cells import rules_for_cell, settings_for
+    from repro_torch.launch.steps import build_prefill, build_serve
+    from repro_torch.models import init_caches, init_params
+    from repro_torch.models.lm import place_params
+    cfg = dataclasses.replace(get_config("granite_3_2b").reduced(
+        n_groups=2, d_model=256, n_heads=8, n_kv_heads=4, d_ff=512),
+        attn_impl="flash")
+    B, S, T, deep = 2, 64, 4, 256
+    model = init_params(cfg, 0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (T + 1, B, S),
+                           generator=torch.Generator().manual_seed(1))
+
+    def serve(step_pf, step_sv, m, grow=False):
+        lg, caches = step_pf(m, {"tokens": tokens[0]}, max_seq=deep)
+        if grow:
+            pre, caches = caches, init_caches(cfg, B, deep, device=dev)
+            for pos, e in pre.items():
+                for nm, val in e.items():
+                    caches[pos][nm][:, :, :val.shape[2]] = val
+        out = [lg[:, -1:]]
+        for i in range(T):            # the same tokens fed to both runs
+            lg, caches = step_sv(m, caches, {"tokens": tokens[i + 1, :, :1],
+                                             "pos": S + i})
+            out.append(lg)
+            if not grow:
+                got = step_sv.shards.by_shard
+                assert torch.equal(got[0], got[1])
+        return torch.cat(out, 1).float().cpu()
+    want = serve(build_prefill(cfg)[0], build_serve(cfg, B, deep)[0], model,
+                 True)
+    mesh = sharding.Mesh(np.array([[dev] * 2] * 2, dtype=object),
+                         ("data", "model"))
+    long = SHAPES["long_500k"]
+    rules = rules_for_cell(mesh, cfg, long, settings_for("granite_3_2b",
+                                                         long))
+    assert rules["batch"] is None and rules["kv_seq"] == ("data",)
+    (p_sh, _), _ = build_prefill(cfg)[1](mesh, rules)
+    placed = place_params(model, p_sh)
+    with build.by_position() as log:
+        got = serve(build_prefill(cfg, mesh=mesh, rules=rules)[0],
+                    build_serve(cfg, B, deep, mesh=mesh, rules=rules)[0],
+                    placed)
+    for pos in np.ndindex(2, 2):
+        assert log.launches[pos]["flash_fwd"] > 0, log.launches
+        assert {h[1:] for h in log.heads[pos]} == {(4, 2)}, log.heads
+    d = float((got - want).abs().max())
+    assert d <= 2 ** -6, d
+    top2 = want.topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > 2 * 2 ** -6
+    assert torch.equal(got.argmax(-1)[sure], want.argmax(-1)[sure])

@@ -457,18 +457,16 @@ def test_cache_and_pim_axes_match_jax(arch):
 
 def test_long_context_rules_and_item_14():
     """`long_500k`: on (1, 4) the KV sequence goes over `data` and
-    `model` (2 KV heads do not divide 4) and a decode runs with it; a
-    data axis of 2 splits the KV sequence over `data`, which raises
-    (ROADMAP Queue 1, item 14)."""
+    `model` (2 KV heads do not divide 4) and a decode runs with it; on
+    (2, 2) the KV heads divide `model` and the sequence splits over
+    `data` alone (context parallelism: the batch whole on each data
+    shard), and the prefill and decode run too; both against the
+    unsharded prefill and decode."""
     cfg = _cfg("dense")
     long = SHAPES["long_500k"]
-    mesh = _mesh(1, 4)
-    rules = rules_for_cell(mesh, cfg, long, settings_for("granite_3_2b",
-                                                         long))
-    assert rules["batch"] is None and rules["kv_seq"] == ("data", "model")
     model = init_params(cfg, SEED, device="cpu")
     inp = _inputs("dense")
-    want, got = [], []
+    want = []
     pf, sh = build_prefill(cfg)
     lg, pre = pf(model, {"tokens": inp["tokens"][:1]})
     from repro_torch.models import init_caches
@@ -480,26 +478,27 @@ def test_long_context_rules_and_item_14():
     for i in range(T):
         want.append(sv(model, caches, {"tokens": inp["toks"][i][:1],
                                        "pos": S + i})[0])
-    (p_sh, _), _ = sh(mesh, rules)
-    placed = place_params(model, p_sh)
-    tpf, _ = build_prefill(cfg, mesh=mesh, rules=rules)
-    tlg, tc = tpf(placed, {"tokens": inp["tokens"][:1]}, max_seq=S + T)
-    assert model_dim(tc["pos0"]["k"].sharding, 5) == 2
-    torch.testing.assert_close(tlg, lg, rtol=0, atol=LOGITS_ATOL)
-    tsv, _ = build_serve(cfg, 1, S + T, mesh=mesh, rules=rules)
-    for i in range(T):
-        got.append(tsv(placed, tc, {"tokens": inp["toks"][i][:1],
-                                    "pos": S + i})[0])
-    torch.testing.assert_close(torch.cat(got, 1), torch.cat(want, 1),
-                               rtol=0, atol=LOGITS_ATOL)
-    mesh2 = _mesh(2, 2)
-    rules2 = rules_for_cell(mesh2, cfg, long,
-                            settings_for("granite_3_2b", long))
-    for builder in (lambda: build_prefill(cfg, mesh=mesh2, rules=rules2),
-                    lambda: build_serve(cfg, 2, S, mesh=mesh2,
-                                        rules=rules2)):
-        with pytest.raises(ValueError, match="item 14"):
-            builder()
+    for shape, kv_seq in (((1, 4), ("data", "model")), ((2, 2), ("data",))):
+        mesh = _mesh(*shape)
+        rules = rules_for_cell(mesh, cfg, long,
+                               settings_for("granite_3_2b", long))
+        assert rules["batch"] is None and rules["kv_seq"] == kv_seq
+        (p_sh, _), _ = sh(mesh, rules)
+        placed = place_params(model, p_sh)
+        tpf, _ = build_prefill(cfg, mesh=mesh, rules=rules)
+        tlg, tc = tpf(placed, {"tokens": inp["tokens"][:1]}, max_seq=S + T)
+        assert model_dim(tc["pos0"]["k"].sharding, 5) == (
+            2 if "model" in kv_seq else 3)
+        assert tc["pos0"]["k"].sharding.parts(5)[2] == 4 // shape[1] * (
+            shape[1] if "model" in kv_seq else 1)
+        torch.testing.assert_close(tlg, lg, rtol=0, atol=LOGITS_ATOL)
+        tsv, _ = build_serve(cfg, 1, S + T, mesh=mesh, rules=rules)
+        got = []
+        for i in range(T):
+            got.append(tsv(placed, tc, {"tokens": inp["toks"][i][:1],
+                                        "pos": S + i})[0])
+        torch.testing.assert_close(torch.cat(got, 1), torch.cat(want, 1),
+                                   rtol=0, atol=LOGITS_ATOL)
 
 
 # ---------------------------------------------------------------------------
